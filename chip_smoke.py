@@ -5,21 +5,31 @@
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. It builds the
 port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
-  1. the card's name and power limit, and the kernel build (both nvcc runs
-     started together);
+  1. the card's name and power limit, and the kernel build (all four nvcc
+     runs started together);
   2. K1 (dequant_matmul) against its plain version at the five 2-bit
      Llama-2-7B projection shapes (B = 1, 8, 32, 600) and at small 3/4/8-bit,
      qfn-a and code_bits=3 shapes, with kernel, plain, bound and library
      (torch.matmul of the dequantised bf16 weight) times;
   3. K2 (flash_prefill) against its plain version (B=2, H=32, S=600,
      plen=[600, 431]; GQA H=64, KV=8), with SDPA as the library yardstick;
-  4. a 2-layer full-width packed Llama-2-7B: 600-token prefill + 4
+  4. K3 (rht_apply_fused) against its plain version at the five
+     Llama-2-7B (a, b) splits, B in (1, 5, 32), both directions, bf16 and
+     f32, with a scaleWH fold, and a right-factor-free case; the round
+     trip; times beside the un-fused apply_rht;
+  5. K1' (slabdot_matmul) against its plain version and against K1 through
+     the microbenchmark's own functions (tools/bench_kernel.py) at its five
+     shapes, and at small 3/4-bit shapes;
+  6. a 2-layer full-width packed Llama-2-7B: 600-token prefill + 4
      teacher-forced decode steps on the card vs the plain path on the CPU
-     in f32 on the same weights;
-  5. full-depth 2-bit Llama-2-7B with a packed lm_head served through
+     in f32 on the same weights, un-fused with bf16 KV and then with
+     QUIP_FUSED_RHT=1 and an int8 cache;
+  7. full-depth 2-bit Llama-2-7B with a packed lm_head served through
      ``Engine.run`` (4 greedy requests, prompts 600/128/37/5, 40 new tokens
-     each); the kernels' launch counters are zeroed just before and read
-     just after; then prefill and decode timings at b1 and b4.
+     each), first un-fused with bf16 KV, then with QUIP_FUSED_RHT=1, int8
+     KV and a 200-token shared prefix; the kernels' launch counters are
+     zeroed just before each run and read just after; then prefill and
+     b4 decode timings, and b1 decode with and without QUIP_FUSED_RHT=1.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -27,6 +37,7 @@ is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -42,10 +53,6 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# device memory rate (B/s) and dense bf16 tensor rate (FLOP/s) by card
-# (NVIDIA data sheets; SXM unless the name says PCIe)
-_PEAKS = {"pcie": (2.0e12, 756e12), "sxm": (3.35e12, 989e12)}
-
 RESULTS: dict = {}
 
 
@@ -53,41 +60,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def peaks(name: str):
-    return _PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
-
-
 def bound_ms(nbytes: float, ops: float, name: str):
-    bw, fl = peaks(name)
+    from quip_tpu_torch.utils.timing import card_peaks
+    bw, fl = card_peaks(name)
     tb, to = nbytes / bw, ops / fl
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
-
-
-def time_ms(fns, iters: int) -> float:
-    """Device ms per call: one CUDA graph holds one call of each of ``fns``
-    (cycling through copies keeps the working set past the 50 MB L2 where
-    the real caller finds it cold) and is replayed ``iters`` times between
-    two events. The graph takes the host's launch cost out: a wrapper's
-    Python and ctypes work outlasts a decode-size kernel on this host."""
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for f in fns:
-            f()
-    graph.replay()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        graph.replay()
-    b.record()
-    torch.cuda.synchronize()
-    ms = a.elapsed_time(b) / (iters * len(fns))
-    del graph
-    return ms
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -114,7 +91,8 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t = time.time()
-    logs = _build.build_all(["dequant_matmul", "flash_attn"])
+    logs = _build.build_all(["dequant_matmul", "flash_attn", "rht",
+                             "slabdot_matmul"])
     build_s = time.time() - t
     log(f"card: {smi}")
     log(f"kernel build (parallel nvcc, sm_90a): {build_s:.1f} s")
@@ -134,6 +112,7 @@ def phase_device():
 def phase_k1(name: str):
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.pack.format import PLANE_SPLITS
+    from quip_tpu_torch.utils.timing import time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -227,6 +206,7 @@ def phase_k1(name: str):
 
 def phase_k2(name: str):
     from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.utils.timing import time_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(2)
@@ -274,6 +254,185 @@ def phase_k2(name: str):
     return worst, rec
 
 
+def phase_k3(name: str):
+    from quip_tpu_torch.core import incoherence as inc
+    from quip_tpu_torch.kernels import rht as K3
+    from quip_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    rots = torch.Generator().manual_seed(4)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    tol = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+    worst_abs = 0.0
+
+    def check(x, vec, t, tr):
+        nonlocal worst_abs
+        got = K3.rht_apply_fused(x, vec, t.left, t.right, transpose=tr)
+        want = K3.rht_apply_fused_ref(x, vec, t.left, t.right, transpose=tr)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        err, rel = rel_err(got, want)
+        assert rel <= tol[x.dtype], (t.a, t.b, x.shape, x.dtype, tr, rel)
+        worst[x.dtype] = max(worst[x.dtype], rel)
+        worst_abs = max(worst_abs, err)
+
+    # right-factor-free (n == a) at a small n
+    t8 = inc.RHT(torch.ones(64, device=dev), inc._hadamard(6, device=dev),
+                 None, 64)
+    v8 = (torch.rand(64, device=dev, generator=g) + 0.5) * (
+        torch.randint(0, 2, (64,), device=dev, generator=g) * 2 - 1)
+    for dt in tol:
+        for tr in (False, True):
+            check(torch.randn(5, 64, device=dev, generator=g).to(dt), v8, t8,
+                  tr)
+
+    # the (n, direction) pairs of one b1 decode step: V side forward, U
+    # side transpose
+    on_path = {(4096, False), (4096, True), (11008, False), (12288, True),
+               (22016, True), (32000, True)}
+    splits = {4096: (64, 64), 11008: (128, 86), 12288: (128, 96),
+              22016: (128, 172), 32000: (128, 250)}
+    rows = []
+    sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    bound_by = set()
+    for n, ab in splits.items():
+        t = inc.gen_rht(rots, n, device=dev)
+        assert (t.a, t.b) == ab, (n, t.a, t.b)
+        swh = torch.rand(n, device=dev, generator=g) + 0.5
+        vec = t.signs / swh                  # the scaleWH fold
+        for dt in tol:
+            for B in (1, 5, 32):
+                x = torch.randn(B, n, device=dev, generator=g).to(dt)
+                for tr in (False, True):
+                    check(x, vec, t, tr)
+        # forward then transpose gives x back (f32, signs only)
+        x = torch.randn(5, n, device=dev, generator=g)
+        y = K3.rht_apply_fused(x, t.signs, t.left, t.right)
+        back = K3.rht_apply_fused(y, t.signs, t.left, t.right,
+                                  transpose=True)
+        rt = (back - x).abs().max().item()
+        assert rt <= 1e-5, (n, rt)
+        # times, bf16 (the serving dtype). The operands (at most 380 KB)
+        # sit in L2 here; their bytes are far below the kernel's time
+        tv = inc.RHT(vec, t.left, t.right, n)
+        for B in (1, 32):
+            x = torch.randn(B, n, device=dev, generator=g).bfloat16()
+            for tr in (False, True):
+                ms = time_ms([lambda: K3.rht_apply_fused(
+                    x, vec, t.left, t.right, transpose=tr)], 50)
+                plain = time_ms([lambda: K3.rht_apply_fused_ref(
+                    x, vec, t.left, t.right, transpose=tr)], 10)
+                lib = time_ms([lambda: inc.apply_rht(
+                    tv, x, axis=-1, transpose=tr)], 50)
+                a, b = ab
+                bms, by = bound_ms(2 * B * n * 2 + 4 * (n + a * a + b * b),
+                                   2 * B * a * b * (a + b), name)
+                rows.append(dict(n=n, a=a, b=b, B=B, transpose=tr, ms=ms,
+                                 plain_ms=plain, library_ms=lib,
+                                 bound_ms=bms, bound_by=by))
+                log(f"K3 n={n:5d} ({a}x{b}) B={B:2d} "
+                    f"{'transpose' if tr else 'forward  '}: {ms:.4f} ms "
+                    f"(bound {bms:.5f} {by}), plain {plain:.4f} ms, "
+                    f"apply_rht (2 matmuls + multiply) {lib:.4f} ms")
+                if B == 1 and (n, tr) in on_path:
+                    bound_by.add(by)
+                    for k, v in (("ms", ms), ("plain_ms", plain),
+                                 ("bound_ms", bms), ("library_ms", lib)):
+                        sums[k] += v
+    assert len(bound_by) == 1, bound_by    # one word for the summed row
+    sums["bound_by"] = bound_by.pop()
+    log(f"K3 vs plain, 5 Llama-2-7B splits + right=None, B in (1, 5, 32), "
+        f"both directions, scaleWH fold: max rel err bf16 "
+        f"{worst[torch.bfloat16]:.2e} <= 2e-2, f32 "
+        f"{worst[torch.float32]:.2e} <= 2e-5; round trip <= 1e-5")
+    RESULTS["k3"] = rows
+    sums["max_rel_err_bf16"] = worst[torch.bfloat16]
+    sums["max_rel_err_f32"] = worst[torch.float32]
+    return worst_abs, sums
+
+
+def phase_k1p(name: str):
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import slabdot as SD
+    from quip_tpu_torch.pack.format import PLANE_SPLITS
+    from quip_tpu_torch.tools import bench_kernel as BK
+    from quip_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = worst_rel = worst_k1 = 0.0
+
+    def check(x, planes, scale, bits, tile_m):
+        """K1' vs its plain version (1e-3: same arithmetic, other
+        summation order) and vs K1 (2e-2: the 128*sum(x) fix-up in f32)."""
+        nonlocal worst, worst_rel, worst_k1
+        got = SD.slabdot_matmul(x, planes, scale, bits=bits, tile_m=tile_m)
+        want = SD.slabdot_matmul_ref(x, planes, scale, bits=bits)
+        k1 = DM.dequant_matmul(x, planes, scale, None, bits=bits)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        assert rel <= 1e-3, (x.shape, bits, tile_m, rel)
+        _, relk = rel_err(got, k1)
+        assert relk <= 2e-2, (x.shape, bits, tile_m, "vs K1", relk)
+        worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        worst_k1 = max(worst_k1, relk)
+
+    scale = torch.tensor(0.02, device=dev)
+    for bits in (3, 4):               # two planes with weights; 4-bit fields
+        m, d = 640, 1024
+        planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                     dtype=torch.int32, generator=g,
+                                     device=dev)
+                       for fb, _ in PLANE_SPLITS[bits])
+        for B in (1, 5):
+            x = torch.randn(B, d, device=dev, generator=g).bfloat16().float()
+            for tile_m in (128, 640):
+                check(x, planes, scale, bits, tile_m)
+
+    # the microbenchmark's own path: its shapes, B = 1, 2-bit, one tile_m
+    rows = []
+    sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                k1_ms=0.0)
+    n_launch = 0
+    for m, d in BK.SHAPES:
+        tile_m = BK.legal_tiles(m)[0]
+        SD.launches = 0
+        bench, (x, copies, scale) = BK.bench_shape(m, d, tiles=(tile_m,))
+        n_launch += SD.launches
+        k1_row, sd_row, k1_again = bench
+        check(x.float(), copies[0], scale, 2, tile_m)
+        plain = time_ms([lambda: SD.slabdot_matmul_ref(
+            x, copies[0], scale, bits=2)], 2)
+        W = DM.dequant_weight(copies[0], scale, None, bits=2,
+                              d=d).to(torch.bfloat16)
+        lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
+        bms, by = bound_ms(d * 2 + d * 2 * m // 8 + m * 2, 2 * d * m, name)
+        rows.append(dict(m=m, d=d, tile_m=tile_m, ms=sd_row["ms"],
+                         k1_ms=k1_row["ms"], k1_again_ms=k1_again["ms"],
+                         plain_ms=plain, library_ms=lib, bound_ms=bms,
+                         bound_by=by, err_vs_k1=sd_row["err"]))
+        log(f"K1' {m}x{d} B=1 tile_m={tile_m}: {sd_row['ms']:.4f} ms "
+            f"(bound {bms:.4f} {by}, {bms / sd_row['ms']:.0%}), K1 "
+            f"{k1_row['ms']:.4f} / again {k1_again['ms']:.4f} ms, plain "
+            f"{plain:.3f} ms, torch.matmul bf16 {lib:.4f} ms, vs K1 "
+            f"{sd_row['err']:.1e}")
+        for k, v in (("ms", sd_row["ms"]), ("plain_ms", plain),
+                     ("bound_ms", bms), ("library_ms", lib),
+                     ("k1_ms", k1_row["ms"])):
+            sums[k] += v
+        del copies, W
+        torch.cuda.empty_cache()
+    log(f"K1' vs plain (f32-held bf16 x): max rel err {worst_rel:.2e} <= "
+        f"1e-3; vs K1: {worst_k1:.2e} <= 2e-2; {n_launch} launches in the "
+        f"microbenchmark's path")
+    assert n_launch > 0
+    RESULTS["k1p"] = rows
+    sums.update(max_rel_err=worst_rel, max_rel_err_vs_k1=worst_k1,
+                launches=n_launch)
+    return worst, sums
+
+
 def _to_cpu_f32(model):
     cpu = copy.deepcopy(model).to("cpu")
     for mod in cpu.modules():
@@ -283,12 +442,28 @@ def _to_cpu_f32(model):
     return cpu
 
 
-def phase_slice():
+@contextlib.contextmanager
+def fused_rht(on: bool):
+    """QUIP_FUSED_RHT=1 inside the block (ops/qlinear.py reads it at call
+    time), the caller's value restored after it."""
+    old = os.environ.get("QUIP_FUSED_RHT")
+    os.environ["QUIP_FUSED_RHT"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["QUIP_FUSED_RHT"]
+        else:
+            os.environ["QUIP_FUSED_RHT"] = old
+
+
+def phase_slice(combos=((False, False), (True, True))):
     from quip_tpu_torch.models import get_config
     from quip_tpu_torch.models import paged as PG
     from quip_tpu_torch.models.build import packed_llama
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
 
     cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
     model = packed_llama(cfg, bits=2, seed=3, dtype=torch.bfloat16,
@@ -298,42 +473,158 @@ def phase_slice():
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 600)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,)))
 
-    def drive(params, dev, dtype):
+    def drive(params, dev, dtype, quantized):
         kv = PG.init_paged(1, 1024 + 32, cfg, dtype=dtype, hot=32, page=64,
-                           device=dev)
+                           quantized=quantized, device=dev)
         lg, kv = PG.paged_prefill_slot(params, prompt.to(dev), 600, kv, 0,
                                        cfg)
         out = [lg.float().cpu()]
+        k3_step = []
         for t in steps:
+            k3 = K3.launches
             lg, hot = PG.paged_decode_step(params, t.view(1, 1).to(dev), kv,
                                            cfg, page=64)
             kv = PG.advance(kv, hot)
+            k3_step.append(K3.launches - k3)
             out.append(lg[0].float().cpu())
-        return torch.stack(out)
+        return torch.stack(out), k3_step
 
-    k1, k2 = DM.launches, FA.launches
-    got = drive(model, "cuda", torch.bfloat16)
-    torch.cuda.synchronize()
-    assert FA.launches - k2 == cfg.n_layers, "prefill did not run K2"
-    assert DM.launches > k1
-    want = drive(ref, "cpu", torch.float32)
-    assert torch.isfinite(got).all()
-    err = (got - want).abs().max().item() / want.abs().max().item()
-    log(f"slice check (2 layers, full width, 600-token prefill + 4 decode "
-        f"steps, card bf16 vs CPU f32 plain): normalised max err "
-        f"{err:.2e} <= 3e-2")
-    assert err <= 3e-2, err
-    RESULTS["slice_err"] = err
+    # the un-fused bf16-KV path, then this slice's configuration: fused RHT
+    # and an int8 cache, each against the CPU f32 plain path on the same
+    # weights in the same configuration. Limit 3e-2 of max |logit| with a
+    # bf16 cache (bf16 activations against f32). With an int8 cache both
+    # sides quantise their own rows, and a row rounded to bf16 first lands
+    # on another int8 code than its f32 original about as often as not: one
+    # step is 1/127 of the row's absmax, the size of bf16's own rounding.
+    # That is a second, independent error of the same size on every K and V
+    # row, so the limit grows by sqrt(2): 4e-2.
+    for fused, quantized in combos:
+        k1, k2 = DM.launches, FA.launches
+        with fused_rht(fused):
+            got, k3_step = drive(model, "cuda", torch.bfloat16, quantized)
+            torch.cuda.synchronize()
+            assert FA.launches - k2 == cfg.n_layers, "prefill did not run K2"
+            assert DM.launches > k1
+            # V and U side of 4 projections per layer and of the lm_head
+            want_k3 = 2 * (4 * cfg.n_layers + 1) if fused else 0
+            assert k3_step == [want_k3] * len(steps), (k3_step, want_k3)
+            want, _ = drive(ref, "cpu", torch.float32, quantized)
+        assert torch.isfinite(got).all()
+        err = (got - want).abs().max().item() / want.abs().max().item()
+        what = (f"{'QUIP_FUSED_RHT=1' if fused else 'un-fused RHT'}, "
+                f"{'int8' if quantized else 'bf16'} KV")
+        limit = 4e-2 if quantized else 3e-2
+        log(f"slice check, {what} (2 layers, full width, 600-token prefill "
+            f"+ 4 decode steps, card bf16 vs CPU f32 plain): normalised max "
+            f"err {err:.2e} <= {limit:.0e}; K3 launches per decode step "
+            f"{k3_step[0]}")
+        assert err <= limit, (what, err)
+        RESULTS[f"slice_err_fused{int(fused)}_int8{int(quantized)}"] = err
     del model, ref
     torch.cuda.empty_cache()
+
+
+def _run_engine(eng, reqs, cfg):
+    """``eng.run(reqs)`` with every kernel's count set to 0 just before and
+    read just after; checks finite logits, token ranges and lengths.
+    Returns the counts, the decode steps and each step's K1/K3 launches."""
+    from quip_tpu_torch.models import paged as PG
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
+
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    orig = (PG.paged_decode_step, PG.paged_prefill_slot,
+            PG.paged_append_step)
+    per_step = []
+
+    def checked(fn, decode=False):
+        def run(*a, **kw):
+            before = (DM.launches, K3.launches)
+            out = fn(*a, **kw)
+            finite.logical_and_(torch.isfinite(out[0]).all())
+            if decode:
+                per_step.append((DM.launches - before[0],
+                                 K3.launches - before[1]))
+            return out
+        return run
+
+    PG.paged_prefill_slot = checked(orig[1])
+    PG.paged_append_step = checked(orig[2])
+    # paged_decode_step calls the module's paged_append_step: wrap it last
+    # and count per step there
+    PG.paged_decode_step = checked(orig[0], decode=True)
+    try:
+        DM.launches = FA.launches = K3.launches = 0
+        t = time.time()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.time() - t
+        k1, k2, k3 = DM.launches, FA.launches, K3.launches
+    finally:
+        (PG.paged_decode_step, PG.paged_prefill_slot,
+         PG.paged_append_step) = orig
+    for r, q in zip(out, reqs):
+        assert len(r.generated) == q["max_new_tokens"] + 1, (r.uid,
+                                                             len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert bool(finite), "NaN/inf logits"
+    return dict(run_s=run_s, decode_steps=len(per_step), k1=k1, k2=k2, k3=k3,
+                k1_per_step=min(s[0] for s in per_step),
+                k3_per_step=min(s[1] for s in per_step))
+
+
+def _b1_decode(model, cfg, rng, n_steps=48, n_prof=8):
+    """b1 decode on the engine settings of phase 5: host ms per step over
+    ``n_steps`` (crosses a hot-ring flush), then ``n_prof`` steps under
+    torch.profiler (CUPTI): kernels' device ms, kernel launches and aten
+    ops per step; busy share = device ms over the unprofiled step time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from quip_tpu_torch.serve.engine import Engine
+
+    e = Engine(model, cfg, max_batch=1, max_seq=1024, hot=32, page=64,
+               cache_dtype=torch.bfloat16, device="cuda")
+    e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
+             max_new_tokens=n_steps + 8)
+    e.step()                     # admission + first decode
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        e.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / n_steps
+    # profile a fresh engine's first steps (one 64-row page in use)
+    e = Engine(model, cfg, max_batch=1, max_seq=1024, hot=32, page=64,
+               cache_dtype=torch.bfloat16, device="cuda")
+    e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
+             max_new_tokens=n_prof + 8)
+    e.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            e.step()
+        torch.cuda.synchronize()
+    dev_t = lambda x: getattr(x, "self_device_time_total",  # noqa: E731
+                              getattr(x, "self_cuda_time_total", 0))
+    kern = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
+    dev_ms = sum(dev_t(x) for x in kern) / 1e3 / n_prof
+    top = sorted(kern, key=dev_t, reverse=True)[:6]
+    return dict(
+        ms_per_step=ms, tok_s=1e3 / ms, device_ms=dev_ms,
+        kernel_launches=sum(x.count for x in kern) / n_prof,
+        aten_ops=sum(x.count for x in prof.key_averages()
+                     if x.key.startswith("aten::")) / n_prof,
+        busy=dev_ms / ms if dev_ms else None,
+        top=[(x.key, dev_t(x) / n_prof / 1e3, x.count / n_prof)
+             for x in top])
 
 
 def phase_serve(name: str, smi: str):
     from quip_tpu_torch.models import get_config
     from quip_tpu_torch.models import paged as PG
     from quip_tpu_torch.models.build import packed_llama
-    from quip_tpu_torch.kernels import dequant_matmul as DM
-    from quip_tpu_torch.kernels import flash_attn as FA
     from quip_tpu_torch.serve.engine import Engine
 
     torch.cuda.reset_peak_memory_stats()
@@ -344,119 +635,109 @@ def phase_serve(name: str, smi: str):
     torch.cuda.synchronize()
     log(f"built 32-layer 2-bit Llama-2-7B (packed lm_head) in "
         f"{time.time() - t:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = {n: rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (600, 128, 37, 5, 200)}
+    cache_bytes = lambda e: sum(  # noqa: E731
+        t.numel() * t.element_size() for t in e.pkv
+        if isinstance(t, torch.Tensor) and t.is_cuda)
+
+    # --- the first slice's path: un-fused RHT, bf16 KV, no prefix ---------
     eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
                  cache_dtype=torch.bfloat16, device="cuda")
-    rng = np.random.default_rng(0)
-    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
-                 max_new_tokens=40) for n in (600, 128, 37, 5)]
+    reqs = [dict(prompt=prompts[n], max_new_tokens=40)
+            for n in (600, 128, 37, 5)]
+    with fused_rht(False):
+        base = _run_engine(eng, reqs, cfg)
+    base.update(cache_gib=cache_bytes(eng) / 2 ** 30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"Engine.run (bf16 KV, un-fused RHT): 4 requests in "
+        f"{base['run_s']:.2f} s, {base['decode_steps']} decode steps, K1 "
+        f"launches {base['k1']}, K2 {base['k2']}, K3 {base['k3']}; KV cache "
+        f"{base['cache_gib']:.3f} GiB, peak {base['peak_gib']:.2f} GiB")
+    assert base["k1_per_step"] >= 129, base
+    assert base["k2"] >= 32 and base["k3"] == 0, base
+    RESULTS["serve"] = base
 
-    finite = torch.ones((), dtype=torch.bool, device="cuda")
-    orig_dec, orig_pre = PG.paged_decode_step, PG.paged_prefill_slot
-    steps = [0]
-
-    def dec(*a, **kw):
-        lg, hot = orig_dec(*a, **kw)
-        finite.logical_and_(torch.isfinite(lg).all())
-        steps[0] += 1
-        return lg, hot
-
-    def pre(*a, **kw):
-        lg, kv = orig_pre(*a, **kw)
-        finite.logical_and_(torch.isfinite(lg).all())
-        return lg, kv
-
-    PG.paged_decode_step, PG.paged_prefill_slot = dec, pre
-    DM.launches = 0
-    FA.launches = 0
-    t = time.time()
-    out = eng.run(reqs)
-    torch.cuda.synchronize()
-    run_s = time.time() - t
-    k1, k2 = DM.launches, FA.launches
-    PG.paged_decode_step, PG.paged_prefill_slot = orig_dec, orig_pre
-    n_dec = steps[0]
-    log(f"Engine.run: 4 requests in {run_s:.2f} s, {n_dec} decode steps, "
-        f"K1 launches {k1}, K2 launches {k2}")
-    for r in out:
-        assert len(r.generated) == 41, (r.uid, len(r.generated))
-        assert all(0 <= t < cfg.vocab_size for t in r.generated)
-    assert bool(finite), "NaN/inf logits"
-    assert k1 >= 129 * n_dec, (k1, n_dec)
-    assert k2 >= 32, k2
-    RESULTS["serve"] = dict(run_s=run_s, decode_steps=n_dec, k1=k1, k2=k2)
-
-    # prefill of the 600-token prompt
-    p600 = torch.tensor(reqs[0]["prompt"], device="cuda")[None]
+    # prefill of the 600-token prompt; K1 launches in it
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    p600 = torch.tensor(prompts[600], device="cuda")[None]
     kv = eng._sync_pkv()
     pre_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
+        k1 = DM.launches
         t = time.perf_counter()
         PG.paged_prefill_slot(eng.params, p600, 600, kv, 0, cfg)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t) * 1e3)
+        k1_prefill = DM.launches - k1
     prefill_ms = min(pre_ms)
+    del eng, kv
+    torch.cuda.empty_cache()
 
-    decode = {}
-    for b in (1, 4):
-        e = Engine(model, cfg, max_batch=b, max_seq=1024, hot=32, page=64,
-                   cache_dtype=torch.bfloat16, device="cuda")
-        for _ in range(b):
-            e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
-                     max_new_tokens=100)
-        e.step()                     # admissions + first decode
-        n = 48                       # crosses a hot-ring flush
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(n):
-            e.step()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t) * 1e3 / n
-        decode[b] = dict(ms_per_step=ms, tok_s=b * 1e3 / ms)
-        del e
-    # device time of b1 decode steps, by kernel (torch.profiler, CUPTI);
-    # busy share = device ms per step over the unprofiled step time above
-    e = Engine(model, cfg, max_batch=1, max_seq=1024, hot=32, page=64,
+    # --- this slice's configuration: fused RHT, int8 KV, shared prefix ----
+    torch.cuda.reset_peak_memory_stats()
+    with fused_rht(True):
+        eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
+                     cache_dtype=torch.bfloat16, kv_quant=True,
+                     shared_prefix=prompts[200], device="cuda")
+        reqs = [dict(prompt=prompts[n], max_new_tokens=40) for n in
+                (128, 37, 5)] + [dict(prompt=prompts[600], max_new_tokens=40,
+                                      use_prefix=False)]
+        conf = _run_engine(eng, reqs, cfg)
+    conf.update(cache_gib=cache_bytes(eng) / 2 ** 30,
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"Engine.run (QUIP_FUSED_RHT=1, int8 KV, 200-token shared prefix; "
+        f"prompts 128/37/5 with it, 600 without): 4 requests in "
+        f"{conf['run_s']:.2f} s, {conf['decode_steps']} decode steps, K1 "
+        f"launches {conf['k1']}, K2 {conf['k2']}, K3 {conf['k3']} (per "
+        f"decode step at least K1 {conf['k1_per_step']}, K3 "
+        f"{conf['k3_per_step']}); KV cache {conf['cache_gib']:.3f} GiB, "
+        f"peak {conf['peak_gib']:.2f} GiB")
+    assert conf["k3_per_step"] >= 258 and conf["k1_per_step"] >= 129, conf
+    assert conf["k2"] == 32, conf
+    RESULTS["serve_fused_int8_prefix"] = conf
+    del eng
+    torch.cuda.empty_cache()
+
+    # --- timings ------------------------------------------------------------
+    e = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
                cache_dtype=torch.bfloat16, device="cuda")
-    e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(), max_new_tokens=60)
+    for _ in range(4):
+        e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
+                 max_new_tokens=100)
     e.step()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    n_prof = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            e.step()
-        torch.cuda.synchronize()
-    dev_t = lambda x: getattr(x, "self_device_time_total",  # noqa: E731
-                              getattr(x, "self_cuda_time_total", 0))
-    kern = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
-    dev_ms = sum(dev_t(x) for x in kern) / 1e3 / n_prof
-    launches = sum(x.count for x in kern) / n_prof
-    aten = sum(x.count for x in prof.key_averages()
-               if x.key.startswith("aten::")) / n_prof
-    busy = dev_ms / decode[1]["ms_per_step"] if dev_ms else None
-    top = sorted(kern, key=dev_t, reverse=True)[:6]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = time.perf_counter()
+    for _ in range(24):
+        e.step()
+    torch.cuda.synchronize()
+    b4_ms = (time.perf_counter() - t) * 1e3 / 24
+    del e
+    b1 = {}
+    for fused in (False, True):
+        with fused_rht(fused):
+            b1[fused] = _b1_decode(model, cfg, rng)
     log(f"prefill 600 tokens: {prefill_ms:.1f} ms "
-        f"({600 / prefill_ms * 1e3:.0f} tok/s)")
-    for b, d in decode.items():
-        log(f"decode b{b}: {d['ms_per_step']:.2f} ms/step, "
-            f"{d['tok_s']:.1f} tok/s")
-    log(f"b1 decode, profiled: {dev_ms:.2f} ms of kernels per step "
-        f"({launches:.0f} kernel launches, {aten:.0f} aten ops); device "
-        f"busy share " + (f"{busy:.1%}" if busy else "not measured"))
-    for x in top:
-        log(f"  {x.key[:60]:60s} {dev_t(x) / n_prof / 1e3:.3f} ms/step, "
-            f"{x.count / n_prof:.0f} launches/step")
-    log(f"peak device memory: {peak:.2f} GiB; card: {smi}")
-    RESULTS["serve"].update(prefill_ms=prefill_ms, decode=decode,
-                            b1_device_ms=dev_ms, b1_kernel_launches=launches,
-                            b1_aten_ops=aten, b1_busy=busy, peak_gib=peak,
-                            b1_top=[(x.key, dev_t(x) / n_prof / 1e3,
-                                     x.count / n_prof) for x in top])
-    return k1, k2, n_dec
+        f"({600 / prefill_ms * 1e3:.0f} tok/s), {k1_prefill} K1 launches")
+    log(f"decode b4 (un-fused, 24 steps): {b4_ms:.2f} ms/step, "
+        f"{4e3 / b4_ms:.1f} tok/s")
+    for fused, d in b1.items():
+        log(f"decode b1, QUIP_FUSED_RHT={int(fused)}: "
+            f"{d['ms_per_step']:.2f} ms/step ({d['tok_s']:.2f} tok/s); "
+            f"profiled: {d['device_ms']:.2f} ms of kernels per step, "
+            f"{d['kernel_launches']:.0f} kernel launches, "
+            f"{d['aten_ops']:.0f} aten ops; device busy share "
+            + (f"{d['busy']:.1%}" if d["busy"] else "not measured"))
+        for key, ms, cnt in d["top"]:
+            log(f"  {key[:60]:60s} {ms:.3f} ms/step, {cnt:.0f} "
+                f"launches/step")
+    log(f"card: {smi}")
+    RESULTS["serve"].update(prefill_ms=prefill_ms, k1_prefill=k1_prefill,
+                            b4_ms_per_step=b4_ms, b1_unfused=b1[False],
+                            b1_fused=b1[True])
+    return base, conf
 
 
 def main():
@@ -468,13 +749,18 @@ def main():
     name, smi = phase_device()
     k1_err, k1 = phase_k1(name)
     k2_err, k2 = phase_k2(name)
+    k3_err, k3 = phase_k3(name)
+    k1p_err, k1p = phase_k1p(name)
     phase_slice()
-    l1, l2, n_dec = phase_serve(name, smi)
+    base, conf = phase_serve(name, smi)
+    # launches: K1 and K2 from the first slice's Engine.run, K3 from the
+    # fused / int8 / prefix Engine.run, K1' from the microbenchmark's path
     kernels = [
         dict(name="dequant_matmul", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
-             launches=l1, max_abs_err=k1_err,
+             launches=base["k1"], launches_fused_int8_prefix=conf["k1"],
+             max_abs_err=k1_err,
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by="bytes", library_ms=k1["library_ms"],
              max_rel_err=k1["max_rel_err"],
@@ -482,10 +768,33 @@ def main():
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
-             launches=l2, max_abs_err=k2_err,
+             launches=base["k2"], launches_fused_int8_prefix=conf["k2"],
+             max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],
              shape="B=2 H=32 S=600 plen=[600,431]"),
+        dict(name="rht_apply_fused", route="cuda",
+             source="quip_tpu_torch/kernels/csrc/rht.cu",
+             replaces="quip_tpu/kernels/rht.py:87",
+             launches=conf["k3"], max_abs_err=k3_err,
+             ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
+             bound_by=k3["bound_by"], library_ms=k3["library_ms"],
+             max_rel_err_bf16=k3["max_rel_err_bf16"],
+             max_rel_err_f32=k3["max_rel_err_f32"],
+             shape="sum over the six (n, direction) pairs of a b1 decode "
+                   "step: 4096 fwd/T, 11008 fwd, 12288 T, 22016 T, 32000 T; "
+                   "bf16"),
+        dict(name="slabdot_matmul", route="cuda",
+             source="quip_tpu_torch/kernels/csrc/slabdot_matmul.cu",
+             replaces="scripts/bench_kernel.py:69",
+             launches=k1p["launches"], max_abs_err=k1p_err,
+             ms=k1p["ms"], plain_ms=k1p["plain_ms"],
+             bound_ms=k1p["bound_ms"], bound_by="bytes",
+             library_ms=k1p["library_ms"], k1_ms=k1p["k1_ms"],
+             max_rel_err=k1p["max_rel_err"],
+             max_rel_err_vs_k1=k1p["max_rel_err_vs_k1"],
+             shape="sum over the microbenchmark's five shapes at B=1, one "
+                   "tile_m each"),
     ]
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.time() - t0

@@ -1,9 +1,11 @@
 """quip_tpu_torch: the PyTorch/CUDA port of quip_tpu (serving slice).
 
 Serves QuIP-packed Llama models on an NVIDIA H100 through hand-written
-CUDA kernels (``kernels/csrc``) for the packed dequant-matmul and the
-flash prefill. ``quip_tpu`` (JAX) stays the reference; this package never
-imports it or jax.
+CUDA kernels (``kernels/csrc``): the packed dequant-matmul, the flash
+prefill, the fused RHT application and the slab-dot variant of the
+dequant-matmul that the kernel microbenchmark (``tools/bench_kernel.py``)
+sweeps. ``quip_tpu`` (JAX) stays the reference; this package never imports
+it or jax.
 
 Entry points take ``device=`` and default to ``"cuda"``: with no card the
 default raises instead of running on the CPU. Tests pass ``device="cpu"``,

@@ -8,6 +8,10 @@ importing quip_tpu. Layer-stacked leaves (the (L, ...) ``blocks`` subtree,
 including a packed leaf's (L,) ``scale_b`` and stacked ``rot`` arrays) are
 split per layer. Rotations must be materialised in the tree (``rot``): the
 port does not regenerate JAX keys (core/incoherence.py).
+
+quip_tpu's cache containers (``KVCache``, ``PagedKV`` with or without int8
+scales, ``Prefix``), likewise as numpy, become the port's by their field
+names; cursors (``length``, ``base``, ``hot_len``) stay on the host.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ import torch
 
 from quip_tpu_torch import resolve_device
 from quip_tpu_torch.models.config import ModelConfig
-from quip_tpu_torch.models.model import MLP, Attention, Block, Model
+from quip_tpu_torch.models.model import (MLP, Attention, Block, KVCache,
+                                         Model)
+from quip_tpu_torch.models.paged import PagedKV, Prefix
 from quip_tpu_torch.pack.format import PackedLinear
 
 _PACKED_FIELDS = ("planes", "bits", "qfn", "code_bits", "rot", "proj_mode",
@@ -98,3 +104,35 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     return Model(cfg, leaf(tree["embed"]["tokens"]), mods,
                  leaf(final["scale"]) if final is not None else None,
                  leaf(tree.get("lm_head")))
+
+
+def _cache_fields(obj, cls, device, host=()):
+    """The fields of ``cls`` read off ``obj`` as tensors on ``device``
+    (``host`` fields as int32 tensors on the CPU; None stays None)."""
+    out = {}
+    for f in cls._fields:
+        a = getattr(obj, f)
+        if a is None:
+            out[f] = None
+        elif f in host:
+            out[f] = torch.from_numpy(np.array(a, np.int32))
+        else:
+            out[f] = torch.from_numpy(np.array(a)).to(device)
+    return out
+
+
+def kvcache_from_numpy(obj, device="cpu") -> KVCache:
+    """quip_tpu ``KVCache`` (stacked or per layer; numpy leaves)."""
+    return KVCache(**_cache_fields(obj, KVCache, device, host=("length",)))
+
+
+def paged_from_numpy(obj, device="cpu") -> PagedKV:
+    """quip_tpu ``PagedKV`` (numpy leaves), int8 scales included."""
+    return PagedKV(**_cache_fields(obj, PagedKV, device,
+                                   host=("base", "hot_len")))
+
+
+def prefix_from_numpy(obj, device="cpu") -> Prefix:
+    """quip_tpu ``Prefix`` (numpy leaves)."""
+    f = _cache_fields(obj, Prefix, device, host=("length",))
+    return Prefix(**{**f, "length": int(f["length"])})

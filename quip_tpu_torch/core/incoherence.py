@@ -85,7 +85,7 @@ def random_orthogonal(gen: torch.Generator, p: int, size: int,
     q = q * sign[:, None, :]
     flip = torch.where(torch.linalg.det(q) < 0, -1.0, 1.0)
     q[:, :, -1] *= flip[:, None]
-    return q.to(dtype=dtype, device=device)
+    return q.to(dtype=dtype, device=device).contiguous()   # qr: col-major
 
 
 def gen_rht(gen: torch.Generator, n: int, dtype=torch.float32,

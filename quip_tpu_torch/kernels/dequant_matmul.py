@@ -59,12 +59,13 @@ def _sm_count(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _splits(B: int, d: int, m_p: int, nw_min: int, tb: int,
+def _splits(col_blocks: int, B: int, d: int, nw_min: int, tb: int,
             device: int) -> int:
-    """Word-row chunks: about four waves of blocks on the card, x chunk in
-    at most 96 KB of shared memory, at least one word row per chunk."""
+    """Word-row chunks for a grid of ``col_blocks`` column blocks: about
+    four waves of blocks on the card, x chunk in at most 96 KB of shared
+    memory, at least one word row per chunk."""
     sms = _sm_count(device)
-    blocks = -(-m_p // 128) * -(-B // tb)
+    blocks = col_blocks * -(-B // tb)
     s = max(1, -(-4 * sms // blocks), -(-tb * d * 4 // (96 * 1024)))
     return min(s, nw_min)
 
@@ -138,7 +139,7 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
         raise ValueError(f"dequant_matmul: unknown qfn {qfn!r}")
     tb = _tile_b(B)
     nw_min = min(p.shape[0] for p in planes)
-    splits = _splits(B, d, m_p, nw_min, tb, x.get_device())
+    splits = _splits(-(-m_p // 128), B, d, nw_min, tb, x.get_device())
     nplanes = len(planes)
     work = torch.empty(nplanes * splits * B * m_p + splits * B,
                        dtype=torch.float32, device=x.device)

@@ -15,7 +15,7 @@ BLOOM (ALiBi, embedding LayerNorm, GELU) raise NotImplementedError
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -141,6 +141,42 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+class KVCache(NamedTuple):
+    """Contiguous KV cache, optionally int8: k8 = round(127·k/absmax) per
+    (position, head) row, scale = absmax/127. Both scales fold exactly into
+    the attention algebra (scores·ks after the K dot, probs·vs before the V
+    dot), so no dequantised cache is ever built. ``attention`` writes the
+    new rows into k/v (and ks/vs) in place."""
+
+    k: torch.Tensor        # (batch, max_len, kv_heads, hd) float, or int8
+    v: torch.Tensor
+    length: torch.Tensor   # int32 scalar on the host: valid positions
+    ks: Optional[torch.Tensor] = None   # (batch, max_len, kv_heads) f32
+    vs: Optional[torch.Tensor] = None
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, hd) -> int8 codes + per-(…)-row f32 scale (absmax/127)."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def init_caches(batch: int, max_len: int, cfg: ModelConfig,
+                dtype=torch.float32, quantized: bool = False,
+                device="cpu") -> KVCache:
+    """Stacked (n_layers-leading) KV caches for ``decode_step``.
+    quantized=True stores int8 codes + per-(position, head) scales."""
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    length = torch.zeros((cfg.n_layers,), dtype=torch.int32)
+    z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)  # noqa: E731
+    if not quantized:
+        return KVCache(z(shape, dtype), z(shape, dtype), length)
+    return KVCache(z(shape, torch.int8), z(shape, torch.int8), length,
+                   z(shape[:-1], torch.float32), z(shape[:-1], torch.float32))
+
+
 def _flash_eligible(cfg: ModelConfig, S: int, x: torch.Tensor,
                     plen) -> bool:
     """Flash prefill gate: CUDA tensors, prefill from position 0 (plen
@@ -174,13 +210,18 @@ def out_project(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, mask: torch.Tensor,
-              rope_cs=None, plen: Optional[torch.Tensor] = None):
-    """Self-attention over the window x (B, S, D) without a cache.
+              rope_cs=None, plen: Optional[torch.Tensor] = None,
+              cache: Optional[KVCache] = None):
+    """Self-attention over the window x (B, S, D).
 
-    ``mask`` (B, S, S) True = attend. ``plen`` (B,) is the caller's
-    contract that the mask is exactly causal & (key < plen): long prompts on
-    the card then run the flash kernel (K2). Returns (out (B, S, D),
-    (k, v)) with the post-RoPE K/V rows of the window."""
+    ``mask`` (B, S, L) True = attend, L = S without a cache, else the
+    cache's max_len. ``plen`` (B,) is the caller's contract that the mask
+    is exactly causal & (key < plen): long prompts on the card then run the
+    flash kernel (K2). With a ``cache`` the window's post-RoPE K/V rows are
+    written into it at ``cache.length`` (in place; int8 caches quantise
+    them) and the window attends the whole cache. Returns (out (B, S, D),
+    kv): the cache with its length advanced, or without one the window's
+    (k, v) rows."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     q, k, v = qkv_project(p, x, cfg)
@@ -189,20 +230,46 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     k = apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(hd)
 
-    if _flash_eligible(cfg, S, x, plen):
-        out = flash_prefill_bshd(q, k, v, plen, scale=scale)
-        return out_project(p, out.reshape(B, S, H * hd)), (k, v)
-
+    kv = (k, v)
     k_all, v_all = k, v
+    ks_all = vs_all = None
+    if cache is not None:
+        rows = slice(int(cache.length), int(cache.length) + S)
+        if cache.ks is not None:       # int8-quantised cache
+            (cache.k[:, rows], cache.ks[:, rows]) = quantize_kv(k)
+            (cache.v[:, rows], cache.vs[:, rows]) = quantize_kv(v)
+            ks_all, vs_all = cache.ks, cache.vs
+        else:
+            cache.k[:, rows] = k.to(cache.k.dtype)
+            cache.v[:, rows] = v.to(cache.v.dtype)
+        kv = cache = cache._replace(length=cache.length + S)
+        k_all, v_all = cache.k, cache.v
+
+    if _flash_eligible(cfg, S, x, plen) and k_all.shape[1] == S:
+        # blockwise over the FRESH k/v (the cache rows are already stored)
+        out = flash_prefill_bshd(q, k, v, plen, scale=scale)
+        return out_project(p, out.reshape(B, S, H * hd)), kv
+
     if KV != H:
-        k_all = k_all.repeat_interleave(H // KV, dim=2)
-        v_all = v_all.repeat_interleave(H // KV, dim=2)
+        rep = H // KV
+        k_all = k_all.repeat_interleave(rep, dim=2)
+        v_all = v_all.repeat_interleave(rep, dim=2)
+        if ks_all is not None:
+            ks_all = ks_all.repeat_interleave(rep, dim=2)
+            vs_all = vs_all.repeat_interleave(rep, dim=2)
     logits = torch.einsum("bshd,blhd->bhsl", q, k_all.to(q.dtype)) * scale
+    if ks_all is not None:
+        # fold the per-(position, head) K scales in after the int8 dot
+        logits = logits * ks_all.permute(0, 2, 1)[:, :, None, :].to(
+            logits.dtype)
     neg = torch.finfo(logits.dtype).min
     logits = logits.masked_fill(~mask[:, None], neg)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+    if vs_all is not None:
+        # fold the V scales into the probabilities before the int8 dot
+        probs = probs * vs_all.permute(0, 2, 1)[:, :, None, :].to(probs.dtype)
     out = torch.einsum("bhsl,blhd->bshd", probs, v_all.to(probs.dtype))
-    return out_project(p, out.reshape(B, S, H * hd)), (k, v)
+    return out_project(p, out.reshape(B, S, H * hd)), kv
 
 
 def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -217,10 +284,12 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, mask: torch.Tensor, rope_cs=None,
-                plen: Optional[torch.Tensor] = None):
-    """One pre-norm decoder block. Returns (y, (k, v))."""
+                plen: Optional[torch.Tensor] = None,
+                cache: Optional[KVCache] = None):
+    """One pre-norm decoder block. Returns (y, kv) with ``attention``'s kv
+    (the advanced cache, or the window's (k, v) rows)."""
     a, kv = attention(p.attn, norm(p.ln1, x, cfg), cfg, positions, mask,
-                      rope_cs, plen=plen)
+                      rope_cs, plen=plen, cache=cache)
     x = x + a
     x = x + mlp(p.mlp, norm(p.ln2, x, cfg), cfg)
     return x, kv
@@ -268,3 +337,27 @@ def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
         x, _ = block_apply(bp, x, cfg, positions, mask, rope_cs=cs,
                            plen=plen)
     return unembed(params, x, cfg)
+
+
+def decode_step(params: Model, tokens: torch.Tensor, caches: KVCache,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, KVCache]:
+    """Single-token decode against the stacked caches of ``init_caches``:
+    tokens (B, 1) -> (logits (B, V), caches with every length + 1). The
+    cache tensors are updated in place."""
+    B = tokens.shape[0]
+    dev = tokens.device
+    length = int(caches.length[0])           # the same for all layers
+    positions = torch.full((B, 1), length, dtype=torch.int64, device=dev)
+    mask = (torch.arange(caches.k.shape[2], device=dev)[None, None, :]
+            <= positions[:, :, None])        # (B, 1, L)
+    x = embed(params, tokens, cfg, positions)
+    cs = rope_tables(cfg, positions)
+    quantized = caches.ks is not None
+    for l, bp in enumerate(params.blocks):
+        cache = KVCache(caches.k[l], caches.v[l], caches.length[l],
+                        caches.ks[l] if quantized else None,
+                        caches.vs[l] if quantized else None)
+        x, _ = block_apply(bp, x, cfg, positions, mask, rope_cs=cs,
+                           cache=cache)
+    logits = unembed(params, x, cfg)
+    return logits[:, -1, :], caches._replace(length=caches.length + 1)

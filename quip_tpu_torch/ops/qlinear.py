@@ -13,14 +13,26 @@ The dense rotated weight is never built.
 Modes 'rht', 'rht_sf' and 'rht_uf'. Rotations must be materialised
 (``PackedLinear.rot``): the port does not regenerate JAX keys (see
 core/incoherence.py).
+
+``QUIP_FUSED_RHT=1`` (read at call time, default off, the same variable as
+in quip_tpu) sends 'rht'-mode layers at decode-size batches (at most 32
+rows) through the fused RHT kernel (kernels/rht.py): one launch per
+rotation instead of the multiply, two matmuls and their casts.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
 from quip_tpu_torch.core import incoherence as inc
 from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul
+from quip_tpu_torch.kernels.rht import rht_apply_fused
 from quip_tpu_torch.pack.format import PackedLinear, rot_to_butterflies
+
+
+def _fused_rht_enabled() -> bool:
+    return os.environ.get("QUIP_FUSED_RHT") == "1"
 
 
 def _packed_matmul(q: PackedLinear, x2: torch.Tensor) -> torch.Tensor:
@@ -45,7 +57,23 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
                          f"{q.in_features}")
     x2 = x.reshape(-1, d)
 
-    if not q.has_rot:
+    if (q.proj_mode == "rht" and q.has_rot and x2.shape[0] <= 32
+            and _fused_rht_enabled()):
+        # fused path: one kernel per rotation (vec fold + both Kronecker
+        # products); vec_v carries the scaleWH divide (stored as vin).
+        # quip_tpu pads the rows to a multiple of 8 here for the TPU's
+        # sublane tiling; rows are independent, so this kernel takes them
+        # as they are.
+        U, V = rot_to_butterflies(q)
+        if q.has_vin:
+            vec_v = q.vin
+        else:
+            vec_v = (V.signs if q.scaleWH is None
+                     else V.signs / q.scaleWH)
+        x2 = rht_apply_fused(x2, vec_v, V.left, V.right)
+        t = _packed_matmul(q, x2)
+        y = rht_apply_fused(t, U.signs, U.left, U.right, transpose=True)
+    elif not q.has_rot:
         if q.scaleWH is not None:
             x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
         y = _packed_matmul(q, x2)

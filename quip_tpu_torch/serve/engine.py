@@ -13,9 +13,17 @@ when its length reaches ``max_seq - 1``, or on a stop token (emitted,
 inclusive). ``submit`` clamps ``max_new_tokens`` to the room left in the
 sequence.
 
-Not in this slice (ROADMAP): the overlapped pump / chunked decode, int8
-KV, the shared prefix, speculative decoding, mesh sharding, and the 3-bit
-3-in-4 widening (a 3-bit model runs as two planes).
+``kv_quant=True`` keeps the cache as int8 codes with per-(position, head)
+scales. ``shared_prefix=<tokens>`` computes a system prompt's KV once; a
+request that opts in (``use_prefix``, the default on such an engine)
+attends it first, and its own prompt streams through the hot ring in
+power-of-two append windows, since the plain prefill cannot attend the
+prefix rows.
+
+Not ported yet (ROADMAP): the overlapped pump / chunked decode with
+``admit_limit``, the non-paged arena path, speculative decoding, mesh
+sharding, and the 3-bit 3-in-4 widening (a 3-bit model runs as two
+planes).
 """
 from __future__ import annotations
 
@@ -41,6 +49,7 @@ class Request:
     top_k: int = 0                     # 0 => full
     top_p: float = 1.0                 # 1 => no nucleus filter
     stop: Optional[List[int]] = None   # stop token ids (inclusive)
+    use_prefix: bool = False           # attend the engine's shared prefix
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
     t_submit: float = 0.0
@@ -93,8 +102,9 @@ class Engine:
 
     def __init__(self, params: Model, cfg: ModelConfig, *,
                  max_batch: int = 8, max_seq: int = 512,
-                 cache_dtype=torch.float32, hot: int = 32, page: int = 64,
-                 seed: int = 0, device="cuda"):
+                 cache_dtype=torch.float32, kv_quant: bool = False,
+                 hot: int = 32, page: int = 64, seed: int = 0,
+                 shared_prefix=None, device="cuda"):
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
@@ -112,15 +122,30 @@ class Engine:
         self.page = page
         # capacity = max_seq + hot so a flush always fits (base <= max_seq)
         self.pkv = PG.init_paged(max_batch, max_seq + self.hot, cfg,
-                                 dtype=cache_dtype, hot=self.hot, page=page,
-                                 device=self.device)
+                                 dtype=cache_dtype, quantized=kv_quant,
+                                 hot=self.hot, page=page, device=self.device)
         # host-authoritative per-slot cursors (pushed in each call)
         self._base = np.zeros(max_batch, np.int32)
         self._hotlen = np.zeros(max_batch, np.int32)
+        # shared-prefix (system prompt) KV: computed once here, read by
+        # every opted-in slot (models/paged.Prefix)
+        self.prefix = None
+        self._prefix_on = np.zeros(max_batch, np.int32)
+        if shared_prefix is not None:
+            _, self.prefix = PG.build_prefix(
+                self.params, np.asarray(shared_prefix, np.int64), cfg,
+                quantized=kv_quant)
 
     def _sync_pkv(self) -> PG.PagedKV:
         return self.pkv._replace(base=torch.from_numpy(self._base.copy()),
                                  hot_len=torch.from_numpy(self._hotlen.copy()))
+
+    def _prefix_args(self) -> Dict[str, Any]:
+        """The prefix arguments of a paged step ({} without a prefix)."""
+        if self.prefix is None:
+            return {}
+        return dict(prefix=self.prefix,
+                    prefix_on=torch.from_numpy(self._prefix_on.copy()))
 
     def _flush_now(self):
         self.pkv = PG.flush_hot(self._sync_pkv())
@@ -145,6 +170,7 @@ class Engine:
         self._slots[i] = None
         self._base[i] = 0
         self._hotlen[i] = 0
+        self._prefix_on[i] = 0
 
     def stats(self) -> Dict[str, Any]:
         """Host-side serving metrics: completed/queued counts, mean TTFT
@@ -162,7 +188,7 @@ class Engine:
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens=32, temperature=0.0,
-               top_k=0, top_p=1.0, stop=None) -> int:
+               top_k=0, top_p=1.0, stop=None, use_prefix=None) -> int:
         prompt = np.asarray(prompt, np.int32)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -172,15 +198,63 @@ class Engine:
                 f"({self.max_seq - 1}); raise max_seq or truncate")
         if not 0.0 < top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if use_prefix is None:
+            use_prefix = self.prefix is not None
+        if use_prefix and self.prefix is None:
+            raise ValueError("use_prefix requires an engine built with "
+                             "shared_prefix=...")
         # clamp to the room left in the sequence
         max_new_tokens = min(int(max_new_tokens),
                              self.max_seq - 1 - int(prompt.size))
         req = Request(self._uid, prompt, max_new_tokens, temperature,
                       top_k, top_p, list(stop) if stop else None,
-                      t_submit=time.time())
+                      use_prefix=bool(use_prefix), t_submit=time.time())
         self._uid += 1
         self._queue.append(req)
         return req.uid
+
+    def _admit_with_prefix(self, i: int, req: Request) -> torch.Tensor:
+        """Chunked-append admission for a shared-prefix request.
+
+        The prompt must attend the prefix rows, which the plain prefill
+        cannot do, so it streams through the hot ring in power-of-two
+        windows (flushing when fewer than 2 rows are free). Other slots
+        receive garbage hot-ring writes past their hot_len: dead rows under
+        the host's cursors, overwritten by their next real step. Returns
+        the last real prompt position's logits (V,).
+
+        A last window that fills the ring exactly is flushed before
+        returning: the decode step that follows needs a free row.
+        (quip_tpu's ``_admit_with_prefix`` returns with the ring full there
+        and its next step writes past the ring; ROADMAP queue 3.)"""
+        self._base[i] = 0
+        self._hotlen[i] = 0
+        self._prefix_on[i] = 1
+        pos = 0
+        logits_last = None
+        while pos < len(req.prompt):
+            room = self.hot - int(self._hotlen.max())
+            if room < 2:
+                self._flush_now()
+                room = self.hot
+            S = 1
+            while S * 2 <= room:
+                S *= 2
+            n = min(len(req.prompt) - pos, S)
+            while S >= 2 * n:              # smallest pow2 window >= n
+                S //= 2
+            window = np.zeros((self.max_batch, S), np.int64)
+            window[i, :n] = req.prompt[pos:pos + n]
+            caches = self._sync_pkv()
+            logits_w, hot = PG.paged_append_step(
+                self.params, torch.from_numpy(window).to(self.device),
+                caches, self.cfg, page=self.page, **self._prefix_args())
+            self.pkv = PG.advance(caches, hot)
+            self._hotlen[i] += n           # only this slot really advanced
+            pos += n
+            logits_last = logits_w[i, n - 1]
+        self._maybe_flush()
+        return logits_last
 
     def _admit(self):
         """Fill every free slot from the queue: prefill + first token."""
@@ -188,13 +262,17 @@ class Engine:
             if self._slots[i] is None and self._queue:
                 req = self._queue.pop(0)
                 self._slots[i] = req
-                plen = len(req.prompt)
-                tokens = torch.from_numpy(req.prompt.astype(np.int64))[None]
-                logits, self.pkv = PG.paged_prefill_slot(
-                    self.params, tokens.to(self.device), plen,
-                    self._sync_pkv(), i, self.cfg)
-                self._base[i] = plen
-                self._hotlen[i] = 0
+                if req.use_prefix:
+                    logits = self._admit_with_prefix(i, req)
+                else:
+                    plen = len(req.prompt)
+                    tokens = torch.from_numpy(
+                        req.prompt.astype(np.int64))[None]
+                    logits, self.pkv = PG.paged_prefill_slot(
+                        self.params, tokens.to(self.device), plen,
+                        self._sync_pkv(), i, self.cfg)
+                    self._base[i] = plen
+                    self._hotlen[i] = 0
                 tp = [req.top_p] if req.top_p < 1.0 else None
                 tok = int(_sample(self.gen, logits[None], [req.temperature],
                                   req.top_k, tp)[0])
@@ -216,7 +294,7 @@ class Engine:
         caches = self._sync_pkv()
         logits, hot = PG.paged_decode_step(
             self.params, torch.from_numpy(last).to(self.device), caches,
-            self.cfg, page=self.page)
+            self.cfg, page=self.page, **self._prefix_args())
         self.pkv = PG.advance(caches, hot)
         temps = np.zeros((self.max_batch,), np.float32)
         tops = np.ones((self.max_batch,), np.float32)

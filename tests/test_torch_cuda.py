@@ -7,7 +7,10 @@ The card's machine has no jax, so run them without the suite's conftest:
 
 This file imports neither jax nor quip_tpu. Tolerances: K1 on f32 inputs
 holding bf16 values differs from the plain version only in summation order
-(1e-3 of max |y|); K2 feeds bf16 softmax weights to its PV product (2e-2).
+(1e-3 of max |y|); K2 feeds bf16 softmax weights to its PV product (2e-2);
+K3 rounds as its plain version does and differs in summation order (2e-5
+in f32, 2e-2 in bf16: one bf16 rounding per product); K1′ against its
+plain version 1e-3, against K1 2e-2 (its 128·Σx fix-up in f32).
 """
 import math
 
@@ -15,7 +18,10 @@ import pytest
 import torch
 
 from quip_tpu_torch.kernels import dequant_matmul as DM
+from quip_tpu_torch.core import incoherence as inc
 from quip_tpu_torch.kernels import flash_attn as FA
+from quip_tpu_torch.kernels import rht as K3
+from quip_tpu_torch.kernels import slabdot as SD
 from quip_tpu_torch.pack.format import PLANE_SPLITS
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +77,48 @@ def test_k2_matches_plain(cuda, B, H, KV, S, plen):
     assert (got.float() - want).abs().max().item() <= 2e-2
 
 
+@pytest.mark.parametrize("n", [64, 96, 352, 1376, 2 * 250, 8])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda, n, transpose, dtype):
+    """pow2 x pow2, pow2 x dense orthogonal (12, 11, 43 and 125 columns:
+    ragged 32-column blocks; a = 4 rows), and n = 8 without a right
+    factor."""
+    rots = torch.Generator().manual_seed(n)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    t = inc.gen_rht(rots, n, device=cuda)
+    if n == 8:
+        t = inc.RHT(t.signs, inc._hadamard(3, device=cuda), None, 8)
+    vec = t.signs / (torch.rand(n, generator=g, device=cuda) + 0.5)
+    x = torch.randn(7, n, generator=g, device=cuda).to(dtype)
+    before = K3.launches
+    got = K3.rht_apply_fused(x, vec, t.left, t.right, transpose=transpose)
+    assert K3.launches == before + 1 and got.dtype == dtype
+    want = K3.rht_apply_fused_ref(x, vec, t.left, t.right,
+                                  transpose=transpose)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() <= (2e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("B,tile_m", [(1, 128), (3, 384), (9, 128)])
+def test_k1p_matches_plain_and_k1(cuda, bits, B, tile_m):
+    g = torch.Generator(device=cuda).manual_seed(bits * 100 + B)
+    m, d = 384, 512
+    planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                 dtype=torch.int32, generator=g, device=cuda)
+                   for fb, _ in PLANE_SPLITS[bits])
+    scale = torch.tensor(0.03, device=cuda)
+    x = torch.randn(B, d, generator=g, device=cuda).bfloat16().float()
+    before = SD.launches
+    got = SD.slabdot_matmul(x, planes, scale, bits=bits, tile_m=tile_m)
+    assert SD.launches == before + 1
+    want = SD.slabdot_matmul_ref(x, planes, scale, bits=bits)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    k1 = DM.dequant_matmul(x, planes, scale, None, bits=bits)
+    assert ((got - k1).abs().max() / k1.abs().max()).item() <= 2e-2
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.randn(2, 64, device=cuda)
     plane = torch.zeros(4, 32, dtype=torch.int32, device=cuda)
@@ -79,3 +127,11 @@ def test_wrappers_reject_bad_inputs(cuda):
     q = torch.randn(1, 8, 2, 64, device=cuda).bfloat16()
     with pytest.raises(ValueError):
         FA.flash_prefill_bshd(q, q, q, None, scale=1.0)
+    eye = torch.eye(8, device=cuda)
+    with pytest.raises(ValueError):           # a non-contiguous factor
+        K3.rht_apply_fused(x, torch.ones(64, device=cuda), eye,
+                           torch.randn(8, 8, device=cuda).t())
+    with pytest.raises(ValueError):           # f64 activations
+        K3.rht_apply_fused(x.double(), torch.ones(64, device=cuda), eye, eye)
+    with pytest.raises(ValueError):           # tile_m does not divide m
+        SD.slabdot_matmul(x, (plane,), 1.0, bits=2, tile_m=128)
