@@ -5,14 +5,17 @@
 Needs one CUDA card (written for an H100, sm_90a) and nvcc. It builds the
 port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
-  1. the card's name and power limit, and the kernel build (all four nvcc
+  1. the card's name and power limit, and the kernel build (all five nvcc
      runs started together);
-  2. K1 (dequant_matmul) against its plain version at the five 2-bit
-     Llama-2-7B projection shapes (B = 1, 8, 32, 600) and at small 3/4/8-bit,
-     qfn-a and code_bits=3 shapes, with kernel, plain, bound and library
-     (torch.matmul of the dequantised bf16 weight) times;
+  2. K1 (dequant_matmul: the single-row kernel up to B = 8, the tensor-core
+     tile kernel K1-tile above) against its plain version at the five 2-bit
+     Llama-2-7B projection shapes (B = 1, 8, 9, 16, 17, 32, 128, 600, 1000)
+     and at small 3/4/8-bit, qfn-a and code_bits=3 shapes, with kernel,
+     plain, bound and library (torch.matmul of the dequantised bf16 weight)
+     times, and both kernels' times at B = 1, 8, 16, 32 (the crossover);
   3. K2 (flash_prefill) against its plain version (B=2, H=32, S=600,
-     plen=[600, 431]; GQA H=64, KV=8), with SDPA as the library yardstick;
+     plen=[600, 431]; GQA H=64, KV=8 and H=32, KV=8; S = 513 with a row of
+     plen 1; S = 1000 and 2048), with SDPA as the library yardstick;
   4. K3 (rht_apply_fused) against its plain version at the five
      Llama-2-7B (a, b) splits, B in (1, 5, 32), both directions, bf16 and
      f32, with a scaleWH fold, and a right-factor-free case; the round
@@ -91,8 +94,8 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t = time.time()
-    logs = _build.build_all(["dequant_matmul", "flash_attn", "rht",
-                             "slabdot_matmul"])
+    logs = _build.build_all(["dequant_matmul", "dequant_matmul_tile",
+                             "flash_attn", "rht", "slabdot_matmul"])
     build_s = time.time() - t
     log(f"card: {smi}")
     log(f"kernel build (parallel nvcc, sm_90a): {build_s:.1f} s")
@@ -109,6 +112,12 @@ def phase_device():
     return name, smi
 
 
+# the previous slice's times on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+# section 6), printed beside this run's
+BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, k2_ms=0.3495,
+              k2_gqa_ms=0.623, prefill_ms=437.4)
+
+
 def phase_k1(name: str):
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.pack.format import PLANE_SPLITS
@@ -123,41 +132,73 @@ def phase_k1(name: str):
                                    device=dev)
                      for fb, _ in PLANE_SPLITS[bits])
 
-    worst = worst_rel = 0.0
-    # correctness, small widths / other formats: f32 input holding bf16
-    # values, so kernel and plain see the same x and differ only in the
-    # summation order (tolerance 1e-3 of max |y|)
+    worst = {"partial": 0.0, "tile": 0.0}
+    worst_rel = {"partial": 0.0, "tile": 0.0}
+
+    def check(x, pl, scale, zero, what, **kw):
+        """Kernel against plain: f32 x holding bf16 values, so both see the
+        same x and differ only in the summation order (1e-3 of max |y|),
+        then bf16 in and out (1e-2: the output's rounding). Returns the
+        path taken and both errors."""
+        t0 = DM.launches_tile
+        xf = x.float()
+        got = DM.dequant_matmul(xf, pl, scale, zero, **kw)
+        path = "tile" if DM.launches_tile > t0 else "partial"
+        assert path == ("tile" if x.shape[0] >= DM.TILE_MIN_B else
+                        "partial"), (what, path)
+        want = DM.dequant_matmul_ref(xf, pl, scale, zero, **kw)
+        got16 = DM.dequant_matmul(x, pl, scale, zero, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        assert rel <= 1e-3, (what, path, rel)
+        _, rel16 = rel_err(got16, want)
+        assert rel16 <= 1e-2, (what, path, "bf16 out", rel16)
+        worst[path] = max(worst[path], err)
+        worst_rel[path] = max(worst_rel[path], rel)
+        return path, rel, rel16
+
+    # small widths, every format; d = 1408 leaves the 1-bit plane of 3-bit
+    # a ragged group of word rows, m = 328 a ragged warp of columns
     for bits, qfn, code_bits in [(2, "b", None), (3, "b", None),
                                  (4, "b", None), (8, "b", None),
                                  (4, "b", 3), (2, "a", None),
                                  (4, "a", None)]:
-        m, d = 640, 1024
-        pl = planes_for(m, d, bits)
-        if code_bits:       # 3-bit codes in 4-bit fields: clear bit 3s
-            pl = tuple(p & 0x77777777 for p in pl)
-        scale = torch.tensor(0.02, device=dev)
-        zero = None
-        if qfn == "a":
-            scale = torch.rand(m, device=dev, generator=g) * 0.05 + 0.01
-            zero = torch.rand(m, device=dev, generator=g) * 2 ** bits
-        for B in (1, 5, 33):
-            x = torch.randn(B, d, device=dev, generator=g).bfloat16().float()
+        for m, d in ((640, 1024), (328, 1408)):
+            pl = planes_for(m, d, bits)
+            if code_bits:       # 3-bit codes in 4-bit fields: clear bit 3s
+                pl = tuple(p & 0x77777777 for p in pl)
+            scale = torch.tensor(0.02, device=dev)
+            zero = None
+            if qfn == "a":
+                scale = torch.rand(m, device=dev, generator=g) * 0.05 + 0.01
+                zero = torch.rand(m, device=dev, generator=g) * 2 ** bits
+            for B in (1, 5, 8, 9, 16, 17, 32, 33, 128, 600, 1000):
+                x = torch.randn(B, d, device=dev, generator=g).bfloat16()
+                check(x, pl, scale, zero, (bits, qfn, code_bits, m, d, B),
+                      bits=bits, qfn=qfn, code_bits=code_bits)
+            # K1-tile below its threshold too, forced
+            x = torch.randn(3, d, device=dev, generator=g).bfloat16().float()
             got = DM.dequant_matmul(x, pl, scale, zero, bits=bits, qfn=qfn,
-                                    code_bits=code_bits)
+                                    code_bits=code_bits, path="tile")
             want = DM.dequant_matmul_ref(x, pl, scale, zero, bits=bits,
                                          qfn=qfn, code_bits=code_bits)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, want)
-            assert rel <= 1e-3, (bits, qfn, code_bits, B, rel)
-            worst, worst_rel = max(worst, err), max(worst_rel, rel)
-    log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3): "
-        f"max rel err {worst_rel:.2e} <= 1e-3")
+            _, rel = rel_err(got, want)
+            assert rel <= 1e-3, (bits, qfn, code_bits, m, d, "tile B=3", rel)
+    log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3; 640x1024 and "
+        f"328x1408; B = 1..1000): max rel err single-row kernel "
+        f"{worst_rel['partial']:.2e}, K1-tile {worst_rel['tile']:.2e} "
+        f"<= 1e-3")
 
     shapes = {"wqkv": (12288, 4096), "wo": (4096, 4096),
               "wgu": (22528, 4096), "wd": (4096, 11008),
               "lm_head": (32000, 4096)}
+    timed = (1, 8, 16, 32, 128, 600)
     rows = []
-    sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    zero_sums = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,  # noqa: E731
+                             library_ms=0.0)
+    sums = {B: zero_sums() for B in timed}
+    cross = {B: dict(partial=0.0, tile=0.0) for B in (1, 8, 16, 32)}
+    bound_by = {B: set() for B in timed}
     scale = torch.tensor(0.02, device=dev)
     for sname, (m, d) in shapes.items():
         pbytes = d * 2 * m // 8
@@ -165,43 +206,67 @@ def phase_k1(name: str):
         copies = [planes_for(m, d, 2) for _ in range(ncopy)]
         W = DM.dequant_weight(copies[0], scale, None, bits=2,
                               d=d).to(torch.bfloat16)
-        for B in (1, 8, 32, 600):
+        for B in (1, 8, 9, 16, 17, 32, 128, 600, 1000):
             x = torch.randn(B, d, device=dev, generator=g).bfloat16()
-            # check: f32 x with bf16 values (1e-3), then the bf16 path
-            xf = x.float()
-            got = DM.dequant_matmul(xf, copies[0], scale, None, bits=2)
-            want = DM.dequant_matmul_ref(xf, copies[0], scale, None, bits=2)
-            err, rel = rel_err(got, want)
-            assert rel <= 1e-3, (sname, B, rel)
-            worst, worst_rel = max(worst, err), max(worst_rel, rel)
-            got16 = DM.dequant_matmul(x, copies[0], scale, None, bits=2)
-            _, rel16 = rel_err(got16, want)
-            assert rel16 <= 1e-2, (sname, B, "bf16 out", rel16)
-            it = 20 if B <= 32 else 3
-            ms = time_ms([lambda c=c: DM.dequant_matmul(x, c, scale, None,
-                                                        bits=2)
-                          for c in copies], it)
+            path, rel, rel16 = check(x, copies[0], scale, None, (sname, B),
+                                     bits=2)
+            if B not in timed:
+                continue
+
+            def run(path=None, it=20 if B <= 128 else 5):
+                return time_ms([lambda c=c: DM.dequant_matmul(
+                    x, c, scale, None, bits=2, path=path) for c in copies],
+                    it)
+
+            ms = run()
             plain = time_ms([lambda: DM.dequant_matmul_ref(
                 x, copies[0], scale, None, bits=2)], 2)
             lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
             bms, by = bound_ms(B * d * 2 + pbytes + B * m * 2,
                                2 * B * d * m, name)
-            rows.append(dict(shape=sname, m=m, d=d, B=B, ms=ms,
-                             plain_ms=plain, library_ms=lib, bound_ms=bms,
-                             bound_by=by, rel_err=rel, rel_err_bf16=rel16))
-            log(f"K1 {sname:8s} {m}x{d} B={B:4d}: {ms:.4f} ms "
-                f"(bound {bms:.4f} {by}, {bms / ms:.0%}), plain "
+            row = dict(shape=sname, m=m, d=d, B=B, path=path, ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bms,
+                       bound_by=by, rel_err=rel, rel_err_bf16=rel16)
+            extra = ""
+            if B in cross:      # the other kernel at the same shape
+                other = "tile" if path == "partial" else "partial"
+                row[f"ms_{path}"] = ms
+                row[f"ms_{other}"] = run(other)
+                for k in cross[B]:
+                    cross[B][k] += row[f"ms_{k}"]
+                extra = f", forced {other} {row[f'ms_{other}']:.4f} ms"
+            rows.append(row)
+            log(f"K1 {sname:8s} {m}x{d} B={B:4d} [{path}]: {ms:.4f} ms "
+                f"(bound {bms:.4f} {by}, {bms / ms:.0%}){extra}, plain "
                 f"{plain:.3f} ms, torch.matmul bf16 {lib:.4f} ms, "
                 f"rel err {rel:.1e} / bf16 out {rel16:.1e}")
-            if B == 1:
-                for k, v in (("ms", ms), ("plain_ms", plain),
-                             ("bound_ms", bms), ("library_ms", lib)):
-                    sums[k] += v
+            bound_by[B].add(by)
+            for k, v in (("ms", ms), ("plain_ms", plain),
+                         ("bound_ms", bms), ("library_ms", lib)):
+                sums[B][k] += v
         del copies, W
         torch.cuda.empty_cache()
+    for B in timed:
+        t = sums[B]
+        log(f"K1 sum of the five shapes, B={B:4d}: {t['ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f}, torch.matmul bf16 {t['library_ms']:.4f}")
+    for B, c in cross.items():
+        log(f"K1 crossover, B={B:2d}, sum of the five shapes: single-row "
+            f"kernel {c['partial']:.4f} ms, K1-tile {c['tile']:.4f} ms "
+            f"(threshold: K1-tile from B = {DM.TILE_MIN_B})")
+    log(f"K1-tile sum at B=600: {sums[600]['ms']:.3f} ms (was "
+        f"{BEFORE['k1_sum_b600_ms']}); at B=32: {sums[32]['ms']:.4f} ms (was "
+        f"{BEFORE['k1_sum_b32_ms']})")
     RESULTS["k1"] = rows
-    sums["max_rel_err"] = worst_rel
-    return worst, sums
+    RESULTS["k1_sums"] = {str(B): t for B, t in sums.items()}
+    RESULTS["k1_crossover"] = {str(B): c for B, c in cross.items()}
+    for B in (1, 600):          # one word for each summed row
+        assert len(bound_by[B]) == 1, (B, bound_by[B])
+    k1 = dict(sums[1], max_rel_err=worst_rel["partial"],
+              max_abs_err=worst["partial"], bound_by=bound_by[1].pop())
+    k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
+               max_abs_err=worst["tile"], bound_by=bound_by[600].pop())
+    return k1, k1t
 
 
 def phase_k2(name: str):
@@ -214,7 +279,10 @@ def phase_k2(name: str):
     rec = None
     for B, H, KV, S, plen in [(2, 32, 32, 600, [600, 431]),
                               (2, 64, 8, 600, [600, 431]),
-                              (1, 32, 32, 1000, [1000])]:
+                              (1, 32, 32, 1000, [1000]),
+                              (2, 32, 8, 600, [600, 431]),
+                              (2, 32, 32, 513, [513, 1]),
+                              (1, 32, 32, 2048, [2048])]:
         hd = 128
         q = torch.randn(B, S, H, hd, device=dev, generator=g).bfloat16()
         k = torch.randn(B, S, KV, hd, device=dev, generator=g).bfloat16()
@@ -251,6 +319,11 @@ def phase_k2(name: str):
         RESULTS.setdefault("k2", []).append(r)
         if rec is None:
             rec = r
+        del want, mask
+        torch.cuda.empty_cache()
+    k2 = RESULTS["k2"]
+    log(f"K2 B=2 H=32 S=600: {k2[0]['ms']:.4f} ms (was {BEFORE['k2_ms']}); "
+        f"GQA H=64 KV=8: {k2[1]['ms']:.4f} ms (was {BEFORE['k2_gqa_ms']})")
     return worst, rec
 
 
@@ -555,12 +628,13 @@ def _run_engine(eng, reqs, cfg):
     # and count per step there
     PG.paged_decode_step = checked(orig[0], decode=True)
     try:
-        DM.launches = FA.launches = K3.launches = 0
+        DM.launches = DM.launches_tile = FA.launches = K3.launches = 0
         t = time.time()
         out = eng.run(reqs)
         torch.cuda.synchronize()
         run_s = time.time() - t
         k1, k2, k3 = DM.launches, FA.launches, K3.launches
+        k1_tile = DM.launches_tile
     finally:
         (PG.paged_decode_step, PG.paged_prefill_slot,
          PG.paged_append_step) = orig
@@ -569,9 +643,27 @@ def _run_engine(eng, reqs, cfg):
                                                              len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
     assert bool(finite), "NaN/inf logits"
-    return dict(run_s=run_s, decode_steps=len(per_step), k1=k1, k2=k2, k3=k3,
+    return dict(run_s=run_s, decode_steps=len(per_step), k1=k1,
+                k1_tile=k1_tile, k2=k2, k3=k3,
                 k1_per_step=min(s[0] for s in per_step),
                 k3_per_step=min(s[1] for s in per_step))
+
+
+def _kernel_table(prof, n: int, n_top: int = 6):
+    """From a torch.profiler (CUPTI) run of ``n`` steps: kernels' device ms,
+    kernel launches and aten ops per step, and the ``n_top`` kernels by
+    device time as (name, ms per step, launches per step)."""
+    from torch.autograd import DeviceType
+
+    dev_t = lambda x: getattr(x, "self_device_time_total",  # noqa: E731
+                              getattr(x, "self_cuda_time_total", 0))
+    avgs = prof.key_averages()
+    kern = [x for x in avgs if x.device_type == DeviceType.CUDA]
+    top = sorted(kern, key=dev_t, reverse=True)[:n_top]
+    return (sum(dev_t(x) for x in kern) / 1e3 / n,
+            sum(x.count for x in kern) / n,
+            sum(x.count for x in avgs if x.key.startswith("aten::")) / n,
+            [(x.key, dev_t(x) / n / 1e3, x.count / n) for x in top])
 
 
 def _b1_decode(model, cfg, rng, n_steps=48, n_prof=8):
@@ -579,7 +671,6 @@ def _b1_decode(model, cfg, rng, n_steps=48, n_prof=8):
     ``n_steps`` (crosses a hot-ring flush), then ``n_prof`` steps under
     torch.profiler (CUPTI): kernels' device ms, kernel launches and aten
     ops per step; busy share = device ms over the unprofiled step time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from quip_tpu_torch.serve.engine import Engine
 
@@ -606,19 +697,10 @@ def _b1_decode(model, cfg, rng, n_steps=48, n_prof=8):
         for _ in range(n_prof):
             e.step()
         torch.cuda.synchronize()
-    dev_t = lambda x: getattr(x, "self_device_time_total",  # noqa: E731
-                              getattr(x, "self_cuda_time_total", 0))
-    kern = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
-    dev_ms = sum(dev_t(x) for x in kern) / 1e3 / n_prof
-    top = sorted(kern, key=dev_t, reverse=True)[:6]
-    return dict(
-        ms_per_step=ms, tok_s=1e3 / ms, device_ms=dev_ms,
-        kernel_launches=sum(x.count for x in kern) / n_prof,
-        aten_ops=sum(x.count for x in prof.key_averages()
-                     if x.key.startswith("aten::")) / n_prof,
-        busy=dev_ms / ms if dev_ms else None,
-        top=[(x.key, dev_t(x) / n_prof / 1e3, x.count / n_prof)
-             for x in top])
+    dev_ms, launches, aten, top = _kernel_table(prof, n_prof)
+    return dict(ms_per_step=ms, tok_s=1e3 / ms, device_ms=dev_ms,
+                kernel_launches=launches, aten_ops=aten,
+                busy=dev_ms / ms if dev_ms else None, top=top)
 
 
 def phase_serve(name: str, smi: str):
@@ -653,10 +735,13 @@ def phase_serve(name: str, smi: str):
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"Engine.run (bf16 KV, un-fused RHT): 4 requests in "
         f"{base['run_s']:.2f} s, {base['decode_steps']} decode steps, K1 "
-        f"launches {base['k1']}, K2 {base['k2']}, K3 {base['k3']}; KV cache "
+        f"launches {base['k1']} ({base['k1_tile']} of them K1-tile), K2 "
+        f"{base['k2']}, K3 {base['k3']}; KV cache "
         f"{base['cache_gib']:.3f} GiB, peak {base['peak_gib']:.2f} GiB")
     assert base["k1_per_step"] >= 129, base
     assert base["k2"] >= 32 and base["k3"] == 0, base
+    # the 600-token prompt alone: 128 packed linears at 600 rows
+    assert base["k1_tile"] >= 128, base
     RESULTS["serve"] = base
 
     # prefill of the 600-token prompt; K1 launches in it
@@ -666,13 +751,21 @@ def phase_serve(name: str, smi: str):
     pre_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
-        k1 = DM.launches
+        k1, k1t = DM.launches, DM.launches_tile
         t = time.perf_counter()
         PG.paged_prefill_slot(eng.params, p600, 600, kv, 0, cfg)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t) * 1e3)
         k1_prefill = DM.launches - k1
+        k1_tile_prefill = DM.launches_tile - k1t
     prefill_ms = min(pre_ms)
+    assert k1_tile_prefill >= 128, k1_tile_prefill
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        PG.paged_prefill_slot(eng.params, p600, 600, kv, 0, cfg)
+        torch.cuda.synchronize()
+    pre_dev_ms, pre_launches, pre_aten, pre_top = _kernel_table(prof, 1, 8)
     del eng, kv
     torch.cuda.empty_cache()
 
@@ -691,12 +784,13 @@ def phase_serve(name: str, smi: str):
     log(f"Engine.run (QUIP_FUSED_RHT=1, int8 KV, 200-token shared prefix; "
         f"prompts 128/37/5 with it, 600 without): 4 requests in "
         f"{conf['run_s']:.2f} s, {conf['decode_steps']} decode steps, K1 "
-        f"launches {conf['k1']}, K2 {conf['k2']}, K3 {conf['k3']} (per "
+        f"launches {conf['k1']} ({conf['k1_tile']} of them K1-tile), K2 "
+        f"{conf['k2']}, K3 {conf['k3']} (per "
         f"decode step at least K1 {conf['k1_per_step']}, K3 "
         f"{conf['k3_per_step']}); KV cache {conf['cache_gib']:.3f} GiB, "
         f"peak {conf['peak_gib']:.2f} GiB")
     assert conf["k3_per_step"] >= 258 and conf["k1_per_step"] >= 129, conf
-    assert conf["k2"] == 32, conf
+    assert conf["k2"] == 32 and conf["k1_tile"] >= 128, conf
     RESULTS["serve_fused_int8_prefix"] = conf
     del eng
     torch.cuda.empty_cache()
@@ -720,7 +814,13 @@ def phase_serve(name: str, smi: str):
         with fused_rht(fused):
             b1[fused] = _b1_decode(model, cfg, rng)
     log(f"prefill 600 tokens: {prefill_ms:.1f} ms "
-        f"({600 / prefill_ms * 1e3:.0f} tok/s), {k1_prefill} K1 launches")
+        f"({600 / prefill_ms * 1e3:.0f} tok/s; was {BEFORE['prefill_ms']} "
+        f"ms), {k1_prefill} K1 launches, {k1_tile_prefill} of them K1-tile; "
+        f"profiled: {pre_dev_ms:.2f} ms of kernels, {pre_launches:.0f} "
+        f"kernel launches, {pre_aten:.0f} aten ops; device busy share "
+        + (f"{pre_dev_ms / prefill_ms:.1%}" if pre_dev_ms else "not measured"))
+    for key, ms, cnt in pre_top:
+        log(f"  {key[:60]:60s} {ms:.3f} ms, {cnt:.0f} launches")
     log(f"decode b4 (un-fused, 24 steps): {b4_ms:.2f} ms/step, "
         f"{4e3 / b4_ms:.1f} tok/s")
     for fused, d in b1.items():
@@ -735,6 +835,10 @@ def phase_serve(name: str, smi: str):
                 f"launches/step")
     log(f"card: {smi}")
     RESULTS["serve"].update(prefill_ms=prefill_ms, k1_prefill=k1_prefill,
+                            k1_tile_prefill=k1_tile_prefill,
+                            prefill_device_ms=pre_dev_ms,
+                            prefill_kernel_launches=pre_launches,
+                            prefill_aten_ops=pre_aten, prefill_top=pre_top,
                             b4_ms_per_step=b4_ms, b1_unfused=b1[False],
                             b1_fused=b1[True])
     return base, conf
@@ -747,24 +851,36 @@ def main():
     args = ap.parse_args()
     t0 = time.time()
     name, smi = phase_device()
-    k1_err, k1 = phase_k1(name)
+    k1, k1t = phase_k1(name)
     k2_err, k2 = phase_k2(name)
     k3_err, k3 = phase_k3(name)
     k1p_err, k1p = phase_k1p(name)
     phase_slice()
     base, conf = phase_serve(name, smi)
-    # launches: K1 and K2 from the first slice's Engine.run, K3 from the
-    # fused / int8 / prefix Engine.run, K1' from the microbenchmark's path
+    # launches: K1, K1-tile and K2 from the first slice's Engine.run, K3
+    # from the fused / int8 / prefix Engine.run, K1' from the
+    # microbenchmark's path
     kernels = [
         dict(name="dequant_matmul", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
-             launches=base["k1"], launches_fused_int8_prefix=conf["k1"],
-             max_abs_err=k1_err,
+             launches=base["k1"] - base["k1_tile"],
+             launches_fused_int8_prefix=conf["k1"] - conf["k1_tile"],
+             max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by="bytes", library_ms=k1["library_ms"],
+             bound_by=k1["bound_by"], library_ms=k1["library_ms"],
              max_rel_err=k1["max_rel_err"],
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=1"),
+        dict(name="dequant_matmul_tile", route="cuda",
+             source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
+             replaces="quip_tpu/kernels/dequant_matmul.py:183",
+             launches=base["k1_tile"],
+             launches_fused_int8_prefix=conf["k1_tile"],
+             max_abs_err=k1t["max_abs_err"],
+             ms=k1t["ms"], plain_ms=k1t["plain_ms"],
+             bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
+             library_ms=k1t["library_ms"], max_rel_err=k1t["max_rel_err"],
+             shape="sum over wqkv, wo, wgu, wd, lm_head at B=600"),
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",

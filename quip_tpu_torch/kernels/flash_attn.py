@@ -5,8 +5,11 @@
 wrapper ``flash_prefill_bshd``) with the hand-written CUDA kernel in
 ``csrc/flash_attn.cu``. It reads the model's (B, S, H, hd) layout in
 place and masks the ragged last tile itself, so any S works without the
-256-padding. The kernel is bound by its two products on the CUDA cores;
-its design note is in the source.
+256-padding. The kernel is bound by its two products, which run on the
+tensor cores (``mma.sync``, bf16 operands staged by ``cp.async``, P packed
+to bf16 in registers); its design note is in the source, and
+``flash_prefill_tiled_ref`` walks the key tiles the same way in plain
+PyTorch.
 
 Semantics: key j is valid for query i iff j <= i and j < plen[b]; GQA head
 h reads KV head h // (H // KV); output acc / max(l, 1e-30) (padded query
@@ -60,6 +63,44 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhsl,blhd->bshd", probs, vf).to(q.dtype)
+
+
+def flash_prefill_tiled_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, plen: Optional[torch.Tensor], *,
+                            scale: float, tk: int = 64) -> torch.Tensor:
+    """For tests only: the kernel's arithmetic in plain PyTorch. bf16 q, k
+    and v, key tiles of ``tk``, online softmax with f32 m / l / acc, l from
+    the unrounded weights, the weights rounded to bf16 before the PV
+    product, out = acc / max(l, 1e-30) in bf16. Tiles past the causal
+    diagonal of the last query are skipped."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    qf = q.to(torch.bfloat16).to(torch.float32)
+    kf = k.to(torch.bfloat16).to(torch.float32).repeat_interleave(rep, dim=2)
+    vf = v.to(torch.bfloat16).to(torch.float32).repeat_interleave(rep, dim=2)
+    if plen is None:
+        plen = torch.full((B,), S, dtype=torch.int32)
+    i = torch.arange(S)
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    for kt in range(0, S, tk):
+        j = torch.arange(kt, min(kt + tk, S))
+        s = torch.einsum("bshd,blhd->bhsl", qf, kf[:, j]) * scale
+        valid = ((j[None, :] <= i[:, None])[None]
+                 & (j[None, None, :] < plen[:, None, None]))[:, None]
+        s = torch.where(valid, s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bhsl,blhd->bhsd",
+                          p.to(torch.bfloat16).to(torch.float32), vf[:, j])
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
 
 
 def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -5,9 +5,10 @@ The card's machine has no jax, so run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-This file imports neither jax nor quip_tpu. Tolerances: K1 on f32 inputs
-holding bf16 values differs from the plain version only in summation order
-(1e-3 of max |y|); K2 feeds bf16 softmax weights to its PV product (2e-2);
+This file imports neither jax nor quip_tpu. Tolerances: K1 and K1-tile on
+f32 inputs holding bf16 values differ from the plain version only in
+summation order (1e-3 of max |y|; 1e-2 with bf16 outputs, their rounding);
+K2 feeds bf16 softmax weights to its PV product (2e-2);
 K3 rounds as its plain version does and differs in summation order (2e-5
 in f32, 2e-2 in bf16: one bf16 rounding per product); K1′ against its
 plain version 1e-3, against K1 2e-2 (its 128·Σx fix-up in f32).
@@ -60,8 +61,63 @@ def test_k1_matches_plain(cuda, bits, qfn, code_bits, B):
     assert err.item() <= 1e-3
 
 
+@pytest.mark.parametrize("bits,qfn,code_bits", [
+    (2, "b", None), (3, "b", None), (4, "b", None), (8, "b", None),
+    (4, "b", 3), (2, "a", None), (4, "a", None)])
+@pytest.mark.parametrize("B", [9, 17, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_tile_matches_plain(cuda, bits, qfn, code_bits, B, dtype):
+    """The tensor-core path: m = 328 leaves a ragged warp of columns,
+    d = 1408 a ragged group of word rows in the 1-bit plane of 3-bit."""
+    g = torch.Generator(device=cuda).manual_seed(bits * 100 + B)
+    m, d = 328, 1408
+    planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                 dtype=torch.int32, generator=g, device=cuda)
+                   for fb, _ in PLANE_SPLITS[bits])
+    if code_bits:
+        planes = tuple(p & 0x77777777 for p in planes)
+    scale, zero = torch.tensor(0.03, device=cuda), None
+    if qfn == "a":
+        scale = torch.rand(m, generator=g, device=cuda) * 0.05 + 0.01
+        zero = torch.rand(m, generator=g, device=cuda) * 4
+    x = torch.randn(B, d, generator=g, device=cuda).bfloat16()
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    before = DM.launches, DM.launches_tile
+    got = DM.dequant_matmul(x.to(dtype), planes, scale, zero, **kw)
+    assert (DM.launches, DM.launches_tile) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype
+    want = DM.dequant_matmul_ref(x.float(), planes, scale, zero, **kw)
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() <= (1e-3 if dtype == torch.float32 else 1e-2)
+    # and the single-row kernel on the same rows
+    old = DM.dequant_matmul(x.float()[:8], planes, scale, zero, **kw)
+    assert DM.launches_tile == before[1] + 1
+    assert ((old - want[:8]).abs().max() / want.abs().max()).item() <= 1e-3
+
+
+def test_k1_dispatch_by_shape(cuda):
+    """A shape K1-tile does not take goes to the single-row kernel at any
+    B; forcing the tile path on it raises."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    m, d = 100, 96                       # m % 8 != 0, d * f % 128 != 0
+    plane = torch.randint(-2 ** 31, 2 ** 31, (d * 2 // 32, m),
+                          dtype=torch.int32, generator=g, device=cuda)
+    x = torch.randn(40, d, generator=g, device=cuda).bfloat16().float()
+    before = DM.launches_tile
+    got = DM.dequant_matmul(x, (plane,), 0.03, None, bits=2)
+    assert DM.launches_tile == before
+    want = DM.dequant_matmul_ref(x, (plane,), torch.tensor(0.03, device=cuda),
+                                 None, bits=2)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    with pytest.raises(ValueError):
+        DM.dequant_matmul(x, (plane,), 0.03, None, bits=2, path="tile")
+
+
 @pytest.mark.parametrize("B,H,KV,S,plen", [(2, 8, 8, 300, [300, 131]),
-                                           (1, 8, 2, 77, [77])])
+                                           (1, 8, 2, 77, [77]),
+                                           (2, 8, 8, 513, [513, 1]),
+                                           (1, 8, 2, 2048, [2048]),
+                                           (2, 4, 1, 64, [64, 63])])
 def test_k2_matches_plain(cuda, B, H, KV, S, plen):
     g = torch.Generator(device=cuda).manual_seed(S)
     q = torch.randn(B, S, H, 128, generator=g, device=cuda).bfloat16()

@@ -5,7 +5,11 @@ held against quip_tpu's dequant_matmul_ref and its Pallas kernel in
 interpret mode (on the same bf16-cast x), and qlinear_apply against
 quip_tpu's for the rht / rht_sf / rht_uf modes with padded planes and bias.
 Tolerances: f32 vs f32 1e-5; vs the kernel 1e-3 (its accumulation order
-around the folded 128-offset, as in tests/test_pack.py)."""
+around the folded 128-offset, as in tests/test_pack.py). ``tile_walk_ref``,
+the plain-PyTorch walk of the planes that the tensor-core kernel makes
+(slices, lane -> word map, 128 + c operands), is held against the plain
+version to 1e-5 of max |y|: exact bf16 operands, f32 sums in another
+order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,3 +78,85 @@ def test_qlinear_apply_matches(mode, bits):
     got = qlinear_apply(tq, torch.from_numpy(x)).numpy()
     assert got.shape == (2, 5, m)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+_FORMATS = [(2, "b", None), (3, "b", None), (4, "b", None), (8, "b", None),
+            (4, "b", 3), (2, "a", None), (4, "a", None)]
+
+
+def _case(rng, B, m, d, bits, qfn, code_bits):
+    cb = code_bits or bits
+    codes = rng.integers(0, 2 ** cb, (m, d)).astype(np.int32)
+    jplanes = JF.pack_codes(jnp.asarray(codes, jnp.int32), bits)
+    tplanes = tuple(torch.from_numpy(np.array(p)) for p in jplanes)
+    x = rng.standard_normal((B, d)).astype(np.float32)
+    x_bf = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    if qfn == "b":
+        scale, zero = np.float32(0.37), None
+    else:
+        scale = (rng.random(m) * 0.1 + 0.01).astype(np.float32)
+        zero = rng.integers(0, 2 ** cb, m).astype(np.float32)
+    return x, x_bf, jplanes, tplanes, scale, zero
+
+
+@pytest.mark.parametrize("d", [256, 1408])
+@pytest.mark.parametrize("B", [9, 33])
+@pytest.mark.parametrize("bits,qfn,code_bits", _FORMATS)
+def test_tile_walk_matches_plain(bits, qfn, code_bits, B, d):
+    """K1-tile's fragment map (1408 = 11 * 128: the 1-bit plane of 3-bit
+    has 44 word rows, a ragged last group of 8; m = 72 leaves a ragged
+    warp of 32 columns)."""
+    rng = np.random.default_rng(bits * 1000 + B + d)
+    m = 72
+    _, x_bf, _, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
+                                             code_bits)
+    assert TDM.tile_takes(d, m, bits)
+    tscale = torch.from_numpy(np.asarray(scale))
+    tzero = None if zero is None else torch.from_numpy(zero)
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    got = TDM.tile_walk_ref(torch.from_numpy(x_bf), tplanes, tscale, tzero,
+                            **kw)
+    want = TDM.dequant_matmul_ref(torch.from_numpy(x_bf), tplanes, tscale,
+                                  tzero, **kw)
+    assert got.shape == want.shape == (B, m)
+    err = (got - want).abs().max() / want.abs().max()
+    assert err.item() <= 1e-5
+
+
+@pytest.mark.parametrize("B", [33, 130])
+@pytest.mark.parametrize("bits,qfn,code_bits", [(2, "b", None),
+                                                (3, "b", None),
+                                                (4, "a", None)])
+def test_plain_dequant_matmul_matches_batched(bits, qfn, code_bits, B):
+    """The plain path at the batch sizes of the tensor-core kernel against
+    quip_tpu's Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(bits * 100 + B)
+    m, d = 256, 128
+    x, x_bf, jplanes, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
+                                                   code_bits)
+    jzero = None if zero is None else jnp.asarray(zero)
+    tzero = None if zero is None else torch.from_numpy(zero)
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    got = TDM.dequant_matmul(torch.from_numpy(x_bf), tplanes,
+                             torch.from_numpy(np.asarray(scale)), tzero,
+                             **kw).numpy()
+    want = np.asarray(j_dm(jnp.asarray(x), jplanes, jnp.asarray(scale), jzero,
+                           tile_m=128, interpret=True, **kw))
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_tile_dispatch_rule():
+    """B <= 8 stays with the single-row kernel; K1-tile takes the shapes
+    whose copies are 16 bytes; its plan fills the card."""
+    assert TDM.TILE_MIN_B > 8
+    assert TDM.tile_takes(4096, 12288, 2) and TDM.tile_takes(11008, 4096, 2)
+    assert TDM.tile_takes(1408, 640, 3) and not TDM.tile_takes(96, 256, 3)
+    assert not TDM.tile_takes(4096, 100, 2)
+    assert TDM._tile_stages(4096, 2) == 32 and TDM._tile_stages(11008, 2) == 86
+    assert TDM._tile_stages(1408, 1) == 12      # 6 row groups x 16 fields / 8
+    # (rows per block, warps, fan-in splits) on a card of 132 SMs
+    assert TDM._tile_plan(600, 4096, 12288, 2, 132) == (64, 8, 1)
+    assert TDM._tile_plan(600, 11008, 4096, 2, 132) == (64, 8, 2)
+    assert TDM._tile_plan(32, 4096, 4096, 2, 132) == (32, 4, 8)
+    assert TDM._tile_plan(9, 4096, 32000, 2, 132) == (16, 4, 2)
+    assert TDM._tile_plan(33, 1024, 640, 3, 132) == (64, 4, 2)

@@ -2,7 +2,10 @@
 interpret mode vs the port's flash_prefill_bshd on the CPU (its plain
 version), at B = 2 with plen < S, GQA, and S not a multiple of 256.
 Tolerance 2e-2: the Pallas kernel feeds bf16 operands (and bf16 softmax
-weights) to its dots, the plain version is f32 throughout."""
+weights) to its dots, the plain version is f32 throughout. The same limit
+holds ``flash_prefill_tiled_ref`` (the CUDA kernel's arithmetic in plain
+PyTorch: key tiles of 64, bf16 weights into PV) against the plain version:
+the CPU witness of the card test's tolerance."""
 import math
 
 import jax.numpy as jnp
@@ -33,3 +36,47 @@ def test_flash_plain_matches_pallas(kv_heads):
     assert TFA.launches == before       # the CPU path launches no kernel
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+
+def _qkv(rng, B, S, H, KV, hd=128):
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("S,H,KV,plen", [
+    (200, 4, 4, [200, 1]),        # S not a multiple of 64, a row of plen 1
+    (130, 8, 2, [77, 130]),       # GQA 4:1, plen < S in the first row
+])
+def test_flash_plain_matches_pallas_edges(S, H, KV, plen):
+    rng = np.random.default_rng(S)
+    q, k, v = _qkv(rng, 2, S, H, KV)
+    pl = np.array(plen, np.int32)
+    scale = 1.0 / math.sqrt(128)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(pl), scale=scale, interpret=True),
+                      np.float32)
+    got = TFA.flash_prefill_bshd(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), torch.from_numpy(pl),
+                                 scale=scale).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("S,H,KV,plen", [
+    (200, 4, 4, [200, 1]), (130, 8, 2, [77, 130]), (64, 2, 1, [64, 64]),
+    (257, 2, 2, [257, 129])])
+def test_flash_tiled_bf16_p_matches_plain(S, H, KV, plen):
+    rng = np.random.default_rng(S + 1)
+    q, k, v = (torch.from_numpy(t).bfloat16() for t in _qkv(rng, 2, S, H, KV))
+    pl = torch.tensor(plen, dtype=torch.int32)
+    scale = 1.0 / math.sqrt(128)
+    got = TFA.flash_prefill_tiled_ref(q, k, v, pl, scale=scale)
+    want = TFA.flash_prefill_ref(q.float(), k.float(), v.float(), pl,
+                                 scale=scale)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+    none = TFA.flash_prefill_tiled_ref(q, k, v, None, scale=scale)
+    full = TFA.flash_prefill_ref(q.float(), k.float(), v.float(), None,
+                                 scale=scale)
+    assert (none.float() - full).abs().max().item() <= 2e-2
