@@ -7,19 +7,22 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
   1. the card's name and power limit, and the kernel build (all five nvcc
      runs started together);
-  2. K1 (dequant_matmul: the single-row kernel up to B = 8, the tensor-core
-     tile kernel K1-tile above) against its plain version at the five 2-bit
-     Llama-2-7B projection shapes (B = 1, 8, 9, 16, 17, 32, 128, 600, 1000)
-     and at small 3/4/8-bit, qfn-a and code_bits=3 shapes, with kernel,
-     plain, bound and library (torch.matmul of the dequantised bf16 weight)
-     times, and both kernels' times at B = 1, 8, 16, 32 (the crossover);
+  2. K1 (dequant_matmul: the decode kernel K1-decode up to B = 8, the
+     tile kernel K1-tile above, both on the tensor cores) against its plain
+     version at the five 2-bit Llama-2-7B projection shapes (B = 1..4, 7, 8,
+     9, 16, 17, 32, 128, 600, 1000) and at small 3/4/8-bit, qfn-a and code_bits=3
+     shapes, two of them ragged and one that only K1-decode takes, f32 and
+     bf16 x, each kernel forced past its threshold too, with kernel, plain,
+     bound and library (torch.matmul of the dequantised bf16 weight) times,
+     and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover);
   3. K2 (flash_prefill) against its plain version (B=2, H=32, S=600,
      plen=[600, 431]; GQA H=64, KV=8 and H=32, KV=8; S = 513 with a row of
      plen 1; S = 1000 and 2048), with SDPA as the library yardstick;
   4. K3 (rht_apply_fused) against its plain version at the five
-     Llama-2-7B (a, b) splits, B in (1, 5, 32), both directions, bf16 and
-     f32, with a scaleWH fold, and a right-factor-free case; the round
-     trip; times beside the un-fused apply_rht;
+     Llama-2-7B (a, b) splits, B in (1, 5, 32, 70), both directions, bf16
+     and f32, with a scaleWH fold, and a right-factor-free case; the round
+     trip; times at B = 1, 2, 8, 32 beside the un-fused apply_rht and
+     beside an empty kernel's (the launch floor);
   5. K1' (slabdot_matmul) against its plain version and against K1 through
      the microbenchmark's own functions (tools/bench_kernel.py) at its five
      shapes, and at small 3/4-bit shapes;
@@ -94,7 +97,7 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t = time.time()
-    logs = _build.build_all(["dequant_matmul", "dequant_matmul_tile",
+    logs = _build.build_all(["dequant_matmul_decode", "dequant_matmul_tile",
                              "flash_attn", "rht", "slabdot_matmul"])
     build_s = time.time() - t
     log(f"card: {smi}")
@@ -112,10 +115,13 @@ def phase_device():
     return name, smi
 
 
-# the previous slice's times on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
+# earlier slices' times on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
 # section 6), printed beside this run's
 BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, k2_ms=0.3495,
-              k2_gqa_ms=0.623, prefill_ms=437.4)
+              k2_gqa_ms=0.623, prefill_ms=437.4,
+              # B -> (the CUDA-core K1, K1-tile), sums of the five shapes
+              k1_sums_ms={1: (0.1327, 0.1059), 8: (0.3652, 0.1090)},
+              k3_sum_ms=0.1271)
 
 
 def phase_k1(name: str):
@@ -132,38 +138,43 @@ def phase_k1(name: str):
                                    device=dev)
                      for fb, _ in PLANE_SPLITS[bits])
 
-    worst = {"partial": 0.0, "tile": 0.0}
-    worst_rel = {"partial": 0.0, "tile": 0.0}
+    worst = {"decode": 0.0, "tile": 0.0}
+    worst_rel = {"decode": 0.0, "tile": 0.0}
 
-    def check(x, pl, scale, zero, what, **kw):
+    def check(x, pl, scale, zero, what, path=None, **kw):
         """Kernel against plain: f32 x holding bf16 values, so both see the
         same x and differ only in the summation order (1e-3 of max |y|),
-        then bf16 in and out (1e-2: the output's rounding). Returns the
-        path taken and both errors."""
-        t0 = DM.launches_tile
+        then bf16 in and out (1e-2: the output's rounding). The counters
+        must say that the kernel the rule (or ``path``) names was the one
+        launched. Returns the path taken and both errors."""
+        B, d = x.shape
+        want_path = path or DM.route(B, d, pl[0].shape[-1], kw["bits"])
+        t0, d0 = DM.launches_tile, DM.launches_decode
         xf = x.float()
-        got = DM.dequant_matmul(xf, pl, scale, zero, **kw)
-        path = "tile" if DM.launches_tile > t0 else "partial"
-        assert path == ("tile" if x.shape[0] >= DM.TILE_MIN_B else
-                        "partial"), (what, path)
+        got = DM.dequant_matmul(xf, pl, scale, zero, path=path, **kw)
+        took = (DM.launches_tile - t0, DM.launches_decode - d0)
+        assert took == ((1, 0) if want_path == "tile" else
+                        (0, -(-B // DM.DECODE_MAX_B))), (what, want_path, took)
         want = DM.dequant_matmul_ref(xf, pl, scale, zero, **kw)
-        got16 = DM.dequant_matmul(x, pl, scale, zero, **kw)
+        got16 = DM.dequant_matmul(x, pl, scale, zero, path=path, **kw)
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
-        assert rel <= 1e-3, (what, path, rel)
+        assert rel <= 1e-3, (what, want_path, rel)
         _, rel16 = rel_err(got16, want)
-        assert rel16 <= 1e-2, (what, path, "bf16 out", rel16)
-        worst[path] = max(worst[path], err)
-        worst_rel[path] = max(worst_rel[path], rel)
-        return path, rel, rel16
+        assert rel16 <= 1e-2, (what, want_path, "bf16 out", rel16)
+        worst[want_path] = max(worst[want_path], err)
+        worst_rel[want_path] = max(worst_rel[want_path], rel)
+        return want_path, rel, rel16
 
     # small widths, every format; d = 1408 leaves the 1-bit plane of 3-bit
-    # a ragged group of word rows, m = 328 a ragged warp of columns
+    # a ragged group of word rows, m = 328 a ragged warp of columns; m = 330
+    # (no multiple of 4) and d = 96 are shapes K1-tile does not take: they go
+    # to K1-decode at any B, 8 rows at a time
     for bits, qfn, code_bits in [(2, "b", None), (3, "b", None),
                                  (4, "b", None), (8, "b", None),
                                  (4, "b", 3), (2, "a", None),
                                  (4, "a", None)]:
-        for m, d in ((640, 1024), (328, 1408)):
+        for m, d in ((640, 1024), (328, 1408), (330, 96)):
             pl = planes_for(m, d, bits)
             if code_bits:       # 3-bit codes in 4-bit fields: clear bit 3s
                 pl = tuple(p & 0x77777777 for p in pl)
@@ -172,32 +183,36 @@ def phase_k1(name: str):
             if qfn == "a":
                 scale = torch.rand(m, device=dev, generator=g) * 0.05 + 0.01
                 zero = torch.rand(m, device=dev, generator=g) * 2 ** bits
-            for B in (1, 5, 8, 9, 16, 17, 32, 33, 128, 600, 1000):
+            kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+            for B in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 32, 33, 128, 600,
+                      1000):
+                if d == 96 and B > 33:
+                    continue
                 x = torch.randn(B, d, device=dev, generator=g).bfloat16()
                 check(x, pl, scale, zero, (bits, qfn, code_bits, m, d, B),
-                      bits=bits, qfn=qfn, code_bits=code_bits)
-            # K1-tile below its threshold too, forced
-            x = torch.randn(3, d, device=dev, generator=g).bfloat16().float()
-            got = DM.dequant_matmul(x, pl, scale, zero, bits=bits, qfn=qfn,
-                                    code_bits=code_bits, path="tile")
-            want = DM.dequant_matmul_ref(x, pl, scale, zero, bits=bits,
-                                         qfn=qfn, code_bits=code_bits)
-            _, rel = rel_err(got, want)
-            assert rel <= 1e-3, (bits, qfn, code_bits, m, d, "tile B=3", rel)
-    log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3; 640x1024 and "
-        f"328x1408; B = 1..1000): max rel err single-row kernel "
-        f"{worst_rel['partial']:.2e}, K1-tile {worst_rel['tile']:.2e} "
-        f"<= 1e-3")
+                      **kw)
+            if DM.tile_takes(d, m, bits):
+                # each kernel on the other's side of the threshold, forced
+                for B, path in ((3, "tile"), (8, "tile"), (9, "decode"),
+                                (20, "decode")):
+                    x = torch.randn(B, d, device=dev, generator=g).bfloat16()
+                    check(x, pl, scale, zero, (bits, qfn, m, d, B, path),
+                          path=path, **kw)
+    log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3; 640x1024, "
+        f"328x1408 and 330x96; B = 1..8 and 9..1000, f32 and bf16 x): max rel "
+        f"err K1-decode {worst_rel['decode']:.2e}, K1-tile "
+        f"{worst_rel['tile']:.2e} <= 1e-3")
 
     shapes = {"wqkv": (12288, 4096), "wo": (4096, 4096),
               "wgu": (22528, 4096), "wd": (4096, 11008),
               "lm_head": (32000, 4096)}
-    timed = (1, 8, 16, 32, 128, 600)
+    timed = (1, 2, 4, 8, 16, 32, 128, 600)
+    crossed = (1, 2, 4, 8, 16)
     rows = []
     zero_sums = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,  # noqa: E731
                              library_ms=0.0)
     sums = {B: zero_sums() for B in timed}
-    cross = {B: dict(partial=0.0, tile=0.0) for B in (1, 8, 16, 32)}
+    cross = {B: dict(decode=0.0, tile=0.0) for B in crossed}
     bound_by = {B: set() for B in timed}
     scale = torch.tensor(0.02, device=dev)
     for sname, (m, d) in shapes.items():
@@ -206,7 +221,7 @@ def phase_k1(name: str):
         copies = [planes_for(m, d, 2) for _ in range(ncopy)]
         W = DM.dequant_weight(copies[0], scale, None, bits=2,
                               d=d).to(torch.bfloat16)
-        for B in (1, 8, 9, 16, 17, 32, 128, 600, 1000):
+        for B in (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000):
             x = torch.randn(B, d, device=dev, generator=g).bfloat16()
             path, rel, rel16 = check(x, copies[0], scale, None, (sname, B),
                                      bits=2)
@@ -229,7 +244,7 @@ def phase_k1(name: str):
                        bound_by=by, rel_err=rel, rel_err_bf16=rel16)
             extra = ""
             if B in cross:      # the other kernel at the same shape
-                other = "tile" if path == "partial" else "partial"
+                other = "tile" if path == "decode" else "decode"
                 row[f"ms_{path}"] = ms
                 row[f"ms_{other}"] = run(other)
                 for k in cross[B]:
@@ -249,21 +264,37 @@ def phase_k1(name: str):
     for B in timed:
         t = sums[B]
         log(f"K1 sum of the five shapes, B={B:4d}: {t['ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f}, torch.matmul bf16 {t['library_ms']:.4f}")
+            f"{t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.0%}), "
+            f"torch.matmul bf16 {t['library_ms']:.4f}")
     for B, c in cross.items():
-        log(f"K1 crossover, B={B:2d}, sum of the five shapes: single-row "
-            f"kernel {c['partial']:.4f} ms, K1-tile {c['tile']:.4f} ms "
-            f"(threshold: K1-tile from B = {DM.TILE_MIN_B})")
-    log(f"K1-tile sum at B=600: {sums[600]['ms']:.3f} ms (was "
-        f"{BEFORE['k1_sum_b600_ms']}); at B=32: {sums[32]['ms']:.4f} ms (was "
-        f"{BEFORE['k1_sum_b32_ms']})")
+        b = BEFORE["k1_sums_ms"].get(B)
+        log(f"K1 crossover, B={B:2d}, sum of the five shapes: K1-decode "
+            f"{c['decode']:.4f} ms"
+            + (" (8 rows at a time)" if B > DM.DECODE_MAX_B else "")
+            + f", K1-tile {c['tile']:.4f} ms"
+            + (f"; the previous slice's CUDA-core kernel {b[0]} ms, its "
+               f"K1-tile {b[1]} ms" if b else "")
+            + f" (rule: K1-decode up to B = {DM.DECODE_MAX_B})")
+    # K1-decode beats the library call at decode sizes and, at B = 1, both of
+    # the previous slice's kernels
+    # (asserted where the margin is far above the run-to-run spread; the
+    # B = 8 margin over K1-tile is a few percent and is only printed)
+    for B in (1, 2, 4, 8):
+        assert sums[B]["ms"] < sums[B]["library_ms"], (B, sums[B])
+    assert cross[1]["decode"] < cross[1]["tile"], cross[1]
+    assert sums[1]["ms"] < min(BEFORE["k1_sums_ms"][1]), sums[1]
+    log(f"K1-tile sum at B=600: {sums[600]['ms']:.3f} ms (first slice "
+        f"{BEFORE['k1_sum_b600_ms']}); at B=32: {sums[32]['ms']:.4f} ms "
+        f"(first slice {BEFORE['k1_sum_b32_ms']})")
     RESULTS["k1"] = rows
     RESULTS["k1_sums"] = {str(B): t for B, t in sums.items()}
     RESULTS["k1_crossover"] = {str(B): c for B, c in cross.items()}
     for B in (1, 600):          # one word for each summed row
         assert len(bound_by[B]) == 1, (B, bound_by[B])
-    k1 = dict(sums[1], max_rel_err=worst_rel["partial"],
-              max_abs_err=worst["partial"], bound_by=bound_by[1].pop())
+    k1 = dict(sums[1], max_rel_err=worst_rel["decode"],
+              max_abs_err=worst["decode"], bound_by=bound_by[1].pop(),
+              ms_b8=sums[8]["ms"], bound_ms_b8=sums[8]["bound_ms"],
+              library_ms_b8=sums[8]["library_ms"])
     k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
                max_abs_err=worst["tile"], bound_by=bound_by[600].pop())
     return k1, k1t
@@ -368,14 +399,19 @@ def phase_k3(name: str):
               22016: (128, 172), 32000: (128, 250)}
     rows = []
     sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    by_B = {B: dict(ms=0.0, library_ms=0.0) for B in (1, 2, 8, 32)}
     bound_by = set()
+    # the launch floor: a kernel that does nothing, replayed the same way
+    # (alone in its graph, as each K3 time is, and ten to a graph)
+    empty_ms = time_ms([K3.launch_empty], 200)
+    empty10_ms = time_ms([K3.launch_empty] * 10, 100)
     for n, ab in splits.items():
         t = inc.gen_rht(rots, n, device=dev)
         assert (t.a, t.b) == ab, (n, t.a, t.b)
         swh = torch.rand(n, device=dev, generator=g) + 0.5
         vec = t.signs / swh                  # the scaleWH fold
         for dt in tol:
-            for B in (1, 5, 32):
+            for B in (1, 5, 32, 70):   # 70 rows: blocks of 64 columns
                 x = torch.randn(B, n, device=dev, generator=g).to(dt)
                 for tr in (False, True):
                     check(x, vec, t, tr)
@@ -389,7 +425,7 @@ def phase_k3(name: str):
         # times, bf16 (the serving dtype). The operands (at most 380 KB)
         # sit in L2 here; their bytes are far below the kernel's time
         tv = inc.RHT(vec, t.left, t.right, n)
-        for B in (1, 32):
+        for B in (1, 2, 8, 32):
             x = torch.randn(B, n, device=dev, generator=g).bfloat16()
             for tr in (False, True):
                 ms = time_ms([lambda: K3.rht_apply_fused(
@@ -404,6 +440,9 @@ def phase_k3(name: str):
                 rows.append(dict(n=n, a=a, b=b, B=B, transpose=tr, ms=ms,
                                  plain_ms=plain, library_ms=lib,
                                  bound_ms=bms, bound_by=by))
+                if (n, tr) in on_path:
+                    by_B[B]["ms"] += ms
+                    by_B[B]["library_ms"] += lib
                 log(f"K3 n={n:5d} ({a}x{b}) B={B:2d} "
                     f"{'transpose' if tr else 'forward  '}: {ms:.4f} ms "
                     f"(bound {bms:.5f} {by}), plain {plain:.4f} ms, "
@@ -415,7 +454,20 @@ def phase_k3(name: str):
                         sums[k] += v
     assert len(bound_by) == 1, bound_by    # one word for the summed row
     sums["bound_by"] = bound_by.pop()
-    log(f"K3 vs plain, 5 Llama-2-7B splits + right=None, B in (1, 5, 32), "
+    for B, t in by_B.items():
+        log(f"K3 sum of the six (n, direction) pairs of a decode step, bf16, "
+            f"B={B:2d}: {t['ms']:.4f} ms, un-fused apply_rht "
+            f"{t['library_ms']:.4f} ms")
+    log(f"K3 at B=1: {sums['ms']:.4f} ms (second slice "
+        f"{BEFORE['k3_sum_ms']}); bound {sums['bound_ms']:.5f} ms; launch "
+        f"floor: an empty kernel replayed alone {empty_ms * 1e3:.2f} us a "
+        f"launch ({6 * empty_ms:.4f} ms for six), ten to a graph "
+        f"{empty10_ms * 1e3:.2f} us")
+    # fused beats un-fused in this call (the margin is 1.9x at B = 1)
+    assert sums["ms"] < sums["library_ms"], sums
+    sums.update(empty_ms=empty_ms, empty_in_graph_ms=empty10_ms,
+                by_B={str(B): t for B, t in by_B.items()})
+    log(f"K3 vs plain, 5 Llama-2-7B splits + right=None, B in (1, 5, 32, 70), "
         f"both directions, scaleWH fold: max rel err bf16 "
         f"{worst[torch.bfloat16]:.2e} <= 2e-2, f32 "
         f"{worst[torch.float32]:.2e} <= 2e-5; round trip <= 1e-5")
@@ -473,7 +525,9 @@ def phase_k1p(name: str):
         SD.launches = 0
         bench, (x, copies, scale) = BK.bench_shape(m, d, tiles=(tile_m,))
         n_launch += SD.launches
-        k1_row, sd_row, k1_again = bench
+        by_name = {r["name"]: r for r in bench}
+        k1_row, k1_again = by_name["concat/dflt"], by_name["concat/dflt#2"]
+        sd_row = by_name[f"slabdot/{tile_m}"]
         check(x.float(), copies[0], scale, 2, tile_m)
         plain = time_ms([lambda: SD.slabdot_matmul_ref(
             x, copies[0], scale, bits=2)], 2)
@@ -628,13 +682,14 @@ def _run_engine(eng, reqs, cfg):
     # and count per step there
     PG.paged_decode_step = checked(orig[0], decode=True)
     try:
-        DM.launches = DM.launches_tile = FA.launches = K3.launches = 0
+        DM.launches = DM.launches_tile = DM.launches_decode = 0
+        FA.launches = K3.launches = 0
         t = time.time()
         out = eng.run(reqs)
         torch.cuda.synchronize()
         run_s = time.time() - t
         k1, k2, k3 = DM.launches, FA.launches, K3.launches
-        k1_tile = DM.launches_tile
+        k1_tile, k1_decode = DM.launches_tile, DM.launches_decode
     finally:
         (PG.paged_decode_step, PG.paged_prefill_slot,
          PG.paged_append_step) = orig
@@ -644,7 +699,7 @@ def _run_engine(eng, reqs, cfg):
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
     assert bool(finite), "NaN/inf logits"
     return dict(run_s=run_s, decode_steps=len(per_step), k1=k1,
-                k1_tile=k1_tile, k2=k2, k3=k3,
+                k1_tile=k1_tile, k1_decode=k1_decode, k2=k2, k3=k3,
                 k1_per_step=min(s[0] for s in per_step),
                 k3_per_step=min(s[1] for s in per_step))
 
@@ -735,13 +790,17 @@ def phase_serve(name: str, smi: str):
                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"Engine.run (bf16 KV, un-fused RHT): 4 requests in "
         f"{base['run_s']:.2f} s, {base['decode_steps']} decode steps, K1 "
-        f"launches {base['k1']} ({base['k1_tile']} of them K1-tile), K2 "
+        f"launches {base['k1']} ({base['k1_decode']} K1-decode, "
+        f"{base['k1_tile']} K1-tile), K2 "
         f"{base['k2']}, K3 {base['k3']}; KV cache "
         f"{base['cache_gib']:.3f} GiB, peak {base['peak_gib']:.2f} GiB")
     assert base["k1_per_step"] >= 129, base
     assert base["k2"] >= 32 and base["k3"] == 0, base
     # the 600-token prompt alone: 128 packed linears at 600 rows
     assert base["k1_tile"] >= 128, base
+    # every K1 launch is one of the two kernels; decode steps take K1-decode
+    assert base["k1_decode"] + base["k1_tile"] == base["k1"], base
+    assert base["k1_decode"] >= 129 * base["decode_steps"], base
     RESULTS["serve"] = base
 
     # prefill of the 600-token prompt; K1 launches in it
@@ -784,13 +843,15 @@ def phase_serve(name: str, smi: str):
     log(f"Engine.run (QUIP_FUSED_RHT=1, int8 KV, 200-token shared prefix; "
         f"prompts 128/37/5 with it, 600 without): 4 requests in "
         f"{conf['run_s']:.2f} s, {conf['decode_steps']} decode steps, K1 "
-        f"launches {conf['k1']} ({conf['k1_tile']} of them K1-tile), K2 "
+        f"launches {conf['k1']} ({conf['k1_decode']} K1-decode, "
+        f"{conf['k1_tile']} K1-tile), K2 "
         f"{conf['k2']}, K3 {conf['k3']} (per "
         f"decode step at least K1 {conf['k1_per_step']}, K3 "
         f"{conf['k3_per_step']}); KV cache {conf['cache_gib']:.3f} GiB, "
         f"peak {conf['peak_gib']:.2f} GiB")
     assert conf["k3_per_step"] >= 258 and conf["k1_per_step"] >= 129, conf
     assert conf["k2"] == 32 and conf["k1_tile"] >= 128, conf
+    assert conf["k1_decode"] >= 129 * conf["decode_steps"], conf
     RESULTS["serve_fused_int8_prefix"] = conf
     del eng
     torch.cuda.empty_cache()
@@ -857,20 +918,21 @@ def main():
     k1p_err, k1p = phase_k1p(name)
     phase_slice()
     base, conf = phase_serve(name, smi)
-    # launches: K1, K1-tile and K2 from the first slice's Engine.run, K3
+    # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
     # from the fused / int8 / prefix Engine.run, K1' from the
     # microbenchmark's path
     kernels = [
-        dict(name="dequant_matmul", route="cuda",
-             source="quip_tpu_torch/kernels/csrc/dequant_matmul.cu",
+        dict(name="dequant_matmul_decode", route="cuda",
+             source="quip_tpu_torch/kernels/csrc/dequant_matmul_decode.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
-             launches=base["k1"] - base["k1_tile"],
-             launches_fused_int8_prefix=conf["k1"] - conf["k1_tile"],
+             launches=base["k1_decode"],
+             launches_fused_int8_prefix=conf["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
-             max_rel_err=k1["max_rel_err"],
-             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1"),
+             max_rel_err=k1["max_rel_err"], ms_b8=k1["ms_b8"],
+             bound_ms_b8=k1["bound_ms_b8"], library_ms_b8=k1["library_ms_b8"],
+             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8)"),
         dict(name="dequant_matmul_tile", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
@@ -897,6 +959,8 @@ def main():
              bound_by=k3["bound_by"], library_ms=k3["library_ms"],
              max_rel_err_bf16=k3["max_rel_err_bf16"],
              max_rel_err_f32=k3["max_rel_err_f32"],
+             empty_kernel_ms=k3["empty_ms"],
+             empty_kernel_in_graph_ms=k3["empty_in_graph_ms"],
              shape="sum over the six (n, direction) pairs of a b1 decode "
                    "step: 4096 fwd/T, 11008 fwd, 12288 T, 22016 T, 32000 T; "
                    "bf16"),

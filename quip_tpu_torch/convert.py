@@ -44,9 +44,10 @@ def _pick(t, layer: Optional[int]):
 
 
 def packed_from_numpy(obj, layer: Optional[int] = None,
-                      device="cpu") -> PackedLinear:
-    """One quip_tpu PackedLinear (numpy children) -> the port's module;
-    ``layer`` picks one layer of a stacked leaf."""
+                      device="cuda") -> PackedLinear:
+    """One quip_tpu PackedLinear (numpy children) -> the port's module on
+    ``device``; ``layer`` picks one layer of a stacked leaf."""
+    device = resolve_device(device)
     def tens(a, dtype=None):
         a = _pick(a, layer)
         if a is None or (isinstance(a, tuple) and not a):
@@ -109,6 +110,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
 def _cache_fields(obj, cls, device, host=()):
     """The fields of ``cls`` read off ``obj`` as tensors on ``device``
     (``host`` fields as int32 tensors on the CPU; None stays None)."""
+    device = resolve_device(device)
     out = {}
     for f in cls._fields:
         a = getattr(obj, f)
@@ -121,18 +123,18 @@ def _cache_fields(obj, cls, device, host=()):
     return out
 
 
-def kvcache_from_numpy(obj, device="cpu") -> KVCache:
+def kvcache_from_numpy(obj, device="cuda") -> KVCache:
     """quip_tpu ``KVCache`` (stacked or per layer; numpy leaves)."""
     return KVCache(**_cache_fields(obj, KVCache, device, host=("length",)))
 
 
-def paged_from_numpy(obj, device="cpu") -> PagedKV:
+def paged_from_numpy(obj, device="cuda") -> PagedKV:
     """quip_tpu ``PagedKV`` (numpy leaves), int8 scales included."""
     return PagedKV(**_cache_fields(obj, PagedKV, device,
                                    host=("base", "hot_len")))
 
 
-def prefix_from_numpy(obj, device="cpu") -> Prefix:
+def prefix_from_numpy(obj, device="cuda") -> Prefix:
     """quip_tpu ``Prefix`` (numpy leaves)."""
     f = _cache_fields(obj, Prefix, device, host=("length",))
     return Prefix(**{**f, "length": int(f["length"])})

@@ -16,6 +16,7 @@ package:
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -97,6 +98,14 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, out, job)
             _libs[name] = ctypes.CDLL(str(out))
     return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device`` (the wrappers
+    size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, what: str) -> None:

@@ -5,22 +5,26 @@ accumulation and never builds the dense W. It replaces the Pallas kernel
 ``quip_tpu/kernels/dequant_matmul.py`` (``_dequant_matmul_local`` ->
 ``_kernel`` / ``_plane_codes_dot``) with two hand-written CUDA kernels:
 
-* K1, ``csrc/dequant_matmul.cu`` (``dm_partial``), for B <= 8 rows: the
-  decode GEMV, bound by the bytes of the packed planes. One thread per
-  output column for coalesced plane reads, word rows split over the grid,
-  x staged in shared memory, exact magic-exponent unpack, f32 ``fmaf``.
+* K1-decode, ``csrc/dequant_matmul_decode.cu`` (``dm_decode``), for B <= 8
+  rows: the decode GEMV, bound by the bytes of the packed planes.
+  ``mma.sync`` with the plane words as the A operand (one logic instruction
+  per operand register and one shift per run of fields; the 128 offset
+  taken off once in the epilogue) and the rows of x as the B operand; the
+  words go from device memory straight into registers; one launch, the
+  fan-in splits added through a thread-block cluster's distributed shared
+  memory in a fixed order. Shapes K1-tile does not take go through it 8
+  rows at a time. Design note in the source;
+  ``decode_walk_ref`` below walks the planes the same way in plain PyTorch.
 * K1-tile, ``csrc/dequant_matmul_tile.cu`` (``dm_tile``), for B > 8 rows:
-  prefill and admission windows, bound by the products. ``mma.sync`` on the
-  tensor cores with the plane words as B fragments (a shift, an AND, an OR
-  and one exact bf16 subtraction per operand register), x tiles and plane
-  words staged by ``cp.async``. Its design note is in the source;
-  ``tile_walk_ref`` below walks the planes the same way in plain PyTorch.
+  prefill and admission windows, bound by the products. ``mma.sync`` with
+  the plane words as B fragments, x tiles and plane words staged by
+  ``cp.async``. Its design note is in the source; ``tile_walk_ref`` below
+  walks the planes the same way in plain PyTorch.
 
-Dispatch goes by device, then by a stated rule: a CPU tensor takes
-``dequant_matmul_ref``, the plain version with the semantics of
+Dispatch goes by device, then by a stated rule (``route``): a CPU tensor
+takes ``dequant_matmul_ref``, the plain version with the semantics of
 quip_tpu's ``dequant_matmul_ref``; a CUDA tensor launches a kernel (or
-raises): K1-tile when B >= ``TILE_MIN_B`` and the shape is one it takes
-(``tile_takes``), K1 otherwise.
+raises).
 
 Algebra (shared with the TPU kernel):
     qfn-b:  y = s · (2/maxq · (x @ qᵀ) - Σ_d x)
@@ -30,7 +34,7 @@ with x @ qᵀ = Σ_p weight_p · (x @ q_pᵀ) over the planes of PLANE_SPLITS.
 from __future__ import annotations
 
 import ctypes
-import functools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -38,31 +42,26 @@ import torch
 from quip_tpu_torch.kernels import _build
 from quip_tpu_torch.pack.format import PLANE_SPLITS, unpack_codes
 
-launches = 0          # kernel launches (one per CUDA call), read by callers
+launches = 0          # kernel launches, read by callers
 launches_tile = 0     # those of them that went to K1-tile
+launches_decode = 0   # those of them that went to K1-decode
 
-# Rows from which the tensor-core path is taken. Measured on an NVIDIA H100
-# 80GB HBM3, 700 W (chip_smoke.py, K1 phase, "crossover" lines): K1-tile is
-# the faster kernel at every B tried, B = 1 and 8 included (sum of the five
-# Llama-2-7B shapes 0.106 against 0.133 ms and 0.109 against 0.365 ms), so
-# no crossover lies above 8. The threshold keeps B <= 8, the decode path,
-# on K1 as it was; whether decode moves too is a separate decision.
+# The dispatch rule (``route``) and its measurements, NVIDIA H100 80GB HBM3,
+# 700 W, sum of the five 2-bit Llama-2-7B shapes (chip_smoke.py, K1 phase,
+# "crossover" lines; tools/tune_decode.py for the plans): K1-decode takes
+# B <= 8, where it is the faster kernel at every B (0.087 against K1-tile's
+# 0.106 ms at B = 1, 0.105 against 0.109 at B = 8; the first kernel on the
+# CUDA cores took 0.133 and 0.365 and is gone); K1-tile takes B >= 9 (one
+# mma n-tile holds 8 rows of x, and K1-tile's time hardly grows to 16 rows).
 TILE_MIN_B = 9
 
-_fn = None
+DECODE_MAX_B = 8      # rows of x one mma n-tile holds
+DECODE_MAX_SPLITS = 8  # blocks of one thread-block cluster (portable size)
+DECODE_WARPS_PER_SM = 12
+DECODE_WIDE_B = 4
+
 _fn_tile = None
-
-
-def _entry():
-    global _fn
-    if _fn is None:
-        f = _build.load("dequant_matmul").quip_dequant_matmul
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [P, I, I, I, P, I, P, I, I, F, F, I, I, I, P, I, F,
-                      P, P, P, P]
-        f.restype = ctypes.c_int
-        _fn = f
-    return _fn
+_fn_decode = None
 
 
 def _entry_tile():
@@ -77,27 +76,16 @@ def _entry_tile():
     return _fn_tile
 
 
-def _tile_b(B: int) -> int:
-    t = 1
-    while t < min(B, 8):
-        t *= 2
-    return t
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: int) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _splits(col_blocks: int, B: int, d: int, nw_min: int, tb: int,
-            device: int) -> int:
-    """Word-row chunks for a grid of ``col_blocks`` column blocks: about
-    four waves of blocks on the card, x chunk in at most 96 KB of shared
-    memory, at least one word row per chunk."""
-    sms = _sm_count(device)
-    blocks = col_blocks * -(-B // tb)
-    s = max(1, -(-4 * sms // blocks), -(-tb * d * 4 // (96 * 1024)))
-    return min(s, nw_min)
+def _entry_decode():
+    global _fn_decode
+    if _fn_decode is None:
+        f = _build.load("dequant_matmul_decode").quip_dequant_matmul_decode
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        f.argtypes = [P, I, I, I, P, I, P, I, I, F, F, I, I, I, I, F,
+                      P, P, P, P]
+        f.restype = ctypes.c_int
+        _fn_decode = f
+    return _fn_decode
 
 
 def tile_takes(d: int, m_p: int, bits: int) -> bool:
@@ -129,6 +117,56 @@ def _tile_plan(B: int, d: int, m_p: int, bits: int, sms: int):
     want = (2 if bm == 64 else 3) * sms
     return bm, nwarps, max(1, min((want + blocks // 2) // blocks,
                                   depth // 4))
+
+
+def route(B: int, d: int, m_p: int, bits: int) -> str:
+    """The kernel a CUDA call takes, "decode" or "tile": K1-decode up to
+    ``DECODE_MAX_B`` rows; above that K1-tile where it takes the shape, else
+    K1-decode over 8 rows at a time."""
+    if B >= TILE_MIN_B and tile_takes(d, m_p, bits):
+        return "tile"
+    return "decode"
+
+
+def _row_words(ng: int, fph: int) -> int:
+    """32-bit words of shared memory K1-decode keeps per row of x for ``ng``
+    groups of 8 word rows: 8 per group and field, padded to 4 mod 32."""
+    w = ng * fph * 8
+    return w + (4 - w % 32) % 32
+
+
+def _decode_groups(d: int, fb: int) -> int:
+    """Groups of 8 word rows in a plane of ``fb``-bit fields."""
+    return -(-(d * fb // 32) // 8)
+
+
+def _decode_plan(B: int, d: int, m_p: int, bits: int, sms: int):
+    """(warps per block, fan-in splits) of K1-decode on a card of ``sms``
+    SMs. A warp owns 32 columns; a block is 8 warps from ``DECODE_WIDE_B``
+    rows on, where every block's copy of its x columns starts to count, else
+    4. The splits (the blocks of one cluster,
+    at most 8) put about ``DECODE_WARPS_PER_SM`` warps an SM in flight; a
+    count that divides the groups of 8 word rows evenly is taken when one
+    lies within a factor 1.5; each split holds at least one group of every
+    plane, and x's staged rows stay within 48 KB of shared memory."""
+    nwarps = 8 if B >= DECODE_WIDE_B else 4
+    col_blocks = -(-m_p // (32 * nwarps))
+    groups = [_decode_groups(d, fb) for fb, _ in PLANE_SPLITS[bits]]
+    most = min(DECODE_MAX_SPLITS, min(groups))
+    want = DECODE_WARPS_PER_SM * sms / nwarps / col_blocks
+    s = max(1, min(most, round(want)))
+    even = [c for c in range(1, most + 1)
+            if all(g % c == 0 for g in groups) and want / 1.5 <= c <= want * 1.5]
+    if even:
+        s = min(even, key=lambda c: abs(math.log(c / want)))
+
+    def smem(s):
+        return max(B * _row_words(-(-g // s), 16 // fb) * 4
+                   for g, (fb, _) in zip(groups, PLANE_SPLITS[bits]))
+
+    while smem(s) > 48 * 1024 and s < most:
+        s += 1
+    return nwarps, s
 
 
 def dequant_weight(planes: Sequence[torch.Tensor], scale, zero, *, bits: int,
@@ -214,6 +252,103 @@ def tile_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
     return sc * y - sc * zero.reshape(-1).to(torch.float32) * xsum
 
 
+def decode_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
+                    scale, zero, *, bits: int, qfn: str = "b",
+                    code_bits: Optional[int] = None,
+                    splits: Optional[int] = None) -> torch.Tensor:
+    """For tests only: the index algebra of K1-decode in plain PyTorch, f32
+    out, B <= 8. Per split of the fan-in and plane (heavier first) it stages
+    bf16(x) as ``dm_decode`` does: word (b, group, field k, pair u) holds the
+    columns k·2nw + 16·group + 2u, +1 (zero past the field's span) scaled by
+    2^-(f·r), r = k mod (7 // f) the field's place in its run. For every
+    slice (group rg, field k) it builds the A operand of each warp (32
+    columns, two m-tiles q; row r16 is column 4(r16 % 8) + 2q + r16 // 8)
+    from the words (8rg + t + 4hh, column), shifted once per run and masked
+    in place under the exponent of 128: two bf16 values 128 + c·2^(f·r) at
+    k-index 2t + 8hh + h; and the B operand from the staged words t and
+    t + 4 of rows g < B. C's (row r16, column n) is output column of r16,
+    row n of x. The splits' partials add in split order, 128·Σ_p pw_p·Σ
+    (scaled operands) comes off once, then the fix-up with Σ bf16(x)."""
+    B, d = x.shape
+    assert 1 <= B <= DECODE_MAX_B
+    m_p = planes[0].shape[-1]
+    sb = PLANE_SPLITS[bits]
+    if splits is None:
+        splits = _decode_plan(B, d, m_p, bits, 132)[1]
+    mp32 = -(-m_p // 32) * 32
+    xb = x.to(torch.bfloat16)
+    r16 = torch.arange(16)
+    colmap = (32 * torch.arange(mp32 // 32)[:, None, None]
+              + 2 * torch.arange(2)[None, :, None]
+              + (4 * (r16 % 8) + r16 // 8)[None, None, :])   # (warp, q, r16)
+    partial = torch.zeros((splits, 8, mp32), dtype=torch.float32)
+    sums_part = torch.zeros((splits, 2, 8), dtype=torch.float32)
+    as_bf16 = lambda v: v.to(torch.int16).view(torch.bfloat16)  # noqa: E731
+    for s in range(splits):
+        acc = torch.zeros((8, mp32), dtype=torch.float32)
+        for p in reversed(range(len(planes))):
+            fb, pw = sb[p]
+            fph, nw, fg = 16 // fb, d * fb // 32, 7 // fb
+            groups = _decode_groups(d, fb)
+            rg0, rg1 = groups * s // splits, groups * (s + 1) // splits
+            per_row = (rg1 - rg0) * fph * 8
+            xs = torch.zeros((B, _row_words(rg1 - rg0, fph), 2),
+                             dtype=torch.bfloat16)          # (b, word, half)
+            e = torch.arange(B * per_row)
+            b, rr = e // per_row, e % per_row
+            u, k, rgl = rr & 7, (rr >> 3) % fph, (rr >> 3) // fph
+            off = 16 * (rg0 + rgl) + 2 * u
+            ok = off < 2 * nw
+            src = torch.where(ok, k * 2 * nw + off, 0)
+            down = torch.pow(2.0, -fb * (k % fg)).to(torch.bfloat16)
+            for h in (0, 1):
+                xs[b, rr, h] = torch.where(ok, xb[b, src + h] * down,
+                                           torch.zeros((), dtype=xb.dtype))
+            staged = xs[:, :per_row].to(torch.float32).sum(2)   # (B, word)
+            up = torch.pow(2.0, fb * ((torch.arange(per_row) >> 3) % fph
+                                      % fg).to(torch.float32))
+            if p == 0:
+                sums_part[s, 0, :B] = (staged * up).sum(1)
+            sums_part[s, 1, :B] += pw * staged.sum(1)
+            words = torch.zeros((8 * groups, mp32), dtype=torch.int64)
+            words[:nw, :m_p] = planes[p].to(torch.int64) & 0xFFFFFFFF
+            pair_mask = ((1 << fb) - 1) * 0x00010001
+            for rg in range(rg0, rg1):
+                for k in range(fph):
+                    A = torch.zeros(colmap.shape + (16,), dtype=torch.bfloat16)
+                    Bm = torch.zeros((16, 8), dtype=torch.bfloat16)
+                    base = ((rg - rg0) * fph + k) * 8
+                    sh, r = fb * fg * (k // fg), k % fg
+                    for t in range(4):
+                        for hh in (0, 1):
+                            w = words[8 * rg + t + 4 * hh][colmap]
+                            reg = (((w >> sh) & (pair_mask << (fb * r)))
+                                   | 0x43004300)
+                            A[..., 2 * t + 8 * hh] = as_bf16(reg & 0xFFFF)
+                            A[..., 2 * t + 8 * hh + 1] = as_bf16(reg >> 16)
+                            # register b0 (hh = 0) or b1 of lanes (g < B, t)
+                            Bm[2 * t + 8 * hh, :B] = xs[:, base + t + 4 * hh, 0]
+                            Bm[2 * t + 8 * hh + 1, :B] = xs[:, base + t + 4 * hh,
+                                                          1]
+                    c = A.to(torch.float32) @ Bm.to(torch.float32)
+                    acc[:, colmap.reshape(-1)] += c.reshape(-1, 8).t()
+            acc *= pw / sb[p - 1][1] if p else pw
+        partial[s] = acc
+    total = torch.zeros((8, mp32), dtype=torch.float32)
+    sums = torch.zeros((2, 8), dtype=torch.float32)
+    for s in range(splits):                     # the last block's order
+        total += partial[s]
+        sums += sums_part[s]
+    xsum = sums[0, :B, None]
+    y = total[:B, :m_p] - 128.0 * sums[1, :B, None]
+    maxq = float(2 ** (code_bits or bits) - 1)
+    if qfn == "b":
+        return (torch.as_tensor(scale, dtype=torch.float32)
+                * ((2.0 / maxq) * y - xsum))
+    sc = scale.reshape(-1).to(torch.float32)
+    return sc * y - sc * zero.reshape(-1).to(torch.float32) * xsum
+
+
 def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
                    scale, zero, *, bits: int, qfn: str = "b",
                    code_bits: Optional[int] = None,
@@ -222,12 +357,12 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
 
     planes: int32 (d*f/32, m_p) per PLANE_SPLITS[bits]; qfn-b: ``scale``
     is the scalar scale_b; qfn-a: ``scale``/``zero`` are (m_p,). ``path``
-    ("partial" for K1, "tile" for K1-tile) overrides the dispatch rule on a
-    CUDA tensor, for measuring one kernel against the other."""
+    ("decode" or "tile") overrides the dispatch rule ``route`` on a CUDA
+    tensor, for measuring one kernel against the other."""
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, planes, scale, zero, bits=bits, qfn=qfn,
                                   code_bits=code_bits)
-    global launches, launches_tile
+    global launches, launches_tile, launches_decode
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul: unsupported device {x.device}")
     splits_bits = PLANE_SPLITS.get(bits)
@@ -268,43 +403,45 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
     fb1, pw1 = splits_bits[1] if nplanes > 1 else (0, 0)
     out = torch.empty((B, m_p), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream().cuda_stream
-    if path not in (None, "partial", "tile"):
+    if path not in (None, "decode", "tile"):
         raise ValueError(f"dequant_matmul: unknown path {path!r}")
-    tile = (B >= TILE_MIN_B) if path is None else path == "tile"
-    if path == "tile" and not tile_takes(d, m_p, bits):
+    if path is None:
+        path = route(B, d, m_p, bits)
+    elif path == "tile" and not tile_takes(d, m_p, bits):
         raise ValueError(f"dequant_matmul: K1-tile does not take d={d}, "
                          f"m={m_p} at {bits} bits")
-    if tile and tile_takes(d, m_p, bits):
-        bm, nwarps, splits = _tile_plan(B, d, m_p, bits,
-                                        _sm_count(x.get_device()))
-        if x.data_ptr() % 16:
-            x = x.clone()
-        xb = (x if x.dtype == torch.bfloat16 else
-              torch.empty((B, d), dtype=torch.bfloat16, device=x.device))
-        work = torch.empty(-(-B // 4) * 4
-                           + (splits * B * m_p if splits > 1 else 0),
-                           dtype=torch.float32, device=x.device)
-        err = _entry_tile()(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), B, d,
-            planes[0].data_ptr(), splits_bits[0][0], p1.data_ptr(), fb1,
-            nplanes, float(splits_bits[0][1]), float(pw1), m_p, bm, nwarps,
-            splits, xb.data_ptr(), work.data_ptr(), int(qfn == "b"), maxq,
-            sc.data_ptr(), ze.data_ptr(), out.data_ptr(), stream)
-        _build.check(err, "dequant_matmul (tile)")
-        launches += 1
-        launches_tile += 1
+    if x.data_ptr() % 32:
+        x = x.clone()
+    if path == "decode":
+        # more than 8 rows (a shape K1-tile does not take): 8 at a time
+        for b0 in range(0, B, DECODE_MAX_B):
+            rows = min(DECODE_MAX_B, B - b0)
+            nwarps, splits = _decode_plan(rows, d, m_p, bits,
+                                          _build.sm_count(x.get_device()))
+            err = _entry_decode()(
+                x[b0:].data_ptr(), int(x.dtype == torch.bfloat16), rows, d,
+                planes[0].data_ptr(), splits_bits[0][0], p1.data_ptr(), fb1,
+                nplanes, float(splits_bits[0][1]), float(pw1), m_p, nwarps,
+                splits, int(qfn == "b"), maxq, sc.data_ptr(), ze.data_ptr(),
+                out[b0:].data_ptr(), stream)
+            _build.check(err, "dequant_matmul (decode)")
+            launches += 1
+            launches_decode += 1
         return out
-    tb = _tile_b(B)
-    nw_min = min(p.shape[0] for p in planes)
-    splits = _splits(-(-m_p // 128), B, d, nw_min, tb, x.get_device())
-    work = torch.empty(nplanes * splits * B * m_p + splits * B,
+    bm, nwarps, splits = _tile_plan(B, d, m_p, bits,
+                                    _build.sm_count(x.get_device()))
+    xb = (x if x.dtype == torch.bfloat16 else
+          torch.empty((B, d), dtype=torch.bfloat16, device=x.device))
+    work = torch.empty(-(-B // 4) * 4
+                       + (splits * B * m_p if splits > 1 else 0),
                        dtype=torch.float32, device=x.device)
-    err = _entry()(
+    err = _entry_tile()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, d,
         planes[0].data_ptr(), splits_bits[0][0], p1.data_ptr(), fb1,
-        nplanes, float(splits_bits[0][1]), float(pw1), m_p, splits, tb,
-        work.data_ptr(), int(qfn == "b"), maxq, sc.data_ptr(),
-        ze.data_ptr(), out.data_ptr(), stream)
-    _build.check(err, "dequant_matmul")
+        nplanes, float(splits_bits[0][1]), float(pw1), m_p, bm, nwarps,
+        splits, xb.data_ptr(), work.data_ptr(), int(qfn == "b"), maxq,
+        sc.data_ptr(), ze.data_ptr(), out.data_ptr(), stream)
+    _build.check(err, "dequant_matmul (tile)")
     launches += 1
+    launches_tile += 1
     return out

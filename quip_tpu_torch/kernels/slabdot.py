@@ -24,13 +24,31 @@ from typing import Sequence
 import torch
 
 from quip_tpu_torch.kernels import _build
-from quip_tpu_torch.kernels.dequant_matmul import _splits, _tile_b
 from quip_tpu_torch.pack.format import PLANE_SPLITS
 
 launches = 0          # kernel launches, read by callers
 
 _BF16_128 = 0x43004300
 _fn = None
+
+
+def _tile_b(B: int) -> int:
+    """Rows of x a block takes: the power of two that holds B, up to 8."""
+    t = 1
+    while t < min(B, 8):
+        t *= 2
+    return t
+
+
+def _splits(col_blocks: int, B: int, d: int, nw_min: int, tb: int,
+            device: int) -> int:
+    """Word-row chunks for a grid of ``col_blocks`` column blocks: about
+    four waves of blocks on the card, x chunk in at most 96 KB of shared
+    memory, at least one word row per chunk."""
+    sms = _build.sm_count(device)
+    blocks = col_blocks * -(-B // tb)
+    s = max(1, -(-4 * sms // blocks), -(-tb * d * 4 // (96 * 1024)))
+    return min(s, nw_min)
 
 
 def _entry():

@@ -1,10 +1,13 @@
-"""Packed-matmul kernel microbenchmark: K1 against the slab-dot variant.
+"""Packed-matmul kernel microbenchmark: K1's kernels against the slab-dot
+variant.
 
     python -m quip_tpu_torch.tools.bench_kernel
 
 The port's counterpart of ``scripts/bench_kernel.py``. For the five 2-bit
-Llama-2-7B decode shapes at B = 1 it runs K1 (``dequant_matmul``, row
-"concat/dflt") and K1′ (``slabdot_matmul``) at every legal ``tile_m`` of
+Llama-2-7B decode shapes at B = 1 it runs K1 as dispatched
+(``dequant_matmul``, row "concat/dflt": K1-decode at this size), K1-tile
+forced below its threshold (row "k1-tile") where it takes the shape, and K1′
+(``slabdot_matmul``) at every legal ``tile_m`` of
 ``TILE_CANDIDATES``: first the agreement check (every variant within 2e-2
 of max |y| of K1), then device times, with the first variant measured
 again at the end (A/B/A) to expose drift. A time is a CUDA-graph replay
@@ -23,7 +26,7 @@ from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
-from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul
+from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul, tile_takes
 from quip_tpu_torch.kernels.slabdot import slabdot_matmul
 from quip_tpu_torch.pack.format import PLANE_SPLITS
 from quip_tpu_torch.utils.timing import card_peaks, time_ms
@@ -59,10 +62,14 @@ def make_case(m: int, d: int, bits: int, B: int, gen: torch.Generator,
 
 def variants(x: torch.Tensor, scale, bits: int, m: int,
              tiles: Sequence[int] = TILE_CANDIDATES) -> Dict[str, Variant]:
-    """name -> f(planes): K1 first, then K1′ per legal tile_m."""
+    """name -> f(planes): K1 as dispatched first, K1-tile forced where it
+    takes the shape, then K1′ per legal tile_m."""
     out: Dict[str, Variant] = {
         "concat/dflt": lambda planes: dequant_matmul(
             x, planes, scale, None, bits=bits, qfn="b")}
+    if tile_takes(x.shape[1], m, bits):
+        out["k1-tile"] = lambda planes: dequant_matmul(
+            x, planes, scale, None, bits=bits, qfn="b", path="tile")
     for tm in legal_tiles(m, tiles):
         out[f"slabdot/{tm}"] = lambda planes, tm=tm: slabdot_matmul(
             x, planes, scale, bits=bits, tile_m=tm)

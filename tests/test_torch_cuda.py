@@ -5,9 +5,9 @@ The card's machine has no jax, so run them without the suite's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-This file imports neither jax nor quip_tpu. Tolerances: K1 and K1-tile on
-f32 inputs holding bf16 values differ from the plain version only in
-summation order (1e-3 of max |y|; 1e-2 with bf16 outputs, their rounding);
+This file imports neither jax nor quip_tpu. Tolerances: K1-decode and
+K1-tile on f32 inputs holding bf16 values differ from the plain version only
+in summation order (1e-3 of max |y|; 1e-2 with bf16 outputs, their rounding);
 K2 feeds bf16 softmax weights to its PV product (2e-2);
 K3 rounds as its plain version does and differs in summation order (2e-5
 in f32, 2e-2 in bf16: one bf16 rounding per product); K1′ against its
@@ -89,28 +89,96 @@ def test_k1_tile_matches_plain(cuda, bits, qfn, code_bits, B, dtype):
     want = DM.dequant_matmul_ref(x.float(), planes, scale, zero, **kw)
     err = (got.float() - want).abs().max() / want.abs().max()
     assert err.item() <= (1e-3 if dtype == torch.float32 else 1e-2)
-    # and the single-row kernel on the same rows
+    # and the decode kernel on the first 8 of the same rows
+    d0 = DM.launches_decode
     old = DM.dequant_matmul(x.float()[:8], planes, scale, zero, **kw)
     assert DM.launches_tile == before[1] + 1
+    assert DM.launches_decode == d0 + 1
     assert ((old - want[:8]).abs().max() / want.abs().max()).item() <= 1e-3
 
 
+def _k1_case(cuda, bits, qfn, code_bits, m, d, B, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                 dtype=torch.int32, generator=g, device=cuda)
+                   for fb, _ in PLANE_SPLITS[bits])
+    if code_bits:
+        planes = tuple(p & 0x77777777 for p in planes)
+    scale, zero = torch.tensor(0.03, device=cuda), None
+    if qfn == "a":
+        scale = torch.rand(m, generator=g, device=cuda) * 0.05 + 0.01
+        zero = torch.rand(m, generator=g, device=cuda) * 4
+    x = torch.randn(B, d, generator=g, device=cuda).bfloat16()
+    return x, planes, scale, zero
+
+
+@pytest.mark.parametrize("bits,qfn,code_bits", [
+    (2, "b", None), (3, "b", None), (4, "b", None), (8, "b", None),
+    (4, "b", 3), (2, "a", None), (4, "a", None)])
+@pytest.mark.parametrize("B", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_decode_matches_plain(cuda, bits, qfn, code_bits, B, dtype):
+    """The decode path at a ragged shape, as dispatched and with every
+    ``path=``: one launch of K1-decode (or of K1-tile when forced)."""
+    m, d = 328, 1408
+    x, planes, scale, zero = _k1_case(cuda, bits, qfn, code_bits, m, d, B,
+                                      bits * 100 + B)
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    want = DM.dequant_matmul_ref(x.float(), planes, scale, zero, **kw)
+    for path in (None, "decode", "tile"):
+        before = DM.launches, DM.launches_decode, DM.launches_tile
+        got = DM.dequant_matmul(x.to(dtype), planes, scale, zero, path=path,
+                                **kw)
+        tile = int(path == "tile")
+        assert (DM.launches, DM.launches_decode, DM.launches_tile) == (
+            before[0] + 1, before[1] + 1 - tile, before[2] + tile)
+        assert got.dtype == dtype
+        err = (got.float() - want).abs().max() / want.abs().max()
+        assert err.item() <= (1e-3 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("B", [1, 8, 20])
+def test_k1_decode_takes_any_shape(cuda, bits, B):
+    """m no multiple of 4 (words loaded one by one) and d·f no multiple of
+    64 (x staged pair by pair); 20 rows go 8 at a time."""
+    m, d = 330, 96
+    x, planes, scale, zero = _k1_case(cuda, bits, "b", None, m, d, B,
+                                      bits * 10 + B)
+    before = DM.launches_decode
+    got = DM.dequant_matmul(x.float(), planes, scale, zero, bits=bits)
+    assert DM.launches_decode == before + -(-B // 8)
+    want = DM.dequant_matmul_ref(x.float(), planes, scale, zero, bits=bits)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+
+
+def test_k1_decode_is_reproducible(cuda):
+    """The splits add in a fixed order: two launches give the same bits."""
+    x, planes, scale, zero = _k1_case(cuda, 2, "b", None, 4096, 4096, 3, 0)
+    a = DM.dequant_matmul(x, planes, scale, zero, bits=2)
+    b = DM.dequant_matmul(x, planes, scale, zero, bits=2)
+    assert torch.equal(a, b)
+
+
 def test_k1_dispatch_by_shape(cuda):
-    """A shape K1-tile does not take goes to the single-row kernel at any
-    B; forcing the tile path on it raises."""
+    """A shape K1-tile does not take goes to K1-decode at any B, 8 rows at
+    a time; forcing the tile path on it raises."""
     g = torch.Generator(device=cuda).manual_seed(0)
     m, d = 100, 96                       # m % 8 != 0, d * f % 128 != 0
     plane = torch.randint(-2 ** 31, 2 ** 31, (d * 2 // 32, m),
                           dtype=torch.int32, generator=g, device=cuda)
     x = torch.randn(40, d, generator=g, device=cuda).bfloat16().float()
-    before = DM.launches_tile
+    before = DM.launches_tile, DM.launches_decode
     got = DM.dequant_matmul(x, (plane,), 0.03, None, bits=2)
-    assert DM.launches_tile == before
+    assert (DM.launches_tile, DM.launches_decode) == (before[0],
+                                                      before[1] + 5)
     want = DM.dequant_matmul_ref(x, (plane,), torch.tensor(0.03, device=cuda),
                                  None, bits=2)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
     with pytest.raises(ValueError):
         DM.dequant_matmul(x, (plane,), 0.03, None, bits=2, path="tile")
+    with pytest.raises(ValueError):
+        DM.dequant_matmul(x, (plane,), 0.03, None, bits=2, path="partial")
 
 
 @pytest.mark.parametrize("B,H,KV,S,plen", [(2, 8, 8, 300, [300, 131]),
@@ -154,6 +222,40 @@ def test_k3_matches_plain(cuda, n, transpose, dtype):
                                   transpose=transpose)
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err.item() <= (2e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+@pytest.mark.parametrize("n,a,b", [(4096, 64, 64), (11008, 128, 86),
+                                   (12288, 128, 96), (22016, 128, 172),
+                                   (32000, 128, 250), (64, 64, 1)])
+@pytest.mark.parametrize("B", [1, 5, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_path_shapes(cuda, n, a, b, B, dtype):
+    """The five Llama-2-7B splits of the serving path and a right-factor-
+    free case, both directions, and forward-then-transpose against x (f32:
+    1e-5; bf16: the two roundings, 4e-2 of max |x|)."""
+    rots = torch.Generator().manual_seed(n)
+    g = torch.Generator(device=cuda).manual_seed(n + B)
+    if b == 1:
+        t = inc.RHT(torch.ones(n, device=cuda), inc._hadamard(6, device=cuda),
+                    None, n)
+    else:
+        t = inc.gen_rht(rots, n, device=cuda)
+    assert (t.a, t.b) == (a, b)
+    vec = t.signs / (torch.rand(n, generator=g, device=cuda) + 0.5)
+    x = torch.randn(B, n, generator=g, device=cuda).to(dtype)
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    for tr in (False, True):
+        before = K3.launches
+        got = K3.rht_apply_fused(x, vec, t.left, t.right, transpose=tr)
+        assert K3.launches == before + 1 and got.dtype == dtype
+        want = K3.rht_apply_fused_ref(x, vec, t.left, t.right, transpose=tr)
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max())
+        assert err.item() <= tol
+    y = K3.rht_apply_fused(x, t.signs, t.left, t.right)
+    back = K3.rht_apply_fused(y, t.signs, t.left, t.right, transpose=True)
+    rt = (back.float() - x.float()).abs().max() / x.float().abs().max()
+    assert rt.item() <= (4e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4])

@@ -9,7 +9,12 @@ around the folded 128-offset, as in tests/test_pack.py). ``tile_walk_ref``,
 the plain-PyTorch walk of the planes that the tensor-core kernel makes
 (slices, lane -> word map, 128 + c operands), is held against the plain
 version to 1e-5 of max |y|: exact bf16 operands, f32 sums in another
-order."""
+order. ``decode_walk_ref``, the walk of the decode kernel (codes as the A
+operand, masked in place with x scaled to match, the 128 offsets taken off
+once, splits added in order), is held to 1e-3 of max |y| against the plain
+version and the Pallas kernel: its offsets cancel in f32."""
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +25,7 @@ from quip_tpu.kernels.dequant_matmul import dequant_matmul as j_dm
 from quip_tpu.kernels.dequant_matmul import dequant_matmul_ref as j_dm_ref
 from quip_tpu.ops.qlinear import qlinear_apply as j_qlinear
 from quip_tpu.pack import format as JF
+from quip_tpu_torch import convert as TC
 from quip_tpu_torch.convert import packed_from_numpy
 from quip_tpu_torch.kernels import dequant_matmul as TDM
 from quip_tpu_torch.ops.qlinear import qlinear_apply
@@ -74,7 +80,7 @@ def test_qlinear_apply_matches(mode, bits):
         rot=JF.materialize_rotation(key, m, d, mode, scaleWH=scaleWH))
     x = rng.standard_normal((2, 5, d)).astype(np.float32)
     want = np.asarray(j_qlinear(q, jnp.asarray(x), use_kernel=False))
-    tq = packed_from_numpy(jax.tree.map(np.asarray, q))
+    tq = packed_from_numpy(jax.tree.map(np.asarray, q), device="cpu")
     got = qlinear_apply(tq, torch.from_numpy(x)).numpy()
     assert got.shape == (2, 5, m)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
@@ -160,3 +166,88 @@ def test_tile_dispatch_rule():
     assert TDM._tile_plan(32, 4096, 4096, 2, 132) == (32, 4, 8)
     assert TDM._tile_plan(9, 4096, 32000, 2, 132) == (16, 4, 2)
     assert TDM._tile_plan(33, 1024, 640, 3, 132) == (64, 4, 2)
+
+
+@pytest.mark.parametrize("d", [256, 1408])
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("bits,qfn,code_bits", _FORMATS)
+def test_decode_walk_matches_plain(bits, qfn, code_bits, B, d):
+    """K1-decode's fragment map, scaled staging and split order (1408: the
+    1-bit plane of 3-bit has 44 word rows, a ragged last group of 8; m = 76
+    leaves a ragged warp of 32 columns; the rule's splits and a number that
+    does not divide the groups). 1e-3 of max |y| on f32-held bf16 inputs."""
+    rng = np.random.default_rng(bits * 1000 + B + d)
+    m = 76
+    _, x_bf, _, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
+                                             code_bits)
+    tscale = torch.from_numpy(np.asarray(scale))
+    tzero = None if zero is None else torch.from_numpy(zero)
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    want = TDM.dequant_matmul_ref(torch.from_numpy(x_bf), tplanes, tscale,
+                                  tzero, **kw)
+    for splits in (None, 3):
+        got = TDM.decode_walk_ref(torch.from_numpy(x_bf), tplanes, tscale,
+                                  tzero, splits=splits, **kw)
+        assert got.shape == want.shape == (B, m)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-3
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("bits,qfn,code_bits", _FORMATS)
+def test_decode_walk_matches_pallas_kernel(bits, qfn, code_bits, B):
+    """The decode walk against quip_tpu's Pallas kernel in interpret mode on
+    the same bf16-cast x (1e-3 of max |y|, as the plain version is held)."""
+    rng = np.random.default_rng(bits * 100 + B + 7)
+    m, d = 256, 256
+    x, x_bf, jplanes, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
+                                                   code_bits)
+    jzero = None if zero is None else jnp.asarray(zero)
+    tzero = None if zero is None else torch.from_numpy(zero)
+    kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
+    got = TDM.decode_walk_ref(torch.from_numpy(x_bf), tplanes,
+                              torch.from_numpy(np.asarray(scale)), tzero,
+                              **kw).numpy()
+    want = np.asarray(j_dm(jnp.asarray(x), jplanes, jnp.asarray(scale), jzero,
+                           tile_m=128, interpret=True, **kw))
+    assert np.abs(got - want).max() <= 1e-3 * np.abs(want).max()
+
+
+def test_decode_dispatch_rule():
+    """K1-decode up to 8 rows, K1-tile above where it takes the shape, else
+    K1-decode again; the decode plan (warps a block, splits <= 8 = one
+    cluster) on a card of 132 SMs."""
+    assert TDM.DECODE_MAX_B == 8 and TDM.DECODE_MAX_SPLITS == 8
+    for B in range(1, 9):
+        assert TDM.route(B, 4096, 12288, 2) == "decode"
+    assert TDM.route(9, 4096, 12288, 2) == "tile"
+    assert TDM.route(600, 11008, 4096, 2) == "tile"
+    assert TDM.route(40, 96, 100, 2) == "decode"      # K1-tile refuses it
+    assert TDM.route(3, 96, 100, 2) == "decode"
+    assert TDM._decode_plan(1, 4096, 12288, 2, 132) == (4, 4)
+    assert TDM._decode_plan(1, 4096, 4096, 2, 132) == (4, 8)
+    assert TDM._decode_plan(1, 4096, 22528, 2, 132) == (4, 2)
+    assert TDM._decode_plan(1, 11008, 4096, 2, 132) == (4, 8)
+    assert TDM._decode_plan(1, 4096, 32000, 2, 132) == (4, 2)
+    assert TDM._decode_plan(8, 4096, 32000, 2, 132) == (8, 2)
+    assert TDM._decode_plan(4, 4096, 4096, 2, 132) == (8, 8)
+    assert TDM._decode_plan(1, 96, 100, 3, 132) == (4, 1)
+    # 8 rows of a 28672-wide x at 4 bits: all 8 splits, and x's staged rows
+    # within the 160 KB the kernel asks for at most
+    nwarps, splits = TDM._decode_plan(8, 28672, 8192, 4, 132)
+    assert splits == 8
+    assert 8 * TDM._row_words(-(-TDM._decode_groups(28672, 4) // splits),
+                              4) * 4 <= 160 * 1024
+    assert TDM._row_words(4, 8) % 32 == 4 and TDM._row_words(1, 16) % 32 == 4
+
+
+@pytest.mark.parametrize("name", ["packed_from_numpy", "kvcache_from_numpy",
+                                  "paged_from_numpy", "prefix_from_numpy"])
+def test_converters_default_to_the_card(name):
+    """Every converter is an entry point: its device defaults to "cuda" and,
+    with no card, the default raises instead of running on the CPU."""
+    fn = getattr(TC, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(object())

@@ -64,7 +64,8 @@ def test_decode_step_matches(gqa, quantized):
     for i, t in enumerate(toks):
         jl, jc = jstep(jparams, jnp.asarray(t, jnp.int32)[:, None], jc)
         if i == 3:                       # carry the reference's cache over
-            tc = TC.kvcache_from_numpy(jax.tree.map(np.asarray, jc_prev))
+            tc = TC.kvcache_from_numpy(jax.tree.map(np.asarray, jc_prev),
+                                       device="cpu")
         tl, tc = TM.decode_step(tparams, torch.from_numpy(t)[:, None], tc,
                                 tcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
@@ -156,7 +157,8 @@ def test_paged_int8_and_prefix_match(gqa, quantized, with_prefix):
             np.testing.assert_allclose(tpre.v.numpy(), np.asarray(jpre.v),
                                        rtol=1e-4, atol=1e-5)
         # the reference's prefix, converted, serves the port's steps
-        tpre = TC.prefix_from_numpy(jax.tree.map(np.asarray, jpre))
+        tpre = TC.prefix_from_numpy(jax.tree.map(np.asarray, jpre),
+                                    device="cpu")
     kw = dict(quantized=quantized, hot=8, page=8)
     want, jcaches = _jax_chain(jparams, jcfg, prompt, steps, prefix=jpre,
                                **kw)
@@ -169,7 +171,8 @@ def test_paged_int8_and_prefix_match(gqa, quantized, with_prefix):
     assert tcaches.base.tolist() == np.asarray(jcaches.base).tolist()
     assert tcaches.hot_len.tolist() == np.asarray(jcaches.hot_len).tolist()
     # the reference's cache, converted, continues the port's chain
-    conv = TC.paged_from_numpy(jax.tree.map(np.asarray, jcaches))
+    conv = TC.paged_from_numpy(jax.tree.map(np.asarray, jcaches),
+                               device="cpu")
     assert conv.quantized == quantized
     more = [rng.integers(0, V, (2, 1)) for _ in range(2)]
     want2, _ = _jax_chain_continue(jparams, jcfg, jcaches, more, jpre, 8)

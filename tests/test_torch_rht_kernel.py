@@ -6,7 +6,10 @@ interpret mode and against ``core/incoherence.apply_rht`` on the same
 numpy inputs, for the factor shapes of tests/test_rht_kernel.py: pow2 x
 pow2 (64 = 8 x 8), pow2 x dense orthogonal (96 = 8 x 12, 352 = 32 x 11) and
 right-factor-free (n = a). Tolerances as there: 2e-5 in f32 (summation
-order), 2e-2 in bf16 (one rounding per product)."""
+order), 2e-2 in bf16 (one rounding per product). ``rht_walk_ref``, the
+plain-PyTorch walk of the bf16 tensor-core kernel's tiles (column blocks of
+16 or 64, operands padded to 16, the orientation of each staged factor), is
+held to the same limits against the plain version and the Pallas kernel."""
 import dataclasses
 import functools
 
@@ -74,6 +77,54 @@ def test_matches_pallas_kernel_and_apply_rht(n, right, transpose, dtype):
                                atol=tol)
 
 
+@pytest.mark.parametrize("n,right", [(64, True), (96, True), (352, True),
+                                     (1376, True), (500, True), (8, False),
+                                     (64, False)])
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("B", [1, 5, 32])
+def test_walk_matches_plain_and_pallas(n, right, transpose, B):
+    """The bf16 kernel's walk (1376 = 32 x 43 and 500 = 4 x 125: ragged
+    column blocks and row tiles; ``sms=4`` makes 32 rows take 64-column
+    blocks and several rows a block) within 2e-2 of max |y| of the plain
+    version and of quip_tpu's Pallas kernel in interpret mode; the f32 plain
+    version, which the f32 kernel repeats, within 2e-5 of the Pallas kernel
+    in f32."""
+    signs, left, rt = _rht(n, right=right)
+    rng = np.random.default_rng(n + B)
+    x = rng.standard_normal((B, n)).astype(np.float32)
+    vec = (signs / (rng.random(n) + 0.5)).astype(np.float32)
+    for dtype, tol in (("bfloat16", 2e-2), ("float32", 2e-5)):
+        xt = _t(x).to(_TDT[dtype])
+        plain = TK3.rht_apply_fused_ref(xt, _t(vec), _t(left), _t(rt),
+                                        transpose=transpose).float().numpy()
+        kern = np.asarray(JK3.rht_apply_fused(
+            _j(x).astype(_JDT[dtype]), _j(vec), _j(left), _j(rt),
+            transpose=transpose, interpret=True), np.float32)
+        top = np.abs(kern).max()
+        assert np.abs(plain - kern).max() <= tol * top
+        if dtype == "bfloat16":
+            for sms in (132, 4):
+                walk = TK3.rht_walk_ref(xt, _t(vec), _t(left), _t(rt),
+                                        transpose=transpose,
+                                        sms=sms).float().numpy()
+                assert walk.shape == (B, n)
+                assert np.abs(walk - plain).max() <= tol * top
+                assert np.abs(walk - kern).max() <= tol * top
+
+
+def test_block_plan_rule():
+    """16 columns a block while few rows leave the card empty, 64 from half
+    a wave of 64-column blocks on, several rows a block only beyond two
+    blocks an SM (132 SMs)."""
+    assert TK3.block_plan(1, 250, 132) == (16, 1)
+    assert TK3.block_plan(8, 250, 132) == (16, 1)
+    assert TK3.block_plan(32, 250, 132) == (64, 1)
+    assert TK3.block_plan(32, 172, 132) == (64, 1)
+    assert TK3.block_plan(32, 64, 132) == (16, 1)
+    assert TK3.block_plan(32, 1, 132) == (16, 1)
+    assert TK3.block_plan(600, 250, 132) == (64, 10)
+
+
 def test_roundtrip_inverse():
     signs, left, rt = _rht(96, seed=5)
     x = _t(np.random.default_rng(6).standard_normal((8, 96)))
@@ -108,7 +159,8 @@ def packed_layers():
     cfg = dataclasses.replace(jget_config("llama-tiny"), n_layers=1)
     params = _jax_packed_llama(cfg, seed=0)
     jq = jax.tree.map(lambda p: p[0], params["blocks"])["attn"]["wqkv"]
-    return jq, packed_from_numpy(jax.tree.map(np.asarray, jq))
+    return jq, packed_from_numpy(jax.tree.map(np.asarray, jq),
+                                 device="cpu")
 
 
 @pytest.mark.parametrize("rows", [(8,), (2, 3), (5, 8)])

@@ -97,6 +97,7 @@ def test_bench_kernel_tiles_and_variants():
     x, copies, scale = BK.make_case(1024, 128, 2, 1, gen, l2_bytes=1e5)
     assert len(copies) == 4 and copies[0][0].shape == (8, 1024)
     vs = BK.variants(x, scale, 2, 1024)
-    assert list(vs) == ["concat/dflt", "slabdot/512", "slabdot/1024"]
+    assert list(vs) == ["concat/dflt", "k1-tile", "slabdot/512",
+                        "slabdot/1024"]
     errs = BK.check_agreement(vs, copies[0])
     assert errs["concat/dflt"] == 0 and max(errs.values()) < BK.AGREE
