@@ -23,9 +23,12 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      and f32, with a scaleWH fold, and a right-factor-free case; the round
      trip; times at B = 1, 2, 8, 32 beside the un-fused apply_rht and
      beside an empty kernel's (the launch floor);
-  5. K1' (slabdot_matmul) against its plain version and against K1 through
-     the microbenchmark's own functions (tools/bench_kernel.py) at its five
-     shapes, and at small 3/4-bit shapes;
+  5. K1' (slabdot_matmul) against its plain version and against K1 for
+     bits 2/3/4, B = 1, 5, 8, 13 and every legal tile_m at two small shapes
+     (one ragged), one device kernel per call (profiler), then through the
+     microbenchmark's own functions (tools/bench_kernel.py) at its five
+     shapes and every legal tile_m, the best kept, beside K1-decode in the
+     same call; under a watchdog (a barrier that never completes hangs);
   6. a 2-layer full-width packed Llama-2-7B: 600-token prefill + 4
      teacher-forced decode steps on the card vs the plain path on the CPU
      in f32 on the same weights, un-fused with bf16 KV and then with
@@ -121,7 +124,9 @@ BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, k2_ms=0.3495,
               k2_gqa_ms=0.623, prefill_ms=437.4,
               # B -> (the CUDA-core K1, K1-tile), sums of the five shapes
               k1_sums_ms={1: (0.1327, 0.1059), 8: (0.3652, 0.1090)},
-              k3_sum_ms=0.1271)
+              k3_sum_ms=0.1271,
+              # K1' before its redesign: five shapes, B = 1, best tile_m
+              k1p_sum_ms=0.1178)
 
 
 def phase_k1(name: str):
@@ -477,6 +482,40 @@ def phase_k3(name: str):
     return worst_abs, sums
 
 
+def _kernels_per_call(fn) -> int:
+    """Device kernels torch.profiler (CUPTI) sees in one call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+@contextlib.contextmanager
+def watchdog(seconds: float, what: str):
+    """Exit the process (nonzero) if the block has not ended in ``seconds``:
+    a kernel that waits on a barrier phase that never completes hangs
+    instead of failing."""
+    import threading
+
+    def fire():
+        log(f"chip_smoke: {what} did not finish in {seconds:.0f} s")
+        os._exit(3)
+
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
 def phase_k1p(name: str):
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.kernels import slabdot as SD
@@ -487,12 +526,17 @@ def phase_k1p(name: str):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     worst = worst_rel = worst_k1 = 0.0
+    n_checked = 0
 
     def check(x, planes, scale, bits, tile_m):
         """K1' vs its plain version (1e-3: same arithmetic, other
-        summation order) and vs K1 (2e-2: the 128*sum(x) fix-up in f32)."""
-        nonlocal worst, worst_rel, worst_k1
+        summation order) and vs K1 (2e-2: the 128*sum(x) fix-up in f32);
+        one launch per call."""
+        nonlocal worst, worst_rel, worst_k1, n_checked
+        before = SD.launches
         got = SD.slabdot_matmul(x, planes, scale, bits=bits, tile_m=tile_m)
+        torch.cuda.synchronize()
+        assert SD.launches == before + 1
         want = SD.slabdot_matmul_ref(x, planes, scale, bits=bits)
         k1 = DM.dequant_matmul(x, planes, scale, None, bits=bits)
         torch.cuda.synchronize()
@@ -502,61 +546,103 @@ def phase_k1p(name: str):
         assert relk <= 2e-2, (x.shape, bits, tile_m, "vs K1", relk)
         worst, worst_rel = max(worst, err), max(worst_rel, rel)
         worst_k1 = max(worst_k1, relk)
+        n_checked += 1
 
     scale = torch.tensor(0.02, device=dev)
-    for bits in (3, 4):               # two planes with weights; 4-bit fields
-        m, d = 640, 1024
+    # every format, B = 1, 5, 8, 13 (two tiles of rows), every legal tile_m;
+    # d = 1408 splits its groups of word rows unevenly and leaves the 1-bit
+    # plane a ragged last group
+    for bits in (2, 3, 4):
+        for m, d in ((640, 1024), (384, 1408)):
+            planes = tuple(torch.randint(-2 ** 31, 2 ** 31,
+                                         (d * fb // 32, m), dtype=torch.int32,
+                                         generator=g, device=dev)
+                           for fb, _ in PLANE_SPLITS[bits])
+            for B in (1, 5, 8, 13):
+                x = torch.randn(B, d, device=dev,
+                                generator=g).bfloat16().float()
+                for tile_m in range(128, m + 1, 128):
+                    if m % tile_m == 0:
+                        check(x, planes, scale, bits, tile_m)
+            # bf16 in and out (1e-2: the output's rounding)
+            x = torch.randn(5, d, device=dev, generator=g).bfloat16()
+            got = SD.slabdot_matmul(x, planes, scale, bits=bits, tile_m=128)
+            _, rel16 = rel_err(got, SD.slabdot_matmul_ref(x.float(), planes,
+                                                          scale, bits=bits))
+            assert got.dtype == torch.bfloat16 and rel16 <= 1e-2, rel16
+    # one launch a call, both planes of a 3-bit model included
+    per_call = {}
+    for bits in (2, 3):
+        m, d = 4096, 4096
         planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
                                      dtype=torch.int32, generator=g,
                                      device=dev)
                        for fb, _ in PLANE_SPLITS[bits])
-        for B in (1, 5):
-            x = torch.randn(B, d, device=dev, generator=g).bfloat16().float()
-            for tile_m in (128, 640):
-                check(x, planes, scale, bits, tile_m)
+        x = torch.randn(1, d, device=dev, generator=g).bfloat16()
+        per_call[bits] = _kernels_per_call(lambda: SD.slabdot_matmul(
+            x, planes, scale, bits=bits, tile_m=512))
+        assert per_call[bits] == 1, (bits, per_call[bits])
 
-    # the microbenchmark's own path: its shapes, B = 1, 2-bit, one tile_m
+    # the microbenchmark's own path: its shapes, B = 1, 2-bit, every legal
+    # tile_m (checked against the plain version and K1 too), the best kept
     rows = []
     sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                k1_ms=0.0)
+                k1_ms=0.0, k1_again_ms=0.0, smallest_tile_ms=0.0)
+    best_tile = {}
     n_launch = 0
     for m, d in BK.SHAPES:
-        tile_m = BK.legal_tiles(m)[0]
+        tiles = BK.legal_tiles(m)
         SD.launches = 0
-        bench, (x, copies, scale) = BK.bench_shape(m, d, tiles=(tile_m,))
+        bench, (x, copies, scale) = BK.bench_shape(m, d, tiles=tiles)
         n_launch += SD.launches
         by_name = {r["name"]: r for r in bench}
         k1_row, k1_again = by_name["concat/dflt"], by_name["concat/dflt#2"]
-        sd_row = by_name[f"slabdot/{tile_m}"]
-        check(x.float(), copies[0], scale, 2, tile_m)
+        by_tile = {t: by_name[f"slabdot/{t}"]["ms"] for t in tiles}
+        tile_m = min(by_tile, key=by_tile.get)
+        best_tile[f"{m}x{d}"] = tile_m
+        for t in tiles:
+            check(x.float(), copies[0], scale, 2, t)
         plain = time_ms([lambda: SD.slabdot_matmul_ref(
             x, copies[0], scale, bits=2)], 2)
         W = DM.dequant_weight(copies[0], scale, None, bits=2,
                               d=d).to(torch.bfloat16)
         lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
         bms, by = bound_ms(d * 2 + d * 2 * m // 8 + m * 2, 2 * d * m, name)
-        rows.append(dict(m=m, d=d, tile_m=tile_m, ms=sd_row["ms"],
+        ms = by_tile[tile_m]
+        rows.append(dict(m=m, d=d, tile_m=tile_m, ms=ms, ms_by_tile_m=by_tile,
                          k1_ms=k1_row["ms"], k1_again_ms=k1_again["ms"],
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by=by, err_vs_k1=sd_row["err"]))
-        log(f"K1' {m}x{d} B=1 tile_m={tile_m}: {sd_row['ms']:.4f} ms "
-            f"(bound {bms:.4f} {by}, {bms / sd_row['ms']:.0%}), K1 "
-            f"{k1_row['ms']:.4f} / again {k1_again['ms']:.4f} ms, plain "
-            f"{plain:.3f} ms, torch.matmul bf16 {lib:.4f} ms, vs K1 "
-            f"{sd_row['err']:.1e}")
-        for k, v in (("ms", sd_row["ms"]), ("plain_ms", plain),
-                     ("bound_ms", bms), ("library_ms", lib),
-                     ("k1_ms", k1_row["ms"])):
+                         bound_by=by,
+                         err_vs_k1=by_name[f"slabdot/{tile_m}"]["err"]))
+        log(f"K1' {m}x{d} B=1: best tile_m={tile_m} {ms:.4f} ms (bound "
+            f"{bms:.4f} {by}, {bms / ms:.0%}); by tile_m "
+            + ", ".join(f"{t}: {v:.4f}" for t, v in by_tile.items())
+            + f"; K1-decode {k1_row['ms']:.4f} / again "
+            f"{k1_again['ms']:.4f} ms, plain {plain:.3f} ms, torch.matmul "
+            f"bf16 {lib:.4f} ms")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bms),
+                     ("library_ms", lib), ("k1_ms", k1_row["ms"]),
+                     ("k1_again_ms", k1_again["ms"]),
+                     ("smallest_tile_ms", by_tile[tiles[0]])):
             sums[k] += v
         del copies, W
         torch.cuda.empty_cache()
+    log(f"K1' sum of the five shapes at B=1, best tile_m each: "
+        f"{sums['ms']:.4f} ms (before this design "
+        f"{BEFORE['k1p_sum_ms']}; smallest tile_m {sums['smallest_tile_ms']:.4f});"
+        f" bound {sums['bound_ms']:.4f} ({sums['bound_ms'] / sums['ms']:.0%}); "
+        f"K1-decode in the same call {sums['k1_ms']:.4f} / again "
+        f"{sums['k1_again_ms']:.4f}; torch.matmul bf16 {sums['library_ms']:.4f}")
     log(f"K1' vs plain (f32-held bf16 x): max rel err {worst_rel:.2e} <= "
-        f"1e-3; vs K1: {worst_k1:.2e} <= 2e-2; {n_launch} launches in the "
-        f"microbenchmark's path")
+        f"1e-3; vs K1: {worst_k1:.2e} <= 2e-2 ({n_checked} checks: bits "
+        f"2/3/4, B = 1/5/8/13, every legal tile_m); device kernels per call "
+        f"(profiler) 2-bit {per_call[2]}, 3-bit {per_call[3]}; {n_launch} "
+        f"launches in the microbenchmark's path")
     assert n_launch > 0
     RESULTS["k1p"] = rows
     sums.update(max_rel_err=worst_rel, max_rel_err_vs_k1=worst_k1,
-                launches=n_launch)
+                launches=n_launch, best_tile_m=best_tile,
+                kernels_per_call=per_call[2], kernels_per_call_3bit=per_call[3])
     return worst, sums
 
 
@@ -915,7 +1001,8 @@ def main():
     k1, k1t = phase_k1(name)
     k2_err, k2 = phase_k2(name)
     k3_err, k3 = phase_k3(name)
-    k1p_err, k1p = phase_k1p(name)
+    with watchdog(600, "the K1' phase"):
+        k1p_err, k1p = phase_k1p(name)
     phase_slice()
     base, conf = phase_serve(name, smi)
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
@@ -973,8 +1060,11 @@ def main():
              library_ms=k1p["library_ms"], k1_ms=k1p["k1_ms"],
              max_rel_err=k1p["max_rel_err"],
              max_rel_err_vs_k1=k1p["max_rel_err_vs_k1"],
-             shape="sum over the microbenchmark's five shapes at B=1, one "
-                   "tile_m each"),
+             best_tile_m=k1p["best_tile_m"],
+             kernels_per_call=k1p["kernels_per_call"],
+             smallest_tile_ms=k1p["smallest_tile_ms"],
+             shape="sum over the microbenchmark's five shapes at B=1, each "
+                   "at its best tile_m"),
     ]
     RESULTS["kernels"] = kernels
     RESULTS["total_s"] = time.time() - t0

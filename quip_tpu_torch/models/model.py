@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from quip_tpu_torch import resolve_device
 from quip_tpu_torch.kernels.flash_attn import flash_prefill_bshd
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.ops.qlinear import linear_apply
@@ -165,9 +166,14 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def init_caches(batch: int, max_len: int, cfg: ModelConfig,
                 dtype=torch.float32, quantized: bool = False,
-                device="cpu") -> KVCache:
-    """Stacked (n_layers-leading) KV caches for ``decode_step``.
-    quantized=True stores int8 codes + per-(position, head) scales."""
+                device="cuda") -> KVCache:
+    """Stacked (n_layers-leading) KV caches for ``decode_step`` on
+    ``device`` (an entry point: the card by default, raising without one).
+    quantized=True stores int8 codes + per-(position, head) scales.
+    ``length`` stays on the host wherever the cache lies: ``attention`` and
+    ``decode_step`` read it as a Python int to slice the cache, which on
+    the card would cost a device-to-host copy and a wait every layer."""
+    device = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
     length = torch.zeros((cfg.n_layers,), dtype=torch.int32)
     z = lambda s, dt: torch.zeros(s, dtype=dt, device=device)  # noqa: E731

@@ -29,6 +29,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from quip_tpu_torch import resolve_device
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
 
@@ -117,11 +118,14 @@ def advance(caches: PagedKV, hot: Hot) -> PagedKV:
 
 def init_paged(batch: int, capacity: int, cfg: ModelConfig,
                dtype=torch.bfloat16, quantized: bool = False, hot: int = 32,
-               page=None, device="cpu") -> PagedKV:
+               page=None, device="cuda") -> PagedKV:
     """Zero-initialised paged cache (int8 codes + f32 scales when
-    ``quantized``). ``page`` rounds capacity up to a page multiple (the
-    page loop tiles the arena exactly). Callers keep ``base + hot <=
-    capacity`` so a flush always fits."""
+    ``quantized``) on ``device`` (an entry point: the card by default,
+    raising without one). ``page`` rounds capacity up to a page multiple
+    (the page loop tiles the arena exactly). Callers keep ``base + hot <=
+    capacity`` so a flush always fits. The per-slot cursors stay on the
+    host, as the engine keeps them."""
+    device = resolve_device(device)
     if page:
         capacity = -(-capacity // page) * page
     if hot < 1 or hot > capacity:

@@ -7,10 +7,11 @@ The port's counterpart of ``scripts/bench_kernel.py``. For the five 2-bit
 Llama-2-7B decode shapes at B = 1 it runs K1 as dispatched
 (``dequant_matmul``, row "concat/dflt": K1-decode at this size), K1-tile
 forced below its threshold (row "k1-tile") where it takes the shape, and K1′
-(``slabdot_matmul``) at every legal ``tile_m`` of
+(``slabdot_matmul``, one launch a call) at every legal ``tile_m`` of
 ``TILE_CANDIDATES``: first the agreement check (every variant within 2e-2
 of max |y| of K1), then device times, with the first variant measured
-again at the end (A/B/A) to expose drift. A time is a CUDA-graph replay
+again at the end (A/B/A) to expose drift. The last lines sum K1 and K1′
+at its best ``tile_m`` over the five shapes. A time is a CUDA-graph replay
 cycling through enough plane copies to pass the 50 MB L2
 (``utils/timing.time_ms``); the GB/s column is the packed planes' bytes
 over it, flagged when it exceeds the card's published memory rate. Needs
@@ -130,6 +131,7 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}; 2-bit, B = 1; memory rate "
           f"{card_peaks(name)[0] / 1e9:.0f} GB/s", flush=True)
+    k1_us = best_us = 0.0
     for m, d in SHAPES:
         rows, case = bench_shape(m, d)
         for r in rows:
@@ -137,8 +139,16 @@ def main() -> int:
             print(f"(m={m:5d}, d={d:5d}) {r['name']:14s} "
                   f"{r['ms'] * 1e3:7.1f} us  {r['gbs']:6.1f} GB/s  "
                   f"err {r['err']:.1e}{flag}", flush=True)
+        k1_us += rows[0]["ms"] * 1e3
+        best = min((r for r in rows if r["name"].startswith("slabdot/")),
+                   key=lambda r: r["ms"])
+        best_us += best["ms"] * 1e3
+        print(f"(m={m:5d}, d={d:5d}) best K1′ tile_m: "
+              f"{best['name'].split('/')[1]}", flush=True)
         del case
         torch.cuda.empty_cache()
+    print(f"sum of the five shapes: K1 {k1_us:.1f} us, K1′ at its best "
+          f"tile_m {best_us:.1f} us; card: {smi}", flush=True)
     return 0
 
 

@@ -258,11 +258,14 @@ def test_k3_path_shapes(cuda, n, a, b, B, dtype):
     assert rt.item() <= (4e-2 if dtype == torch.bfloat16 else 1e-5)
 
 
-@pytest.mark.parametrize("bits", [2, 3, 4])
-@pytest.mark.parametrize("B,tile_m", [(1, 128), (3, 384), (9, 128)])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("B,tile_m", [(1, 128), (3, 384), (9, 128),
+                                      (5, 384), (8, 128), (13, 384)])
 def test_k1p_matches_plain_and_k1(cuda, bits, B, tile_m):
+    """One launch; d = 1408 splits the groups of word rows unevenly and
+    leaves the 1-bit plane of 3-bit a ragged last group."""
     g = torch.Generator(device=cuda).manual_seed(bits * 100 + B)
-    m, d = 384, 512
+    m, d = 384, 1408
     planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
                                  dtype=torch.int32, generator=g, device=cuda)
                    for fb, _ in PLANE_SPLITS[bits])
@@ -275,6 +278,30 @@ def test_k1p_matches_plain_and_k1(cuda, bits, B, tile_m):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
     k1 = DM.dequant_matmul(x, planes, scale, None, bits=bits)
     assert ((got - k1).abs().max() / k1.abs().max()).item() <= 2e-2
+    got16 = SD.slabdot_matmul(x.bfloat16(), planes, scale, bits=bits,
+                              tile_m=tile_m)
+    assert got16.dtype == torch.bfloat16
+    assert ((got16.float() - want).abs().max()
+            / want.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("m,d,B,tile_m", [
+    (4096, 4096, 1, 512), (1280, 128, 13, 1280), (256, 96, 3, 128)])
+def test_k1p_shapes_and_reproducible(cuda, m, d, B, tile_m):
+    """A decode shape with 8 splits, two chunks of partials (8 rows x 1280
+    columns), x staged pair by pair (d = 96), 3-bit: plain within 1e-3, and
+    the splits add in a fixed order, so a second call gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(m + d + B)
+    planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                 dtype=torch.int32, generator=g, device=cuda)
+                   for fb, _ in PLANE_SPLITS[3])
+    scale = torch.tensor(0.01, device=cuda)
+    x = torch.randn(B, d, generator=g, device=cuda).bfloat16().float()
+    got = SD.slabdot_matmul(x, planes, scale, bits=3, tile_m=tile_m)
+    want = SD.slabdot_matmul_ref(x, planes, scale, bits=3)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
+    again = SD.slabdot_matmul(x, planes, scale, bits=3, tile_m=tile_m)
+    assert torch.equal(got, again)
 
 
 def test_wrappers_reject_bad_inputs(cuda):

@@ -58,7 +58,8 @@ def test_decode_step_matches(gqa, quantized):
     jcfg, jparams, tcfg, tparams = gqa
     toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (6, 2))
     jc = JM.init_caches(2, 16, jcfg, jnp.float32, quantized=quantized)
-    tc = TM.init_caches(2, 16, tcfg, torch.float32, quantized=quantized)
+    tc = TM.init_caches(2, 16, tcfg, torch.float32, quantized=quantized,
+                        device="cpu")
     assert (tc.ks is not None) == quantized
     jstep = jax.jit(lambda p, t, c: JM.decode_step(p, t, c, jcfg))
     for i, t in enumerate(toks):
@@ -105,7 +106,7 @@ def _port_chain(params, cfg, prompt, steps, *, quantized, prefix, hot, page,
                 start=None):
     caches = start if start is not None else TP.init_paged(
         2, 48, cfg, dtype=torch.float32, hot=hot, page=page,
-        quantized=quantized)
+        quantized=quantized, device="cpu")
     out = []
     if start is None:
         lg, caches = TP.paged_prefill_slot(

@@ -88,7 +88,7 @@ def _jax_chain(params, cfg, prompts, plens, steps, cap, hot, page):
 def _port_chain(params, cfg, prompts, plens, steps, cap, hot, page):
     B = len(prompts)
     caches = TP.init_paged(B, cap, cfg, dtype=torch.float32, hot=hot,
-                           page=page)
+                           page=page, device="cpu")
     out = []
     for slot, (pr, n) in enumerate(zip(prompts, plens)):
         lg, caches = TP.paged_prefill_slot(
@@ -125,3 +125,20 @@ def test_paged_prefill_decode_matches(kv_heads):
 def test_other_families_raise(name):
     with pytest.raises(NotImplementedError, match="OPT/BLOOM"):
         TM.Model(get_config(name), torch.zeros(4, 4), [], torch.ones(4))
+
+
+@pytest.mark.parametrize("module,name", [(TP, "init_paged"),
+                                         (TM, "init_caches")])
+def test_cache_constructors_default_to_the_card(module, name):
+    """The cache constructors are entry points: their device defaults to
+    "cuda" and, with no card, the default raises instead of allocating on
+    the CPU; device="cpu" still gives a CPU cache."""
+    import inspect
+    fn = getattr(module, name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    cfg = get_config("llama-tiny")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(1, 64, cfg)
+    cache = fn(1, 64, cfg, device="cpu")
+    assert cache.k.device.type == "cpu"
