@@ -37,8 +37,18 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      ``Engine.run`` (4 greedy requests, prompts 600/128/37/5, 40 new tokens
      each), first un-fused with bf16 KV, then with QUIP_FUSED_RHT=1, int8
      KV and a 200-token shared prefix; the kernels' launch counters are
-     zeroed just before each run and read just after; then prefill and
-     b4 decode timings, and b1 decode with and without QUIP_FUSED_RHT=1.
+     zeroed just before each run and read just after; then a timed and a
+     profiled 600-token prefill;
+  8. the same model through the overlapped pump (``Engine.warmup`` then
+     ``run(chunked=True)``: each decode chunk a CUDA graph replay), in both
+     configurations of phase 7 on its requests, the greedy tokens held
+     equal to phase 7's request by request, the counters zeroed just before
+     each run and read just after (a replay adds the launches its graph
+     holds); warmup's seconds, graphs and pool bytes; then b1 and b4 decode
+     through the serial step and through the pump, un-fused and with
+     QUIP_FUSED_RHT=1: ms a step on the host clock (the pump's the median
+     of 3 windows of 48 tokens a slot), kernel ms and launches a step by
+     the profiler, and the device's busy share.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -784,7 +794,8 @@ def _run_engine(eng, reqs, cfg):
                                                              len(r.generated))
         assert all(0 <= t < cfg.vocab_size for t in r.generated)
     assert bool(finite), "NaN/inf logits"
-    return dict(run_s=run_s, decode_steps=len(per_step), k1=k1,
+    return dict(tokens=[r.generated for r in out], run_s=run_s,
+                decode_steps=len(per_step), k1=k1,
                 k1_tile=k1_tile, k1_decode=k1_decode, k2=k2, k3=k3,
                 k1_per_step=min(s[0] for s in per_step),
                 k3_per_step=min(s[1] for s in per_step))
@@ -807,41 +818,106 @@ def _kernel_table(prof, n: int, n_top: int = 6):
             [(x.key, dev_t(x) / n / 1e3, x.count / n) for x in top])
 
 
-def _b1_decode(model, cfg, rng, n_steps=48, n_prof=8):
-    """b1 decode on the engine settings of phase 5: host ms per step over
-    ``n_steps`` (crosses a hot-ring flush), then ``n_prof`` steps under
-    torch.profiler (CUPTI): kernels' device ms, kernel launches and aten
-    ops per step; busy share = device ms over the unprofiled step time."""
+def _serial_decode(model, cfg, rng, B=1, n_steps=48, n_prof=4):
+    """Decode through the serial ``Engine.step`` on phase 7's engine
+    settings at ``B`` slots (37-token prompts): host ms per step over
+    ``n_steps`` (crosses a hot-ring flush), then ``n_prof`` steps of a fresh
+    engine under torch.profiler (CUPTI): kernels' device ms, kernel
+    launches and aten ops per step; busy share = device ms over the
+    unprofiled step time."""
     from torch.profiler import ProfilerActivity, profile
     from quip_tpu_torch.serve.engine import Engine
 
-    e = Engine(model, cfg, max_batch=1, max_seq=1024, hot=32, page=64,
-               cache_dtype=torch.bfloat16, device="cuda")
-    e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
-             max_new_tokens=n_steps + 8)
-    e.step()                     # admission + first decode
-    torch.cuda.synchronize()
+    def engine(n_new):
+        e = Engine(model, cfg, max_batch=B, max_seq=1024, hot=32, page=64,
+                   cache_dtype=torch.bfloat16, device="cuda")
+        for _ in range(B):
+            e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
+                     max_new_tokens=n_new)
+        e.step()                 # admission + first decode
+        torch.cuda.synchronize()
+        return e
+
+    e = engine(n_steps + 8)
     t = time.perf_counter()
     for _ in range(n_steps):
         e.step()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3 / n_steps
-    # profile a fresh engine's first steps (one 64-row page in use)
-    e = Engine(model, cfg, max_batch=1, max_seq=1024, hot=32, page=64,
-               cache_dtype=torch.bfloat16, device="cuda")
-    e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
-             max_new_tokens=n_prof + 8)
-    e.step()
-    torch.cuda.synchronize()
+    e = engine(n_prof + 8)       # one 64-row page in use
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
             e.step()
         torch.cuda.synchronize()
     dev_ms, launches, aten, top = _kernel_table(prof, n_prof)
-    return dict(ms_per_step=ms, tok_s=1e3 / ms, device_ms=dev_ms,
+    return dict(ms_per_step=ms, tok_s=B * 1e3 / ms, device_ms=dev_ms,
                 kernel_launches=launches, aten_ops=aten,
-                busy=dev_ms / ms if dev_ms else None, top=top)
+                busy=dev_ms / ms if dev_ms else None, top=top,
+                per_step=_kernels_named(prof, n_prof))
+
+
+def _kernels_named(prof, n: int):
+    """Launches per step of K1-decode (``dm_decode``) and K3 (``rht_mma``)
+    in a profiled run of ``n`` steps."""
+    from torch.autograd import DeviceType
+    kern = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
+    return {k: sum(x.count for x in kern if k in x.key) / n
+            for k in ("dm_decode", "rht_mma")}
+
+
+def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
+    """Decode through the pump at ``B`` slots on the serial settings
+    (37-token prompts, ``n_new`` new tokens a slot): a first run builds the
+    chunk graphs (T = 16 at one and two pages); then ``reps`` windows, each
+    from just after the admission and first chunk of a fresh batch to its
+    end, host ms per step (one token a slot), the median kept; then
+    windows of one chunk (16 steps at one page: the profiler's own work
+    grows with the events it records), ``reps`` timed and one under
+    torch.profiler (CUPTI sees the kernels of a replayed graph): kernels'
+    device ms, kernel launches and aten ops per step; busy share = device
+    ms over the median step time of the same window unprofiled."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from quip_tpu_torch.serve.engine import Engine
+
+    e = Engine(model, cfg, max_batch=B, max_seq=1024, hot=32, page=64,
+               cache_dtype=torch.bfloat16, device="cuda")
+    prompts = [rng.integers(0, cfg.vocab_size, 37).tolist()
+               for _ in range(B)]
+    t = time.time()
+    e.run([dict(prompt=p, max_new_tokens=n_new) for p in prompts],
+          chunked=True)
+    build_s = time.time() - t
+
+    def window(n_new, ctx=contextlib.nullcontext):
+        for p in prompts:
+            e.submit(p, max_new_tokens=n_new)
+        e.pump()                 # admission and the first chunk
+        torch.cuda.synchronize()
+        n = n_new - sum(p["T"] for p in e._pending_q)
+        with ctx() as prof:
+            t = time.perf_counter()
+            while e.pump():
+                pass
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        return ms / n, n, prof
+
+    ms = [window(n_new)[0] for _ in range(reps)]
+    n_win = n_new - 16
+    short = statistics.median(window(32)[0] for _ in range(reps))
+    _, n, prof = window(32, lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    dev_ms, launches, aten, top = _kernel_table(prof, n)
+    med = statistics.median(ms)
+    return dict(ms_per_step=med, ms_reps=ms, tok_s=B * 1e3 / med,
+                steps_per_window=n_win, steps_profiled=n,
+                ms_per_step_profiled_window=short, device_ms=dev_ms,
+                kernel_launches=launches, aten_ops=aten,
+                busy=dev_ms / short if dev_ms else None, top=top,
+                per_step=_kernels_named(prof, n), graphs=len(e._graphs),
+                first_run_s=build_s)
 
 
 def phase_serve(name: str, smi: str):
@@ -942,24 +1018,6 @@ def phase_serve(name: str, smi: str):
     del eng
     torch.cuda.empty_cache()
 
-    # --- timings ------------------------------------------------------------
-    e = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
-               cache_dtype=torch.bfloat16, device="cuda")
-    for _ in range(4):
-        e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
-                 max_new_tokens=100)
-    e.step()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(24):
-        e.step()
-    torch.cuda.synchronize()
-    b4_ms = (time.perf_counter() - t) * 1e3 / 24
-    del e
-    b1 = {}
-    for fused in (False, True):
-        with fused_rht(fused):
-            b1[fused] = _b1_decode(model, cfg, rng)
     log(f"prefill 600 tokens: {prefill_ms:.1f} ms "
         f"({600 / prefill_ms * 1e3:.0f} tok/s; was {BEFORE['prefill_ms']} "
         f"ms), {k1_prefill} K1 launches, {k1_tile_prefill} of them K1-tile; "
@@ -968,27 +1026,130 @@ def phase_serve(name: str, smi: str):
         + (f"{pre_dev_ms / prefill_ms:.1%}" if pre_dev_ms else "not measured"))
     for key, ms, cnt in pre_top:
         log(f"  {key[:60]:60s} {ms:.3f} ms, {cnt:.0f} launches")
-    log(f"decode b4 (un-fused, 24 steps): {b4_ms:.2f} ms/step, "
-        f"{4e3 / b4_ms:.1f} tok/s")
-    for fused, d in b1.items():
-        log(f"decode b1, QUIP_FUSED_RHT={int(fused)}: "
-            f"{d['ms_per_step']:.2f} ms/step ({d['tok_s']:.2f} tok/s); "
-            f"profiled: {d['device_ms']:.2f} ms of kernels per step, "
-            f"{d['kernel_launches']:.0f} kernel launches, "
-            f"{d['aten_ops']:.0f} aten ops; device busy share "
-            + (f"{d['busy']:.1%}" if d["busy"] else "not measured"))
-        for key, ms, cnt in d["top"]:
-            log(f"  {key[:60]:60s} {ms:.3f} ms/step, {cnt:.0f} "
-                f"launches/step")
-    log(f"card: {smi}")
     RESULTS["serve"].update(prefill_ms=prefill_ms, k1_prefill=k1_prefill,
                             k1_tile_prefill=k1_tile_prefill,
                             prefill_device_ms=pre_dev_ms,
                             prefill_kernel_launches=pre_launches,
-                            prefill_aten_ops=pre_aten, prefill_top=pre_top,
-                            b4_ms_per_step=b4_ms, b1_unfused=b1[False],
-                            b1_fused=b1[True])
-    return base, conf
+                            prefill_aten_ops=pre_aten, prefill_top=pre_top)
+    return model, cfg, prompts, base, conf
+
+
+def _run_pump(eng, reqs, cfg, want):
+    """``eng.run(reqs, chunked=True)`` with every kernel's count set to 0
+    just before and read just after (a graph replay adds the launches it
+    holds); the greedy tokens must equal ``want`` request by request."""
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
+
+    DM.launches = DM.launches_tile = DM.launches_decode = 0
+    FA.launches = K3.launches = 0
+    chunks = eng._t_pump["chunks"]
+    t = time.time()
+    out = eng.run(reqs, chunked=True)
+    torch.cuda.synchronize()
+    run_s = time.time() - t
+    got = [r.generated for r in out]
+    for r, q in zip(out, reqs):
+        assert len(r.generated) == q["max_new_tokens"] + 1, (r.uid,
+                                                             len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert got == want, [sum(a != b for a, b in zip(g, w))
+                         for g, w in zip(got, want)]
+    return dict(run_s=run_s, chunks=eng._t_pump["chunks"] - chunks,
+                serial_steps=eng._t_pump["steps"], k1=DM.launches,
+                k1_tile=DM.launches_tile, k1_decode=DM.launches_decode,
+                k2=FA.launches, k3=K3.launches, stats=eng.stats())
+
+
+def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
+    """Phase 8: phase 7's traffic through the pump, then decode timings."""
+    from quip_tpu_torch.serve.engine import Engine
+
+    def warm(eng):
+        """warmup at the page bucket phase 7's traffic reaches (the 600-token
+        prompt puts every chunk at 16 pages; the dummy requests build the
+        first bucket's); every bucket the engine can reach would be
+        [1, 2, 4, 8, 16], 2.5 times the graphs and the time."""
+        t = time.time()
+        eng.warmup(page_buckets=[16])
+        torch.cuda.synchronize()
+        g = eng._graphs
+        return dict(warmup_s=time.time() - t, graphs=len(g),
+                    capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20,
+                    buckets=[16])
+
+    res = {}
+    steps = 40        # decode steps of phase 7's requests
+    with fused_rht(False):
+        eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
+                     cache_dtype=torch.bfloat16, device="cuda")
+        w = warm(eng)
+        reqs = [dict(prompt=prompts[n], max_new_tokens=40)
+                for n in (600, 128, 37, 5)]
+        r = _run_pump(eng, reqs, cfg, base["tokens"])
+    assert r["k1_decode"] >= 129 * steps and r["k1_tile"] >= 128, r
+    assert r["k2"] == 32 and r["k3"] == 0, r
+    res["unfused"] = dict(r, **w)
+    del eng
+    torch.cuda.empty_cache()
+    with fused_rht(True):
+        eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
+                     cache_dtype=torch.bfloat16, kv_quant=True,
+                     shared_prefix=prompts[200], device="cuda")
+        w = warm(eng)
+        reqs = [dict(prompt=prompts[n], max_new_tokens=40) for n in
+                (128, 37, 5)] + [dict(prompt=prompts[600], max_new_tokens=40,
+                                      use_prefix=False)]
+        r = _run_pump(eng, reqs, cfg, conf["tokens"])
+    assert r["k3"] >= 258 * steps and r["k1_decode"] >= 129 * steps, r
+    assert r["k2"] == 32 and r["k1_tile"] >= 128, r
+    res["fused_int8_prefix"] = dict(r, **w)
+    del eng
+    torch.cuda.empty_cache()
+    for what, d in res.items():
+        log(f"pump, {what}: warmup {d['warmup_s']:.1f} s ({d['graphs']} "
+            f"graphs at page buckets {d['buckets']}, {d['capture_s']:.1f} s "
+            f"building them, pool {d['pool_mib']:.1f} MiB); phase 7's 4 "
+            f"requests in {d['run_s']:.2f} s, {d['chunks']} chunks, "
+            f"greedy tokens equal to Engine.run's; launches K1-decode "
+            f"{d['k1_decode']}, K1-tile {d['k1_tile']}, K2 {d['k2']}, K3 "
+            f"{d['k3']}; host ms a chunk by phase "
+            f"{d['stats'].get('pump_phase_ms_per_chunk')}")
+
+    rng = np.random.default_rng(8)
+    dec = {}
+    for fused in (False, True):
+        with fused_rht(fused):
+            for B, n_steps in ((1, 48), (4, 24)):
+                dec[(fused, B)] = dict(
+                    serial=_serial_decode(model, cfg, rng, B, n_steps),
+                    pump=_pump_decode(model, cfg, rng, B))
+    for (fused, B), d in dec.items():
+        for how in ("serial", "pump"):
+            x = d[how]
+            log(f"decode b{B}, QUIP_FUSED_RHT={int(fused)}, {how:6s}: "
+                f"{x['ms_per_step']:.2f} ms/step ({x['tok_s']:.1f} tok/s)"
+                + (f" [windows {', '.join(f'{v:.2f}' for v in x['ms_reps'])};"
+                   f" {x['steps_per_window']} steps each; "
+                   f"{x['steps_profiled']}-step windows "
+                   f"{x['ms_per_step_profiled_window']:.2f} ms/step, one of "
+                   f"them profiled; {x['graphs']} "
+                   f"graphs built in a first run of {x['first_run_s']:.1f} s]"
+                   if how == "pump" else "")
+                + f"; profiled: {x['device_ms']:.2f} ms of kernels a step, "
+                f"{x['kernel_launches']:.0f} kernel launches (K1-decode "
+                f"{x['per_step']['dm_decode']:.0f}, K3 "
+                f"{x['per_step']['rht_mma']:.0f}), {x['aten_ops']:.0f} aten "
+                f"ops; device busy share "
+                + (f"{x['busy']:.1%}" if x["busy"] else "not measured"))
+            for key, ms, cnt in x["top"]:
+                log(f"    {key[:60]:60s} {ms:.3f} ms/step, {cnt:.0f} "
+                    f"launches/step")
+    log(f"card: {smi}")
+    RESULTS["pump"] = res
+    RESULTS["decode"] = {f"b{B}_fused{int(f)}": d for (f, B), d in dec.items()}
+    return res, dec
 
 
 def main():
@@ -1004,7 +1165,9 @@ def main():
     with watchdog(600, "the K1' phase"):
         k1p_err, k1p = phase_k1p(name)
     phase_slice()
-    base, conf = phase_serve(name, smi)
+    model, cfg, prompts, base, conf = phase_serve(name, smi)
+    with watchdog(800, "the pump phase"):
+        pump, dec = phase_pump(name, smi, model, cfg, prompts, base, conf)
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
     # from the fused / int8 / prefix Engine.run, K1' from the
     # microbenchmark's path
@@ -1014,6 +1177,9 @@ def main():
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
              launches=base["k1_decode"],
              launches_fused_int8_prefix=conf["k1_decode"],
+             launches_pump=pump["unfused"]["k1_decode"],
+             launches_per_token_pump=dec[(False, 1)]["pump"]["per_step"][
+                 "dm_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
@@ -1042,6 +1208,9 @@ def main():
              source="quip_tpu_torch/kernels/csrc/rht.cu",
              replaces="quip_tpu/kernels/rht.py:87",
              launches=conf["k3"], max_abs_err=k3_err,
+             launches_pump=pump["fused_int8_prefix"]["k3"],
+             launches_per_token_pump=dec[(True, 1)]["pump"]["per_step"][
+                 "rht_mma"],
              ms=k3["ms"], plain_ms=k3["plain_ms"], bound_ms=k3["bound_ms"],
              bound_by=k3["bound_by"], library_ms=k3["library_ms"],
              max_rel_err_bf16=k3["max_rel_err_bf16"],

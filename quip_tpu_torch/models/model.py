@@ -15,6 +15,7 @@ BLOOM (ALiBi, embedding LayerNorm, GELU) raise NotImplementedError
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -185,9 +186,12 @@ def init_caches(batch: int, max_len: int, cfg: ModelConfig,
 
 def _flash_eligible(cfg: ModelConfig, S: int, x: torch.Tensor,
                     plen) -> bool:
-    """Flash prefill gate: CUDA tensors, prefill from position 0 (plen
-    given), S >= 512 (below it the dense logits are small), hd % 128 == 0,
-    no ALiBi."""
+    """Flash prefill gate: ``QUIP_FLASH_PREFILL`` not turned off (read at
+    call time, default on, as in quip_tpu), CUDA tensors, prefill from
+    position 0 (plen given), S >= 512 (below it the dense logits are
+    small), hd % 128 == 0, no ALiBi."""
+    if os.environ.get("QUIP_FLASH_PREFILL", "1") != "1":
+        return False
     return (plen is not None and x.is_cuda and cfg.positions != "alibi"
             and S >= 512 and cfg.hd % 128 == 0)
 

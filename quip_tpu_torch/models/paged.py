@@ -13,9 +13,13 @@ In JAX the split exists because the runtime could not update buffers in
 place; here the ring write and the flush are in-place tensor writes, and
 the same semantics hold. Redesigning the two levels is later work.
 
-The cursors ``base`` and ``hot_len`` are (B,) int32 tensors on the host:
-the engine owns them, the page loop needs ``max(base)`` as a Python int,
-and keeping them there saves a device read per step.
+The cursors ``base`` and ``hot_len`` are (B,) int32 tensors on the host
+for the serial step: the engine owns them, the page loop is sized from
+``max(base)`` as a Python int, and keeping them there saves a device read
+per step. The chunked loop (serve/engine.py) keeps them in fixed device
+buffers instead and passes the page count itself (``n_pages``), so a step
+reads nothing back and a CUDA graph can hold it. Both size the page loop
+by :func:`page_bucket`, so the two do the same arithmetic.
 
 int8 KV (``model.quantize_kv``) composes: codes and per-(slot, position,
 head) scales live in both levels, and the scales fold around the attention
@@ -176,6 +180,20 @@ def _accum(state, q2, keys, vals, valid, ksc, vsc, scale: float):
     return m_new, lsum, acc
 
 
+def page_bucket(max_base: int, page: int, capacity: int) -> int:
+    """Pages the frozen-arena loop reads when the longest slot holds
+    ``max_base`` rows: ceil(max_base / page) rounded up to a power of two
+    (at least 1), capped at the arena's page count. Pages past a slot's
+    base are masked and add exact zeros; the bucket sets how the loop
+    groups its sums, and it is part of a chunk graph's key
+    (serve/graphs.py), where quip_tpu traces the trip count instead."""
+    need = max(1, -(-max_base // page))
+    n = 1
+    while n < need:
+        n *= 2
+    return min(n, capacity // page)
+
+
 class _StepCtx(NamedTuple):
     """Per-step indices shared by every layer (built once per step)."""
 
@@ -183,12 +201,16 @@ class _StepCtx(NamedTuple):
     win_rows: Tuple[torch.Tensor, torch.Tensor]   # (slot, window s) source
     hot_valid: torch.Tensor       # (B, S, P) bool
     base: torch.Tensor            # (B,) int32 on the device
-    max_base: int
+    n_pages: int                  # frozen pages the loop reads
     pre_valid: Optional[torch.Tensor]   # (B, S, P0) bool, shared prefix
 
 
 def _step_ctx(caches: PagedKV, S: int, device,
-              pre_len: Optional[torch.Tensor], P0: int) -> _StepCtx:
+              pre_len: Optional[torch.Tensor], P0: int,
+              page: int) -> _StepCtx:
+    """The step context from host cursors, copied to ``device``. Rows past
+    the ring end (other slots of a multi-token admission window) are
+    dropped."""
     B, P = caches.hot_k.shape[1], caches.hot_size
     hlen = caches.hot_len.to(torch.int64)
     slot = torch.arange(B).repeat_interleave(S)
@@ -204,7 +226,34 @@ def _step_ctx(caches: PagedKV, S: int, device,
                        [:, None, :].expand(B, S, P0))
     return _StepCtx((to(slot[keep]), to(row[keep])),
                     (to(slot[keep]), to(s[keep])), to(hot_valid),
-                    to(caches.base), int(caches.base.max()), pre_valid)
+                    to(caches.base),
+                    page_bucket(int(caches.base.max()), page,
+                                caches.capacity), pre_valid)
+
+
+def _step_ctx_dev(caches: PagedKV, S: int,
+                  pre_len: Optional[torch.Tensor], P0: int,
+                  n_pages: int) -> _StepCtx:
+    """The same context from cursors on the device, at fixed shapes:
+    nothing is read back and no shape depends on the data. Every slot
+    writes its S rows at hot_len..hot_len+S-1, so the caller keeps
+    ``max(hot_len) + S <= hot`` (the engine sizes a chunk by the ring's
+    room); a row past the ring end is an out-of-range index, never a write
+    onto another row."""
+    B, P = caches.hot_k.shape[1], caches.hot_size
+    dev = caches.base.device
+    hlen = caches.hot_len.to(torch.int64)
+    slot = torch.arange(B, device=dev)[:, None].expand(B, S).reshape(-1)
+    s = torch.arange(S, device=dev).repeat(B)
+    row = hlen[slot] + s
+    qidx = hlen[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
+    hot_valid = torch.arange(P, device=dev)[None, None, :] <= qidx[:, :, None]
+    pre_valid = None
+    if pre_len is not None:
+        pre_valid = ((torch.arange(P0, device=dev)[None, :] < pre_len[:, None])
+                     [:, None, :].expand(B, S, P0))
+    return _StepCtx((slot, row), (slot, s), hot_valid, caches.base, n_pages,
+                    pre_valid)
 
 
 def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
@@ -264,16 +313,16 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
             B, S, psize)
         return _accum(state, q2, pk, pv, valid, psc, pvs, scale)
 
-    # telescoped page loop: big pages (8x) cover the bulk, small pages the
-    # tail, so reads round up only to the small page size
+    # telescoped page loop over the bucket's pages: big pages (8x) cover
+    # the bulk, small pages the tail
     big = 8 * page
     lo = 0
     if big < caches.capacity:
-        n_big = ctx.max_base // big
+        n_big = ctx.n_pages * page // big
         for pidx in range(n_big):
             state = page_step(state, pidx * big, big)
         lo = n_big * (big // page)
-    for pidx in range(lo, -(-ctx.max_base // page)):
+    for pidx in range(lo, ctx.n_pages):
         state = page_step(state, pidx * page, page)
 
     # hot block: query s (hot index hlen+s) attends hot rows j <= hlen+s
@@ -294,7 +343,8 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
 def paged_append_step(params: M.Model, tokens: torch.Tensor,
                       caches: PagedKV, cfg: ModelConfig, *, page: int = 256,
                       prefix: Optional[Prefix] = None,
-                      prefix_on: Optional[torch.Tensor] = None
+                      prefix_on: Optional[torch.Tensor] = None,
+                      n_pages: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Hot]:
     """Append S tokens per slot and return their logits (B, S, V).
 
@@ -305,27 +355,38 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
     chunked admission (a prompt streamed through the hot ring). Returns
     (logits, Hot with hot_len + S).
 
-    prefix + prefix_on (B,) 0/1 on the host (None = all on): opted-in slots
-    attend the prefix rows first and have their positions offset by
-    prefix.length; their base/hot_len still count only their own rows."""
+    prefix + prefix_on (B,) 0/1 (None = all on): opted-in slots attend the
+    prefix rows first and have their positions offset by prefix.length;
+    their base/hot_len still count only their own rows.
+
+    n_pages None: the cursors and prefix_on lie on the host and the page
+    loop reads ``page_bucket(max(base))`` pages. Given: they lie on the
+    tokens' device, the loop reads ``n_pages`` pages, and nothing is read
+    back to the host (the chunked loop's form, see ``_step_ctx_dev``)."""
     if caches.capacity % page:
         raise ValueError(
             f"capacity {caches.capacity} must be a multiple of page {page} "
             f"(init_paged(..., page=...) rounds it up)")
     B, S = tokens.shape
     dev = tokens.device
+    cdev = caches.base.device            # where the cursors lie
     pos0 = (caches.base + caches.hot_len).to(torch.int64)
     pre_len = None
     if prefix is not None:
-        on = (torch.ones(B, dtype=torch.int64) if prefix_on is None
+        on = (torch.ones(B, dtype=torch.int64, device=cdev)
+              if prefix_on is None
               else torch.as_tensor(prefix_on).to(torch.int64))
         pre_len = on * prefix.length
         pos0 = pos0 + pre_len
-    positions = (pos0[:, None] + torch.arange(S)[None, :]).to(dev)
+    positions = (pos0[:, None]
+                 + torch.arange(S, device=cdev)[None, :]).to(dev)
     x = M.embed(params, tokens, cfg, positions)
     rope_cs = M.rope_tables(cfg, positions)
-    ctx = _step_ctx(caches, S, dev, pre_len,
-                    prefix.k.shape[1] if prefix is not None else 0)
+    P0 = prefix.k.shape[1] if prefix is not None else 0
+    if n_pages is None:
+        ctx = _step_ctx(caches, S, dev, pre_len, P0, page)
+    else:
+        ctx = _step_ctx_dev(caches, S, pre_len, P0, n_pages)
     for l, bp in enumerate(params.blocks):
         x = x + _paged_attention(bp.attn, M.norm(bp.ln1, x, cfg), cfg, l,
                                  caches, rope_cs, page, ctx, prefix)
@@ -338,12 +399,15 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
 def paged_decode_step(params: M.Model, tokens: torch.Tensor,
                       caches: PagedKV, cfg: ModelConfig, *, page: int = 256,
                       prefix: Optional[Prefix] = None,
-                      prefix_on: Optional[torch.Tensor] = None
+                      prefix_on: Optional[torch.Tensor] = None,
+                      n_pages: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Hot]:
     """One decode token per slot: tokens (B, 1) -> (logits (B, V), Hot)
-    (quip_tpu's ``paged_decode_step_unrolled``)."""
+    (quip_tpu's ``paged_decode_step_unrolled``); ``n_pages`` as in
+    :func:`paged_append_step`."""
     logits, hot = paged_append_step(params, tokens, caches, cfg, page=page,
-                                    prefix=prefix, prefix_on=prefix_on)
+                                    prefix=prefix, prefix_on=prefix_on,
+                                    n_pages=n_pages)
     return logits[:, -1, :], hot
 
 

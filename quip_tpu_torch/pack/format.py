@@ -10,6 +10,7 @@ hold these planes equal to its planes word for word.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -67,7 +68,10 @@ def padded_m(m: int, d: int, bits: int) -> int:
     128-aligned m' <= m + ~2.5% whose tiles sit in its measured fast band.
     Kept here only so planes made by either package have the same shapes
     (22016 -> 22528 for Llama-2-7B's fused gate-up); the CUDA kernel takes
-    any m. Padded rows are zero codes; qlinear slices them off."""
+    any m. Padded rows are zero codes; qlinear slices them off.
+    ``QUIP_NO_PAD_M=1`` (read at call time, as in quip_tpu) returns m."""
+    if os.environ.get("QUIP_NO_PAD_M") == "1":
+        return m
 
     def band_score(mm: int):
         scores = [abs(d * t * bits / 8 - 2.9e6)

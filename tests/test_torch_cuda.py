@@ -15,6 +15,7 @@ plain version 1e-3, against K1 2e-2 (its 128·Σx fix-up in f32).
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -320,3 +321,111 @@ def test_wrappers_reject_bad_inputs(cuda):
         K3.rht_apply_fused(x.double(), torch.ones(64, device=cuda), eye, eye)
     with pytest.raises(ValueError):           # tile_m does not divide m
         SD.slabdot_matmul(x, (plane,), 1.0, bits=2, tile_m=128)
+
+
+# ---------------------------------------------------------------------------
+# The chunked loop on the card: chunk graphs (serve/graphs.py) and the pump
+# ---------------------------------------------------------------------------
+
+
+def _engine(cuda, cfg, model, **kw):
+    from quip_tpu_torch.serve.engine import Engine
+    return Engine(model, cfg, device=cuda, **kw)
+
+
+def test_chunk_graph_replay_matches_eager(cuda):
+    """A chunk's graph, replayed from the same state, gives the eager
+    chunk's tokens, hot ring, frontier and cursors bit for bit, and
+    counts the launches the eager chunk counted."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_llama
+    cfg = get_config("llama-tiny")
+    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+                         head_bits=2, device=cuda)
+    eng = _engine(cuda, cfg, model, max_batch=2, max_seq=64, hot=16, page=8)
+    eng.submit([5, 6, 7], max_new_tokens=20)
+    eng.submit(list(range(1, 12)), max_new_tokens=20)
+    eng._admit()
+    active = [0, 1]
+    eng._frontier_from_host(active)
+    eng._push_cursors(np.zeros(2, np.float32), np.ones(2, np.float32))
+    state = (eng.pkv.hot_k, eng.pkv.hot_v, eng._tok, eng._hot_d)
+    saved = [t.clone() for t in state]
+    args = (4, 2, True, 0, False)
+    key = eng._chunk_key(*args)
+    d0 = DM.launches_decode
+    eager = eng._graphs.run(key, eng._chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    n_eager = DM.launches_decode - d0
+    after = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    replay = eng._graphs.run(key, eng._chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    assert len(eng._graphs) == 1 and n_eager == 4 * (4 * 2 + 1)
+    assert DM.launches_decode - d0 == 2 * n_eager
+    assert torch.equal(replay, eager)
+    for t, a in zip(state, after):
+        assert torch.equal(t, a)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_pump_equals_serial_step(cuda, fused, monkeypatch):
+    """Greedy tokens of the pump (chunk graphs) equal the serial step's on
+    a 2-layer full-width 2-bit Llama-2-7B: bf16 KV un-fused, then
+    QUIP_FUSED_RHT=1 with int8 KV and a shared prefix; warmup first. The
+    requests share a budget and start together, as phase 7's do, so the
+    two loops flush at the same steps and do the same bf16 arithmetic."""
+    import dataclasses
+
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_llama
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1" if fused else "0")
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
+    model = packed_llama(cfg, bits=2, seed=1, dtype=torch.bfloat16,
+                         head_bits=2, device=cuda)
+    g = torch.Generator().manual_seed(2)
+    prompt = lambda n: torch.randint(0, cfg.vocab_size, (n,),  # noqa: E731
+                                     generator=g).tolist()
+    kw = dict(max_batch=2, max_seq=256, hot=32, page=64,
+              cache_dtype=torch.bfloat16)
+    if fused:
+        kw.update(kv_quant=True, shared_prefix=prompt(40))
+    reqs = [dict(prompt=prompt(n), max_new_tokens=40) for n in (70, 5)]
+    serial = _engine(cuda, cfg, model, **kw).run(reqs)
+    eng = _engine(cuda, cfg, model, **kw).warmup()
+    assert len(eng._graphs) >= 8
+    pumped = eng.run(reqs, chunked=True)
+    assert [r.generated for r in pumped] == [r.generated for r in serial]
+    assert eng._t_pump["chunks"] > 0
+
+
+def test_capture_failure_raises(cuda):
+    """A chunk that cannot be captured raises from the engine's graph
+    cache and leaves no graph behind: nothing falls back to eager
+    execution. In a child process, since a failed capture leaves the
+    process's default CUDA generator unusable."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "from quip_tpu_torch.serve.graphs import ChunkGraphs\n"
+        "dev = torch.device('cuda')\n"
+        "graphs = ChunkGraphs(dev, torch.Generator(device=dev))\n"
+        "x = torch.ones(4, device=dev)\n"
+        "calls = []\n"
+        "def fn():\n"
+        "    calls.append(1)\n"
+        "    return x * float(x.sum())    # a host read inside the chunk\n"
+        "try:\n"
+        "    graphs.run('chunk', fn)\n"
+        "except Exception as e:\n"
+        "    print('raised', type(e).__name__, len(calls), len(graphs))\n"
+        "else:\n"
+        "    print('no error', len(calls), len(graphs))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.split()[:1] == ["raised"], (out.stdout, out.stderr)
+    assert out.stdout.split()[2:] == ["2", "0"], out.stdout

@@ -80,3 +80,22 @@ def test_flash_tiled_bf16_p_matches_plain(S, H, KV, plen):
     full = TFA.flash_prefill_ref(q.float(), k.float(), v.float(), None,
                                  scale=scale)
     assert (none.float() - full).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("env,want", [(None, True), ("1", True), ("0", False)])
+def test_flash_gate_reads_quip_flash_prefill(env, want, monkeypatch):
+    """QUIP_FLASH_PREFILL (read at call time, default on) turns the flash
+    prefill off when it is not "1", as quip_tpu's gate does
+    (models/model.py); every other condition of the gate holds here, the
+    CUDA tensor being a stand-in with ``is_cuda``."""
+    import types
+
+    from quip_tpu_torch.models import model as TM
+    from quip_tpu_torch.models.config import get_config
+    if env is None:
+        monkeypatch.delenv("QUIP_FLASH_PREFILL", raising=False)
+    else:
+        monkeypatch.setenv("QUIP_FLASH_PREFILL", env)
+    x = types.SimpleNamespace(is_cuda=True)
+    plen = torch.tensor([600], dtype=torch.int32)
+    assert TM._flash_eligible(get_config("llama-2-7b"), 600, x, plen) is want

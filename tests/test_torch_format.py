@@ -35,12 +35,19 @@ def test_planes_bit_identical(bits):
                                          for g in got), bits, d)), codes)
 
 
-@pytest.mark.parametrize("m,d", [(12288, 4096), (4096, 4096), (22016, 4096),
-                                 (4096, 11008), (32000, 4096)])
-def test_padded_m_matches(m, d):
+@pytest.mark.parametrize("m,d,no_pad", [
+    pytest.param(m, d, False, id=f"{m}-{d}")
+    for m, d in [(12288, 4096), (4096, 4096), (22016, 4096), (4096, 11008),
+                 (32000, 4096)]] + [
+    pytest.param(22016, 4096, True, id="22016-4096-QUIP_NO_PAD_M")])
+def test_padded_m_matches(m, d, no_pad, monkeypatch):
+    """QUIP_NO_PAD_M=1 turns the pad off in both packages (read at call
+    time)."""
+    if no_pad:
+        monkeypatch.setenv("QUIP_NO_PAD_M", "1")
     for bits in (2, 3, 4):
         assert TF.padded_m(m, d, bits) == JF.padded_m(m, d, bits)
-    assert TF.padded_m(22016, 4096, 2) == 22528
+    assert TF.padded_m(22016, 4096, 2) == (22016 if no_pad else 22528)
 
 
 @pytest.mark.parametrize("name", sorted(JPRESETS))
