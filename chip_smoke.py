@@ -48,7 +48,16 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      through the serial step and through the pump, un-fused and with
      QUIP_FUSED_RHT=1: ms a step on the host clock (the pump's the median
      of 3 windows of 48 tokens a slot), kernel ms and launches a step by
-     the profiler, and the device's busy share.
+     the profiler, and the device's busy share;
+  9. QuIP's quantization path on a full-width random Llama-2-7B through
+     the quantize CLI's calls (synthetic calibration, 128 windows of 2048
+     tokens; LDLQ with incoherence processing, the lm_head too): layer 0's
+     tap Hessians with K2 against dense attention, seconds a layer by part,
+     K2's calibration launches, peak memory, LDLQ / nearest proxy-loss
+     ratios on layers 0 and 31 and the head, K1 on the packed layers
+     against the quantizer's f32 W_hat, a bit-exact checkpoint round trip,
+     and the loaded checkpoint served by ``Engine.run`` (4 greedy requests)
+     with its first 600-token prefill held against the f32 W_hat forward.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -492,18 +501,26 @@ def phase_k3(name: str):
     return worst_abs, sums
 
 
-def _kernels_per_call(fn) -> int:
-    """Device kernels torch.profiler (CUPTI) sees in one call of ``fn``."""
+def _kernels_per_call(fn, sessions: int = 3) -> int:
+    """Device kernels torch.profiler (CUPTI) sees in one call of ``fn``. A
+    session that records no device kernel at all is run again, up to
+    ``sessions`` times: on the card one such session once recorded nothing
+    (torch 2.11), while the same call in a fresh process showed its one
+    kernel. A call that launches nothing still reads 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
 
 
 @contextlib.contextmanager
@@ -1152,6 +1169,277 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     return res, dec
 
 
+# Phase 9's calibration: the reference's defaults (128 windows of 2048
+# tokens, chunks of 4) at full depth and width. Its budget is 300 s; past
+# it the samples are cut first (to 32), then the depth, never the width.
+QUANT_NSAMPLES = 128
+QUANT_BUDGET_S = 300.0
+
+
+def _fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative Frobenius error of got against want (f32)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _tap_hessians(model, cfg, tokens, flash: bool):
+    """Layer 0's four tap Hessians over one chunk of calibration windows
+    through the driver's own accumulate, with QUIP_FLASH_PREFILL on (K2)
+    or off (dense attention); returns (H by tap, K2 launches)."""
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.quantize import driver as QD
+    old = os.environ.get("QUIP_FLASH_PREFILL")
+    os.environ["QUIP_FLASH_PREFILL"] = "1" if flash else "0"
+    try:
+        n, S = tokens.shape
+        accumulate, _ = QD._make_block_fns(cfg, S, n, tokens.device)
+        H = {}
+        k2 = FA.launches
+        accumulate(model.blocks[0], QD._block_inputs(model, cfg, tokens, n),
+                   H)
+        torch.cuda.synchronize()
+        return H, FA.launches - k2
+    finally:
+        if old is None:
+            del os.environ["QUIP_FLASH_PREFILL"]
+        else:
+            os.environ["QUIP_FLASH_PREFILL"] = old
+
+
+def phase_quantize(name: str, smi: str):
+    """Phase 9: QuIP's quantization path on a full-width random Llama-2-7B
+    through the quantize CLI's calls (load_model with --weights random,
+    fuse_params, get_data 'synthetic', quantize_model with
+    QuantConfig.incoherence(2, 'ldlq') and quant_head, pack_quantized_model,
+    save_checkpoint); then the loaded checkpoint served by Engine.run."""
+    import tempfile
+    from quip_tpu_torch.cli import common
+    from quip_tpu_torch.cli import quantize as CLI
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
+    from quip_tpu_torch.models import model as TM
+    from quip_tpu_torch.models import paged as PG
+    from quip_tpu_torch.ops.qlinear import qlinear_apply
+    from quip_tpu_torch.pack.format import pack_layer_result
+    from quip_tpu_torch.pack.model import (load_checkpoint,
+                                           pack_quantized_model,
+                                           save_checkpoint, unpack_model)
+    from quip_tpu_torch.quantize.config import QuantConfig
+    from quip_tpu_torch.quantize.driver import quantize_model
+    from quip_tpu_torch.quantize.pipeline import (dequantize_result,
+                                                  quantize_layer)
+    from quip_tpu_torch.serve.engine import Engine
+
+    t_phase = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    parser = CLI.build_parser()
+    args = parser.parse_args([
+        "llama-2-7b", "synthetic", "--weights", "random", "--wbits", "2",
+        "--quant", "ldlq", "--incoh_processing", "--fuse", "--quant_head",
+        "--packed", "--nsamples", str(QUANT_NSAMPLES), "--seed", "0",
+        "--chunk", "4", "--device", "cuda"])
+    CLI.check_args(parser, args)
+    params, cfg = common.load_model(args)
+    params = TM.fuse_params(params, cfg)
+    (calib, _), seqlen = common.get_data(args, cfg)
+    qcfg = common.quant_config_from_args(args)
+    assert qcfg == QuantConfig.incoherence(2, "ldlq"), qcfg
+    calib = torch.from_numpy(calib).cuda()
+    torch.cuda.synchronize()
+    setup_s = time.time() - t_phase
+    log(f"quantize: {args.model} (d={cfg.d_model}, d_ff={cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_layers} layers, {cfg.dtype}), fused, "
+        f"synthetic calibration {tuple(calib.shape)}, chunk {args.chunk}; "
+        f"built in {setup_s:.1f} s; "
+        + ("no cut" if QUANT_NSAMPLES == 128 else
+           f"CUT to {QUANT_NSAMPLES} samples (the reference's 128)"))
+
+    # the o_in tap on the flash path: layer 0's tap Hessians over one chunk
+    # with K2 against dense attention (bf16 activations: 1e-2)
+    H_fl, k2_fl = _tap_hessians(params, cfg, calib[:4], flash=True)
+    H_de, k2_de = _tap_hessians(params, cfg, calib[:4], flash=False)
+    assert sorted(H_fl) == ["attn_in", "down_in", "mlp_in", "o_in"], H_fl
+    assert k2_fl == 1 and k2_de == 0, (k2_fl, k2_de)
+    tap_err = {k: _fro(H_fl[k], H_de[k]) for k in H_fl}
+    log(f"tap Hessians of layer 0, K2 against dense attention "
+        f"(4 windows): relative Frobenius "
+        + ", ".join(f"{k} {v:.2e}" for k, v in tap_err.items())
+        + " <= 1e-2")
+    assert max(tap_err.values()) <= 1e-2, tap_err
+    del H_fl, H_de
+
+    sampled = [f"layers.{li}.{sp.name}"
+               for li in sorted({0, cfg.n_layers - 1})
+               for sp in TM.linear_specs(cfg, fused=True)] + ["lm_head"]
+    DM.launches = DM.launches_tile = DM.launches_decode = 0
+    FA.launches = K3.launches = 0
+    t = time.time()
+    newp, art = quantize_model(params, cfg, calib, qcfg, seed=args.seed,
+                               chunk=args.chunk, keep_hessians=sampled,
+                               progress=True, quant_head=args.quant_head)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t
+    k2_calib, k1_calib = FA.launches, DM.launches
+    assert k2_calib > 0, "the calibration forward did not run K2"
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    ph = np.array([art.phase_times[f"layers.{i}"]
+                   for i in range(cfg.n_layers)])
+    per_layer = ph.sum(1)
+    lin = art.linear_times
+    log(f"quantize_model: {quant_s:.1f} s for {cfg.n_layers} layers + "
+        f"lm_head ({art.times['lm_head']:.1f} s); a layer median "
+        f"{np.median(per_layer):.2f} s, max {per_layer.max():.2f} s "
+        f"(Hessian pass median {np.median(ph[:, 0]):.2f} s, solves "
+        f"{np.median(ph[:, 1]):.2f} s, replay {np.median(ph[:, 2]):.2f} s); "
+        f"solve s a linear (layer 0): "
+        + ", ".join(f"{k.split('.', 2)[2]} {v:.2f}" for k, v in lin.items()
+                    if k.startswith("layers.0."))
+        + f"; K2 launches in calibration {k2_calib} (K1 {k1_calib}); peak "
+        f"{peak_gib:.1f} GiB; total proxy error {art.total_error:.4f}")
+
+    # the paper's claim on the same Wp, Hp and rotation: LDLQ < nearest
+    ratios = {}
+    for nm in sampled:
+        res = art.results[nm]
+        if nm == "lm_head":
+            W = params.lm_head
+        else:
+            li, spec = int(nm.split(".")[1]), nm.split(".", 2)[2]
+            sp = {s.name: s for s in TM.linear_specs(cfg, fused=True)}[spec]
+            W = getattr(getattr(params.blocks[li], sp.path[0]), sp.path[1])
+        near = quantize_layer(W.t(), art.hessians[nm],
+                              QuantConfig.incoherence(2, "nearest"),
+                              rot=(res.preproc.U, res.preproc.V))
+        ratios[nm] = art.errors[nm] / float(near.error)
+    log("LDLQ / nearest proxy loss: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ratios.items()))
+    assert all(v < 1 for v in ratios.values()), ratios
+
+    # K1 against the quantizer's own output (f32 W_hat of its postproc)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    k1_err = {}
+    for nm in sampled:
+        if not (nm.startswith("layers.0.") or nm == "lm_head"):
+            continue
+        res = art.results[nm]
+        packed = pack_layer_result(res, 2)
+        W32 = dequantize_result(res, 2, torch.float32)
+        for B in (1, 600):
+            x = torch.randn(B, W32.shape[1], generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            before = (DM.launches_decode, DM.launches_tile)
+            y = qlinear_apply(packed, x)
+            path = ("decode" if DM.launches_decode > before[0] else
+                    "tile" if DM.launches_tile > before[1] else None)
+            assert path == ("decode" if B <= 8 else "tile"), (nm, B, path)
+            k1_err[f"{nm} B={B}"] = _fro(y, x.float() @ W32.t())
+        del packed, W32
+    log("K1 on the packed layers against x @ W_hat_f32^T, relative "
+        "Frobenius: " + ", ".join(f"{k} {v:.2e}" for k, v in k1_err.items())
+        + " <= 2e-2")
+    assert max(k1_err.values()) <= 2e-2, k1_err
+
+    # pack, save, load: bit for bit
+    packed_model = pack_quantized_model(newp, cfg, art, 2)
+    errors = dict(art.errors)
+    del params, newp, art
+    torch.cuda.empty_cache()
+    ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
+    try:
+        t = time.time()
+        save_checkpoint(ckpt, packed_model, {"model": args.model, "wbits": 2,
+                                             "quant": "ldlq", "packed": True,
+                                             "seqlen": seqlen})
+        save_s = time.time() - t
+        ckpt_mib = sum(os.path.getsize(os.path.join(ckpt, f))
+                       for f in os.listdir(ckpt)) / 2 ** 20
+        t = time.time()
+        tree, meta = load_checkpoint(ckpt)
+        assert meta["model"] == args.model and meta["packed"], meta
+        loaded = params_from_numpy(tree, cfg, device="cuda")
+        load_s = time.time() - t
+    finally:
+        for f in os.listdir(ckpt):
+            os.remove(os.path.join(ckpt, f))
+        os.rmdir(ckpt)
+    want_sd, got_sd = packed_model.state_dict(), loaded.state_dict()
+    assert list(want_sd) == list(got_sd), set(want_sd) ^ set(got_sd)
+    for k, v in want_sd.items():
+        assert v.dtype == got_sd[k].dtype and torch.equal(v, got_sd[k]), k
+    n_planes = sum(1 for k in want_sd if ".plane" in k)
+    log(f"checkpoint: {ckpt_mib:.0f} MiB, saved in {save_s:.1f} s, loaded "
+        f"in {load_s:.1f} s; {len(want_sd)} buffers equal bit for bit "
+        f"({n_planes} planes)")
+    del packed_model, want_sd, got_sd, tree
+    torch.cuda.empty_cache()
+
+    # serve the loaded checkpoint; the first 600-token prefill's logits
+    # against the same forward with every packed linear as its f32 W_hat
+    rng = np.random.default_rng(9)
+    prompts = {n: rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (600, 128, 37, 5)}
+    first = {}
+    orig = PG.paged_prefill_slot
+
+    def capture(*a, **kw):
+        out = orig(*a, **kw)
+        if int(a[2]) == 600 and "logits" not in first:
+            first["logits"] = out[0].float().clone()
+        return out
+
+    PG.paged_prefill_slot = capture
+    try:
+        eng = Engine(loaded, cfg, max_batch=4, max_seq=1024, hot=32,
+                     page=64, cache_dtype=torch.bfloat16, device="cuda")
+        reqs = [dict(prompt=prompts[n], max_new_tokens=16)
+                for n in (600, 128, 37, 5)]
+        with fused_rht(False):
+            served = _run_engine(eng, reqs, cfg)
+    finally:
+        PG.paged_prefill_slot = orig
+    assert served["k1_decode"] > 0 and served["k1_tile"] > 0, served
+    assert served["k2"] == cfg.n_layers, served
+    del eng
+    torch.cuda.empty_cache()
+    dense = unpack_model(loaded, torch.float32)
+    del loaded
+    old = os.environ.get("QUIP_FLASH_PREFILL")
+    os.environ["QUIP_FLASH_PREFILL"] = "0"      # K2 takes bf16 only
+    try:
+        with torch.no_grad():
+            ref = TM.forward(dense, torch.tensor([prompts[600]],
+                                                 device="cuda"), cfg)[0, -1]
+    finally:
+        if old is None:
+            del os.environ["QUIP_FLASH_PREFILL"]
+        else:
+            os.environ["QUIP_FLASH_PREFILL"] = old
+    del dense
+    torch.cuda.empty_cache()
+    logit_err = _fro(first["logits"], ref)
+    log(f"served the loaded checkpoint: Engine.run, 4 greedy requests "
+        f"(prompts 600/128/37/5, 16 new tokens) in {served['run_s']:.2f} s; "
+        f"launches K1-decode {served['k1_decode']}, K1-tile "
+        f"{served['k1_tile']}, K2 {served['k2']}; tokens "
+        f"{served['tokens']}; first 600-token prefill's last logits against "
+        f"the f32 W_hat forward: relative Frobenius {logit_err:.2e} <= 5e-2")
+    assert logit_err <= 5e-2, logit_err
+    phase_s = time.time() - t_phase
+    log(f"phase 9: {phase_s:.1f} s (budget {QUANT_BUDGET_S:.0f} s"
+        + (", OVER" if phase_s > QUANT_BUDGET_S else "") + f"); card: {smi}")
+    RESULTS["quantize"] = dict(
+        nsamples=QUANT_NSAMPLES, setup_s=setup_s, quant_s=quant_s, phase_s=phase_s,
+        layer_s=per_layer.tolist(), hessian_s=ph[:, 0].tolist(),
+        solve_s=ph[:, 1].tolist(), replay_s=ph[:, 2].tolist(),
+        linear_s=lin, lm_head_s=lin["lm_head"], k2_calibration=k2_calib,
+        peak_gib=peak_gib, total_error=sum(errors.values()), errors=errors,
+        ratios=ratios, tap_err=tap_err, k1_err=k1_err, ckpt_mib=ckpt_mib,
+        save_s=save_s, load_s=load_s, logit_err=logit_err, serve=served)
+    return RESULTS["quantize"]
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1168,6 +1456,9 @@ def main():
     model, cfg, prompts, base, conf = phase_serve(name, smi)
     with watchdog(800, "the pump phase"):
         pump, dec = phase_pump(name, smi, model, cfg, prompts, base, conf)
+    del model
+    torch.cuda.empty_cache()
+    quant = phase_quantize(name, smi)
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
     # from the fused / int8 / prefix Engine.run, K1' from the
     # microbenchmark's path
@@ -1177,6 +1468,7 @@ def main():
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
              launches=base["k1_decode"],
              launches_fused_int8_prefix=conf["k1_decode"],
+             launches_quantized_serve=quant["serve"]["k1_decode"],
              launches_pump=pump["unfused"]["k1_decode"],
              launches_per_token_pump=dec[(False, 1)]["pump"]["per_step"][
                  "dm_decode"],
@@ -1191,6 +1483,7 @@ def main():
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
              launches=base["k1_tile"],
              launches_fused_int8_prefix=conf["k1_tile"],
+             launches_quantized_serve=quant["serve"]["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
@@ -1200,6 +1493,8 @@ def main():
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
              launches=base["k2"], launches_fused_int8_prefix=conf["k2"],
+             launches_calibration=quant["k2_calibration"],
+             launches_quantized_serve=quant["serve"]["k2"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],

@@ -1,11 +1,13 @@
-"""quip_tpu_torch: the PyTorch/CUDA port of quip_tpu (serving slice).
+"""quip_tpu_torch: the PyTorch/CUDA port of quip_tpu.
 
-Serves QuIP-packed Llama models on an NVIDIA H100 through hand-written
-CUDA kernels (``kernels/csrc``): the packed dequant-matmul, the flash
-prefill, the fused RHT application and the slab-dot variant of the
-dequant-matmul that the kernel microbenchmark (``tools/bench_kernel.py``)
-sweeps. ``quip_tpu`` (JAX) stays the reference; this package never imports
-it or jax.
+Quantizes Llama models with QuIP (calibration, incoherence processing,
+LDLQ / OPTQ rounding, packing, checkpoints: ``quantize/``, ``core/``,
+``pack/``, ``cli/quantize.py``) and serves the packed models on an NVIDIA
+H100 through hand-written CUDA kernels (``kernels/csrc``): the packed
+dequant-matmul, the flash prefill, the fused RHT application and the
+slab-dot variant of the dequant-matmul that the kernel microbenchmark
+(``tools/bench_kernel.py``) sweeps. ``quip_tpu`` (JAX) stays the
+reference; this package never imports it or jax.
 
 Entry points take ``device=`` and default to ``"cuda"``: with no card the
 default raises instead of running on the CPU. Tests pass ``device="cpu"``,

@@ -2,11 +2,12 @@
 
 Input is the tree as ``jax.tree.map(np.asarray, params)`` leaves it:
 nested dicts of numpy arrays, with quip_tpu ``PackedLinear`` nodes whose
-children became numpy. Packed leaves are recognised by their fields
-(``planes``, ``bits``, ``qfn``, ``code_bits``, ``rot``, ...), never by
-importing quip_tpu. Layer-stacked leaves (the (L, ...) ``blocks`` subtree,
-including a packed leaf's (L,) ``scale_b`` and stacked ``rot`` arrays) are
-split per layer. Rotations must be materialised in the tree (``rot``): the
+children became numpy; or as ``pack.model.load_checkpoint`` reads it from
+disk (CPU tensors, ``PackedLeaf`` nodes). Packed leaves are recognised by
+their fields (``planes``, ``bits``, ``qfn``, ``code_bits``, ``rot``, ...),
+never by importing quip_tpu. Layer-stacked leaves (the (L, ...)
+``blocks`` subtree, including a packed leaf's (L,) ``scale_b`` and stacked
+``rot`` arrays) are split per layer. Rotations must be materialised in the tree (``rot``): the
 port does not regenerate JAX keys (core/incoherence.py).
 
 quip_tpu's cache containers (``KVCache``, ``PagedKV`` with or without int8
@@ -35,6 +36,12 @@ def _is_packed(obj: Any) -> bool:
     return all(hasattr(obj, f) for f in _PACKED_FIELDS)
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array or a tensor as a tensor (bf16 tensors have no numpy
+    form)."""
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+
+
 def _pick(t, layer: Optional[int]):
     """Layer ``layer`` of a stacked leaf (None: the leaf itself); keeps the
     ``()`` markers of absent rotation slots."""
@@ -52,7 +59,7 @@ def packed_from_numpy(obj, layer: Optional[int] = None,
         a = _pick(a, layer)
         if a is None or (isinstance(a, tuple) and not a):
             return a
-        t = torch.from_numpy(np.array(a))
+        t = _tensor(a)
         return t.to(device=device, dtype=dtype or t.dtype)
 
     if getattr(obj, "proj_key", None) is not None and obj.rot is None:
@@ -89,7 +96,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
             return None
         if _is_packed(a):
             return packed_from_numpy(a, layer, dev)
-        t = torch.from_numpy(np.array(_pick(a, layer)))
+        t = _tensor(_pick(a, layer))
         return t.to(device=dev, dtype=dtype or t.dtype)
 
     blocks = tree["blocks"]

@@ -12,7 +12,10 @@ package (and the parity tests) carry their materialised rotation arrays
 (``PackedLinear.rot``: signs / left / right) across as they are, and the
 port's own model constructor (models/build.py) draws fresh rotations
 from an explicit
-``torch.Generator``. A JAX ``proj_key`` cannot be regenerated here.
+``torch.Generator``. A JAX ``proj_key`` cannot be regenerated here. The
+port's quantizer draws each linear's (U, V) from a generator seeded with
+the run's seed and the linear's ``name_salt`` (quantize/driver.py), and
+the drawn transforms travel with the result (core/hessian.PreprocState).
 
 The butterfly modes (``apply_butterfly`` / ``gen_butterfly``) wait for a
 later slice.
@@ -23,6 +26,18 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+
+# the proj_modes whose rotation pair is an RHT (the port's only ones)
+RHT_MODES = ("rht", "rht_sf", "rht_uf")
+
+
+def check_rht_mode(mode: str) -> None:
+    """Raise for the butterfly modes, which are not ported yet."""
+    if mode not in RHT_MODES:
+        raise NotImplementedError(
+            f"proj_mode {mode!r}: butterfly modes are a later slice of the "
+            f"port (ROADMAP queue 1 item 6)")
 
 
 class RHT(NamedTuple):
@@ -136,3 +151,92 @@ def apply_rht(t: RHT, x: torch.Tensor, axis: int = 0,
         if s is not None:
             x = x * s
     return torch.movedim(x, -1, axis)
+
+
+def materialize_rht(t: RHT, dtype=torch.float32) -> torch.Tensor:
+    """Dense n x n matrix of T (tests / small dims)."""
+    eye = torch.eye(t.n, dtype=dtype, device=t.left.device)
+    return apply_rht(t, eye, axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Two-sided weight / Hessian rotations of incoherence preprocessing
+# (reference method.py:175-176: w -> U w Vᵀ, H -> V H Vᵀ)
+# ---------------------------------------------------------------------------
+
+
+def rht_rotate_weight(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    """w -> U w Vᵀ."""
+    w = apply_rht(u, w, axis=0)
+    return apply_rht(v, w, axis=1)
+
+
+def rht_rotate_hessian(v: RHT, H: torch.Tensor) -> torch.Tensor:
+    """H -> V H Vᵀ."""
+    H = apply_rht(v, H, axis=0)
+    return apply_rht(v, H, axis=1)
+
+
+def rht_unrotate_weight(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    """w -> Uᵀ w V (the exact inverse of rht_rotate_weight)."""
+    w = apply_rht(u, w, axis=0, transpose=True)
+    return apply_rht(v, w, axis=1, transpose=True)
+
+
+def rht_unrotate_hessian(v: RHT, H: torch.Tensor) -> torch.Tensor:
+    H = apply_rht(v, H, axis=0, transpose=True)
+    return apply_rht(v, H, axis=1, transpose=True)
+
+
+# ---------------------------------------------------------------------------
+# Outer-sign RHT (proj_mode 'rht_sf', the sign-folded serving format):
+# T = diag(s) · (L ⊗ R), signs in the rotated basis, so they fold into the
+# packed qfn-b codes (c -> maxq - c negates exactly) and serving runs the
+# pure Kronecker map. 'rht_uf' keeps the V side inner and moves only the
+# U-side signs outer (they fold into the code rows).
+# ---------------------------------------------------------------------------
+
+
+def _nosign(t: RHT) -> RHT:
+    return t._replace(signs=None)
+
+
+def rht_rotate_weight_outer(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    """w -> U w Vᵀ with U = diag(s_u)·K_u, V = diag(s_v)·K_v."""
+    w = apply_rht(_nosign(u), w, axis=0)
+    w = apply_rht(_nosign(v), w, axis=1)
+    return (w * u.signs.to(w.dtype)[:, None]) * v.signs.to(w.dtype)[None, :]
+
+
+def rht_unrotate_weight_outer(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    w = (w * u.signs.to(w.dtype)[:, None]) * v.signs.to(w.dtype)[None, :]
+    w = apply_rht(_nosign(u), w, axis=0, transpose=True)
+    return apply_rht(_nosign(v), w, axis=1, transpose=True)
+
+
+def rht_rotate_weight_uf(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    """Hybrid ('rht_uf'): U outer (diag(s_u)·K_u), V inner (K_v·diag(s_v))."""
+    w = apply_rht(v, w, axis=1)
+    w = apply_rht(_nosign(u), w, axis=0)
+    return w * u.signs.to(w.dtype)[:, None]
+
+
+def rht_unrotate_weight_uf(u: RHT, v: RHT, w: torch.Tensor) -> torch.Tensor:
+    w = w * u.signs.to(w.dtype)[:, None]
+    w = apply_rht(_nosign(u), w, axis=0, transpose=True)
+    return apply_rht(v, w, axis=1, transpose=True)
+
+
+def rht_rotate_hessian_outer(v: RHT, H: torch.Tensor) -> torch.Tensor:
+    """H -> V H Vᵀ = diag(s_v) K_v H K_vᵀ diag(s_v)."""
+    H = apply_rht(_nosign(v), H, axis=0)
+    H = apply_rht(_nosign(v), H, axis=1)
+    s = v.signs.to(H.dtype)
+    return (H * s[:, None]) * s[None, :]
+
+
+def rht_unrotate_hessian_outer(v: RHT, H: torch.Tensor) -> torch.Tensor:
+    s = v.signs.to(H.dtype)
+    H = (H * s[:, None]) * s[None, :]
+    H = apply_rht(_nosign(v), H, axis=0, transpose=True)
+    return apply_rht(_nosign(v), H, axis=1, transpose=True)

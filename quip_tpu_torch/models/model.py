@@ -56,21 +56,24 @@ def _set_linear(mod: nn.Module, name: str, w: Optional[Linear]) -> None:
 class Attention(nn.Module):
     """wqkv (fused) or wq/wk/wv, then wo; optional biases."""
 
+    NAMES = ("wqkv", "wq", "wk", "wv", "wo", "bqkv", "bq", "bk", "bv", "bo")
+
     def __init__(self, **weights):
         super().__init__()
         self.fused = "wqkv" in weights
-        for name in ("wqkv", "wq", "wk", "wv", "wo",
-                     "bqkv", "bq", "bk", "bv", "bo"):
+        for name in self.NAMES:
             _set_linear(self, name, weights.get(name))
 
 
 class MLP(nn.Module):
     """wgu (fused gate+up) or wg/wu, then wd."""
 
+    NAMES = ("wgu", "wg", "wu", "wd")
+
     def __init__(self, **weights):
         super().__init__()
         self.fused = "wgu" in weights
-        for name in ("wgu", "wg", "wu", "wd"):
+        for name in self.NAMES:
             _set_linear(self, name, weights.get(name))
 
 
@@ -221,7 +224,8 @@ def out_project(p: Attention, out: torch.Tensor) -> torch.Tensor:
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, mask: torch.Tensor,
               rope_cs=None, plen: Optional[torch.Tensor] = None,
-              cache: Optional[KVCache] = None):
+              cache: Optional[KVCache] = None,
+              taps: Optional[dict] = None):
     """Self-attention over the window x (B, S, D).
 
     ``mask`` (B, S, L) True = attend, L = S without a cache, else the
@@ -229,11 +233,14 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     is exactly causal & (key < plen): long prompts on the card then run the
     flash kernel (K2). With a ``cache`` the window's post-RoPE K/V rows are
     written into it at ``cache.length`` (in place; int8 caches quantise
-    them) and the window attends the whole cache. Returns (out (B, S, D),
-    kv): the cache with its length advanced, or without one the window's
-    (k, v) rows."""
+    them) and the window attends the whole cache. ``taps`` (a dict) records
+    the inputs of the projections, 'attn_in' and 'o_in', on both attention
+    paths. Returns (out (B, S, D), kv): the cache with its length advanced,
+    or without one the window's (k, v) rows."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    if taps is not None:
+        taps["attn_in"] = x
     q, k, v = qkv_project(p, x, cfg)
     cos, sin = rope_cs if rope_cs is not None else rope_tables(cfg, positions)
     q = apply_rope(q, cos, sin)
@@ -258,7 +265,10 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     if _flash_eligible(cfg, S, x, plen) and k_all.shape[1] == S:
         # blockwise over the FRESH k/v (the cache rows are already stored)
         out = flash_prefill_bshd(q, k, v, plen, scale=scale)
-        return out_project(p, out.reshape(B, S, H * hd)), kv
+        out = out.reshape(B, S, H * hd)
+        if taps is not None:
+            taps["o_in"] = out
+        return out_project(p, out), kv
 
     if KV != H:
         rep = H // KV
@@ -279,30 +289,43 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         # fold the V scales into the probabilities before the int8 dot
         probs = probs * vs_all.permute(0, 2, 1)[:, :, None, :].to(probs.dtype)
     out = torch.einsum("bhsl,blhd->bshd", probs, v_all.to(probs.dtype))
-    return out_project(p, out.reshape(B, S, H * hd)), kv
+    out = out.reshape(B, S, H * hd)
+    if taps is not None:
+        taps["o_in"] = out
+    return out_project(p, out), kv
 
 
-def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU MLP (the Llama family; Model rejects the others)."""
+def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
+        taps: Optional[dict] = None) -> torch.Tensor:
+    """SwiGLU MLP (the Llama family; Model rejects the others). ``taps``
+    records 'mlp_in' and 'down_in'."""
+    if taps is not None:
+        taps["mlp_in"] = x
     if p.fused:
         gu = linear_apply(p.wgu, x)
         g, u = gu[..., : cfg.d_ff], gu[..., cfg.d_ff:]
     else:
         g, u = linear_apply(p.wg, x), linear_apply(p.wu, x)
-    return linear_apply(p.wd, F.silu(g) * u)
+    h = F.silu(g) * u
+    if taps is not None:
+        taps["down_in"] = h
+    return linear_apply(p.wd, h)
 
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, mask: torch.Tensor, rope_cs=None,
                 plen: Optional[torch.Tensor] = None,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None, with_taps: bool = False):
     """One pre-norm decoder block. Returns (y, kv) with ``attention``'s kv
-    (the advanced cache, or the window's (k, v) rows)."""
+    (the advanced cache, or the window's (k, v) rows); with ``with_taps``
+    (y, kv, taps), taps holding each linear's input ('attn_in', 'o_in',
+    'mlp_in', 'down_in'): the calibration driver's Hessian sources."""
+    taps: Optional[dict] = {} if with_taps else None
     a, kv = attention(p.attn, norm(p.ln1, x, cfg), cfg, positions, mask,
-                      rope_cs, plen=plen, cache=cache)
+                      rope_cs, plen=plen, cache=cache, taps=taps)
     x = x + a
-    x = x + mlp(p.mlp, norm(p.ln2, x, cfg), cfg)
-    return x, kv
+    x = x + mlp(p.mlp, norm(p.ln2, x, cfg), cfg, taps)
+    return (x, kv, taps) if with_taps else (x, kv)
 
 
 # ---------------------------------------------------------------------------
@@ -371,3 +394,107 @@ def decode_step(params: Model, tokens: torch.Tensor, caches: KVCache,
                            cache=cache)
     logits = unembed(params, x, cfg)
     return logits[:, -1, :], caches._replace(length=caches.length + 1)
+
+
+# ---------------------------------------------------------------------------
+# Initialization and the linear-layer registry for quantization
+# ---------------------------------------------------------------------------
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device="cuda") -> Model:
+    """Dense random Llama (port of quip_tpu's ``init_params``, Llama
+    branch), un-fused (wq/wk/wv, wg/wu), in ``cfg.dtype``: linears are
+    normal · fan_in^-1/2, the embedding and lm_head normal · 0.02, the norms
+    ones. Drawn from ``gen`` on its own device (a CUDA generator for a
+    full-size model), then moved to ``device``, an entry point's: the card
+    by default. The same seed on another device gives other weights."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+
+    def normal(shape, std):
+        t = torch.randn(shape, generator=gen, device=gen.device) * std
+        return t.to(device=dev, dtype=dtype)
+
+    def lin(fan_in, fan_out):
+        return normal((fan_in, fan_out), fan_in ** -0.5)
+
+    ones = lambda: torch.ones(D, dtype=dtype, device=dev)  # noqa: E731
+    embed = normal((V, D), 0.02)
+    blocks = [
+        Block(ones(), ones(),
+              Attention(wq=lin(D, H * hd), wk=lin(D, KV * hd),
+                        wv=lin(D, KV * hd), wo=lin(H * hd, D)),
+              MLP(wg=lin(D, F_), wu=lin(D, F_), wd=lin(F_, D)))
+        for _ in range(cfg.n_layers)]
+    head = None if cfg.tie_word_embeddings else normal((D, V), 0.02)
+    return Model(cfg, embed, blocks, ones(), head)
+
+
+class LinearSpec(NamedTuple):
+    """One quantizable linear inside a block. name: HF-compatible dotted
+    name (reference find_layers keys, modelutils.py:7-16); path: attribute
+    path inside the Block; tap: the recorded activation that feeds it (its
+    Hessian source)."""
+
+    name: str
+    path: Tuple[str, ...]
+    tap: str
+
+
+def fuse_params(params: Model, cfg: ModelConfig) -> Model:
+    """A Model with q/k/v (and gate/up) concatenated into fused leaves
+    ``wqkv`` / ``wgu``: the same forward, one incoherence rotation and one
+    packed matmul per group once quantized. Norms and the embedding are
+    shared with ``params``."""
+    blocks = []
+    for b in params.blocks:
+        a, m = b.attn, b.mlp
+        attn = dict(wqkv=torch.cat([a.wq, a.wk, a.wv], dim=-1), wo=a.wo,
+                    bo=a.bo)
+        if a.bq is not None:
+            attn["bqkv"] = torch.cat([a.bq, a.bk, a.bv], dim=-1)
+        blocks.append(Block(b.ln1, b.ln2, Attention(**attn),
+                            MLP(wgu=torch.cat([m.wg, m.wu], dim=-1),
+                                wd=m.wd)))
+    return Model(cfg, params.embed_tokens, blocks, params.final_ln,
+                 params.lm_head)
+
+
+def replace_linears(b: Block, specs, new) -> Block:
+    """A Block with the linear w at each spec's path replaced by
+    ``new(spec, w)``, in the order of ``specs``; the norms and every other
+    weight are shared with ``b``."""
+    parts = {"attn": {k: getattr(b.attn, k) for k in Attention.NAMES},
+             "mlp": {k: getattr(b.mlp, k) for k in MLP.NAMES}}
+    for spec in specs:
+        grp, key = spec.path
+        parts[grp][key] = new(spec, parts[grp][key])
+    given = lambda d: {k: v for k, v in d.items()  # noqa: E731
+                       if v is not None}
+    return Block(b.ln1, b.ln2, Attention(**given(parts["attn"])),
+                 MLP(**given(parts["mlp"])))
+
+
+def linear_specs(cfg: ModelConfig, fused: bool = False) -> list:
+    """The quantizable linears of a block, in quantization order."""
+    check_supported(cfg)
+    if fused:
+        return [
+            LinearSpec("self_attn.qkv_proj", ("attn", "wqkv"), "attn_in"),
+            LinearSpec("self_attn.o_proj", ("attn", "wo"), "o_in"),
+            LinearSpec("mlp.gate_up_proj", ("mlp", "wgu"), "mlp_in"),
+            LinearSpec("mlp.down_proj", ("mlp", "wd"), "down_in"),
+        ]
+    return [
+        LinearSpec("self_attn.q_proj", ("attn", "wq"), "attn_in"),
+        LinearSpec("self_attn.k_proj", ("attn", "wk"), "attn_in"),
+        LinearSpec("self_attn.v_proj", ("attn", "wv"), "attn_in"),
+        LinearSpec("self_attn.o_proj", ("attn", "wo"), "o_in"),
+        LinearSpec("mlp.gate_proj", ("mlp", "wg"), "mlp_in"),
+        LinearSpec("mlp.up_proj", ("mlp", "wu"), "mlp_in"),
+        LinearSpec("mlp.down_proj", ("mlp", "wd"), "down_in"),
+    ]

@@ -18,6 +18,10 @@ from torch import nn
 
 from quip_tpu_torch.core import incoherence as inc
 
+# Packed-plane layout version, quip_tpu's: v2 = halfword-spread transposed
+# (nwords, m) planes. Checkpoints record it; loaders reject others.
+PACK_FORMAT_VERSION = 2
+
 # (field bit width, code-combine weight) per plane, keyed by total width
 PLANE_SPLITS = {
     2: ((2, 1),),
@@ -25,8 +29,6 @@ PLANE_SPLITS = {
     4: ((4, 1),),
     8: ((4, 1), (4, 16)),
 }
-
-_RHT_MODES = ("rht", "rht_sf", "rht_uf")
 
 
 def _to_int32(words: torch.Tensor) -> torch.Tensor:
@@ -179,44 +181,133 @@ class PackedLinear(nn.Module):
         return (f"{self.out_features}x{self.in_features}, {self.bits}-bit, "
                 f"qfn={self.qfn!r}, proj_mode={self.proj_mode!r}")
 
+    @property
+    def maxq(self) -> float:
+        return float(2 ** (self.code_bits or self.bits) - 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from quip_tpu_torch.ops.qlinear import qlinear_apply
         return qlinear_apply(self, x)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        """The dense Ŵ (m, d) in the original space (quip_tpu's
+        ``PackedLinear.dequantize``): codes -> grid values -> Uᵀ · V -> the
+        diagonal un-scale. Sign-folded modes carry no sign slot where the
+        signs live in the codes, so one un-rotation covers all three."""
+        codes = unpack_codes(self.planes, self.bits, self.in_features)
+        codes = codes[: self.out_features].to(dtype)
+        if self.qfn == "b":
+            W = ((codes / self.maxq) * 2 - 1) * self.scale_b.to(dtype)
+        else:
+            W = self.scale.to(dtype)[:, None] * (
+                codes - self.zero.to(dtype)[:, None])
+        if self.has_rot:
+            U, V = rot_to_butterflies(self)
+            W = inc.rht_unrotate_weight(U, V, W)
+        if self.scaleWH is not None:
+            W = W / self.scaleWH.to(dtype)[None, :]
+        return W
+
+
+def rotation_buffers(U: inc.RHT, V: inc.RHT, mode: str,
+                     scaleWH: Optional[torch.Tensor] = None,
+                     dtype=torch.float32, device=None):
+    """The runtime rotation components of the given pair (U, V) in
+    quip_tpu's ``rot`` layout (its materialize_rotation). 'rht': both sign
+    vectors, plus vin = signs_V/scaleWH (the diagonal un-scale and the
+    V-side sign flip in one vector); 'rht_sf': no sign slots (the signs
+    live in the codes), vin = 1/scaleWH or nothing; 'rht_uf': the U-side
+    signs in the code rows, the V side as 'rht'."""
+    inc.check_rht_mode(mode)
+    put = lambda t: t.to(dtype=dtype, device=device)  # noqa: E731
+    right = lambda t: () if t.right is None else put(t.right)  # noqa: E731
+    sWH = None if scaleWH is None else put(scaleWH)
+    if mode == "rht_sf":
+        return {"u": ((), put(U.left), right(U)),
+                "v": ((), put(V.left), right(V)),
+                "vin": () if sWH is None else 1.0 / sWH}
+    vs = put(V.signs)
+    vin = vs if sWH is None else vs / sWH
+    us = () if mode == "rht_uf" else put(U.signs)
+    return {"u": (us, put(U.left), right(U)),
+            "v": (vs, put(V.left), right(V)), "vin": vin}
 
 
 def materialize_rotation(gen: Optional[torch.Generator], m: int, d: int,
                          mode: str, dtype=torch.float32, device=None,
                          scaleWH: Optional[torch.Tensor] = None):
-    """Runtime rotation components in quip_tpu's ``rot`` layout, drawn from
-    ``gen`` (the RNG decision in core/incoherence.py). ``gen=None`` means
-    no rotation. 'rht': both sign vectors stay, plus vin = signs_V/scaleWH
-    (the diagonal un-scale and the V-side sign flip in one vector);
-    'rht_sf': no sign slots (the signs live in the codes), vin = 1/scaleWH
-    or nothing; 'rht_uf': U-side signs in the code rows, V side as 'rht'."""
+    """``rotation_buffers`` of a fresh pair (U, V) drawn from ``gen`` (the
+    RNG decision in core/incoherence.py); ``gen=None`` means no rotation.
+    For the random-code builder (models/build.py): a quantized layer packs
+    the pair it was quantized against (``pack_layer_result``)."""
     if gen is None:
         return None
-    if mode not in _RHT_MODES:
-        raise NotImplementedError(
-            f"proj_mode {mode!r}: butterfly modes are a later slice of the "
-            f"port (ROADMAP queue 1)")
+    inc.check_rht_mode(mode)
     U = inc.gen_rht(gen, m, dtype, device)
     V = inc.gen_rht(gen, d, dtype, device)
-    right = lambda t: () if t.right is None else t.right  # noqa: E731
-    if mode == "rht_sf":
-        return {"u": ((), U.left, right(U)), "v": ((), V.left, right(V)),
-                "vin": () if scaleWH is None else 1.0 / scaleWH.to(dtype)}
-    vin = V.signs if scaleWH is None else V.signs / scaleWH.to(V.signs.dtype)
-    us = () if mode == "rht_uf" else U.signs
-    return {"u": (us, U.left, right(U)), "v": (V.signs, V.left, right(V)),
-            "vin": vin}
+    return rotation_buffers(U, V, mode, scaleWH, dtype, device)
 
 
 def rot_to_butterflies(q: PackedLinear) -> Tuple[inc.RHT, inc.RHT]:
     """(U, V) transform views over the stored rotation buffers (RHT modes;
     absent sign slots stay None)."""
-    if q.proj_mode not in _RHT_MODES:
-        raise NotImplementedError(
-            f"proj_mode {q.proj_mode!r}: butterfly modes are a later slice "
-            f"of the port (ROADMAP queue 1)")
+    inc.check_rht_mode(q.proj_mode)
     return (inc.RHT(q.u_signs, q.u_left, q.u_right, q.out_features),
             inc.RHT(q.v_signs, q.v_left, q.v_right, q.in_features))
+
+
+def fold_rht_signs(codes: torch.Tensor, su: torch.Tensor, sv: torch.Tensor,
+                   bits: int) -> torch.Tensor:
+    """Fold the outer RHT sign vectors s_u (m,) and s_v (d,) into qfn-b
+    codes (proj_mode 'rht_sf'): entry (i, j) of the sign-stripped payload
+    differs from the quantized one by s_u[i]·s_v[j], and the symmetric grid
+    negates exactly under c -> maxq - c."""
+    neg = (su[:, None] * sv[None, :]) < 0
+    return torch.where(neg, (2 ** bits - 1) - codes, codes)
+
+
+def fold_rht_sign_rows(codes: torch.Tensor, su: torch.Tensor,
+                       bits: int) -> torch.Tensor:
+    """Row-only fold for 'rht_uf': only the U-side signs are outer."""
+    return torch.where(su[:, None] < 0, (2 ** bits - 1) - codes, codes)
+
+
+def pack_layer_result(res, bits: int,
+                      bias: Optional[torch.Tensor] = None) -> PackedLinear:
+    """A PackedLinear from a ``quantize_layer`` LayerQuantResult, on the
+    result's device. The rotation buffers are built from the result's own
+    (U, V), the pair the codes were quantized against."""
+    if res.codes is None:
+        raise ValueError(
+            "the method produced no integer codes to pack (gptq with qfn "
+            "'b' keeps a per-column scale; use a per-row grid)")
+    codes = res.codes.to(torch.int32)
+    m, d = codes.shape
+    st = res.preproc
+    if st.proj_mode in ("rht_sf", "rht_uf") and st.U is not None:
+        if res.qfnb_scale is None:
+            raise ValueError("sign folding needs the symmetric qfn-b grid "
+                             "(c -> maxq - c)")
+        su = st.U.signs.to(codes.device)
+        if st.proj_mode == "rht_sf":
+            codes = fold_rht_signs(codes, su, st.V.signs.to(codes.device),
+                                   bits)
+        else:
+            codes = fold_rht_sign_rows(codes, su, bits)
+    # qfn-b (scalar grid): pad out-features as quip_tpu does (padded_m);
+    # qfn-a keeps m (its per-row scale/zero would need padding too)
+    if res.qfnb_scale is not None:
+        mp = padded_m(m, d, bits)
+        if mp != m:
+            codes = torch.nn.functional.pad(codes, (0, 0, 0, mp - m))
+    f32 = lambda t: None if t is None else t.to(torch.float32)  # noqa: E731
+    g = res.grid
+    return PackedLinear(
+        pack_codes(codes, bits),
+        None if g is None else f32(g.scale).reshape(-1),
+        None if g is None else f32(g.zero).reshape(-1),
+        f32(res.qfnb_scale), f32(st.scaleWH), bias,
+        bits=bits, qfn="b" if res.qfnb_scale is not None else "a",
+        proj_mode=st.proj_mode, out_features=m, in_features=d,
+        rot=None if st.U is None else rotation_buffers(
+            st.U, st.V, st.proj_mode, st.scaleWH, device=codes.device))

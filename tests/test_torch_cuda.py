@@ -429,3 +429,64 @@ def test_capture_failure_raises(cuda):
                          capture_output=True, text=True, timeout=300)
     assert out.stdout.split()[:1] == ["raised"], (out.stdout, out.stderr)
     assert out.stdout.split()[2:] == ["2", "0"], out.stdout
+
+
+def _quant_case(cuda, m=512, d=1024, seed=0):
+    """A weight, a PSD Hessian (from 2d samples) and a drawn rotation."""
+    from quip_tpu_torch.quantize.pipeline import draw_rotation
+    g = torch.Generator().manual_seed(seed)
+    W = torch.randn(m, d, generator=g)
+    X = torch.randn(2 * d, d, generator=g)
+    H = X.t() @ X / (2 * d) + 0.01 * torch.eye(d)
+    rot = draw_rotation(torch.Generator().manual_seed(seed + 1), m, d)
+    return W, H, rot
+
+
+def test_quantize_layer_ignores_global_tf32(cuda):
+    """quantize_layer runs with TF32 off whatever the caller set, and
+    restores the caller's setting: with TF32 on globally the codes are the
+    ones of a run with it off."""
+    from quip_tpu_torch.quantize.config import QuantConfig
+    from quip_tpu_torch.quantize.pipeline import quantize_layer
+    W, H, rot = _quant_case(cuda)
+    cfg = QuantConfig.incoherence(2, "ldlq")
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        off = quantize_layer(W.to(cuda), H.to(cuda), cfg, rot=rot)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        on = quantize_layer(W.to(cuda), H.to(cuda), cfg, rot=rot)
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.set_float32_matmul_precision(old[1])
+    assert torch.equal(on.codes, off.codes)
+
+
+def test_ldl_factor_raises_on_singular_hessian(cuda):
+    """torch's Cholesky on the card reports failure through info (where
+    jnp.linalg.cholesky would return NaNs): the solver raises."""
+    from quip_tpu_torch.core.ldlq import ldl_factor
+    H = torch.ones(64, 64, device=cuda)
+    with pytest.raises(torch.linalg.LinAlgError, match="positive definite"):
+        ldl_factor(H)
+
+
+def test_quantize_layer_card_matches_cpu(cuda):
+    """One layer quantized on the card and on the CPU in f32: the same
+    rotation and inputs give at least 99.9 % equal codes (summation order
+    differs; a code within f32 rounding of a boundary may flip and feed
+    its row)."""
+    from quip_tpu_torch.quantize.config import QuantConfig
+    from quip_tpu_torch.quantize.pipeline import quantize_layer
+    W, H, rot = _quant_case(cuda, seed=3)
+    cfg = QuantConfig.incoherence(2, "ldlq")
+    cpu = quantize_layer(W, H, cfg, rot=rot)
+    card = quantize_layer(W.to(cuda), H.to(cuda), cfg, rot=rot)
+    share = (card.codes.cpu() == cpu.codes).float().mean().item()
+    assert share >= 0.999, share
+    assert abs(float(card.error) / float(cpu.error) - 1) < 1e-3
