@@ -10,8 +10,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
   2. K1 (dequant_matmul: the decode kernel K1-decode up to B = 8, the
      tile kernel K1-tile above, both on the tensor cores) against its plain
      version at the five 2-bit Llama-2-7B projection shapes (B = 1..4, 7, 8,
-     9, 16, 17, 32, 128, 600, 1000) and at small 3/4/8-bit, qfn-a and code_bits=3
-     shapes, two of them ragged and one that only K1-decode takes, f32 and
+     9, 16, 17, 32, 128, 600, 1000, 2048: the last one perplexity window's
+     rows) and at small 3/4/8-bit, qfn-a and code_bits=3 shapes, two of
+     them ragged and one that only K1-decode takes, f32 and
      bf16 x, each kernel forced past its threshold too, with kernel, plain,
      bound and library (torch.matmul of the dequantised bf16 weight) times,
      and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover);
@@ -57,7 +58,16 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      ratios on layers 0 and 31 and the head, K1 on the packed layers
      against the quantizer's f32 W_hat, a bit-exact checkpoint round trip,
      and the loaded checkpoint served by ``Engine.run`` (4 greedy requests)
-     with its first 600-token prefill held against the f32 W_hat forward.
+     with its first 600-token prefill held against the f32 W_hat forward;
+ 10. QuIP's evaluation stage on phase 9's checkpoint: perplexity of the
+     synthetic test stream (8 windows of 2048 tokens) through
+     ``cli/eval.main`` for the dense bf16 source and the packed 2-bit
+     checkpoint, seconds, tokens/s and launches a window (K1-tile at 2048
+     rows, K2 at S = 2048), one window of each profiled; the packed window
+     against the checkpoint unpacked to f32 and the dense one with K2
+     against dense attention; ``cli/zeroshot.main`` (synthetic, piqa,
+     arc_easy over synthetic docs), a few requests against the unpacked
+     model, and ``TorchLM.greedy_until`` through the Engine (K1-decode).
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -71,8 +81,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -230,7 +242,8 @@ def phase_k1(name: str):
     shapes = {"wqkv": (12288, 4096), "wo": (4096, 4096),
               "wgu": (22528, 4096), "wd": (4096, 11008),
               "lm_head": (32000, 4096)}
-    timed = (1, 2, 4, 8, 16, 32, 128, 600)
+    # 2048: the rows of one 2048-token perplexity window (phase 10)
+    timed = (1, 2, 4, 8, 16, 32, 128, 600, 2048)
     crossed = (1, 2, 4, 8, 16)
     rows = []
     zero_sums = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,  # noqa: E731
@@ -245,7 +258,7 @@ def phase_k1(name: str):
         copies = [planes_for(m, d, 2) for _ in range(ncopy)]
         W = DM.dequant_weight(copies[0], scale, None, bits=2,
                               d=d).to(torch.bfloat16)
-        for B in (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000):
+        for B in (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000, 2048):
             x = torch.randn(B, d, device=dev, generator=g).bfloat16()
             path, rel, rel16 = check(x, copies[0], scale, None, (sname, B),
                                      bits=2)
@@ -313,14 +326,16 @@ def phase_k1(name: str):
     RESULTS["k1"] = rows
     RESULTS["k1_sums"] = {str(B): t for B, t in sums.items()}
     RESULTS["k1_crossover"] = {str(B): c for B, c in cross.items()}
-    for B in (1, 600):          # one word for each summed row
+    for B in (1, 600, 2048):    # one word for each summed row
         assert len(bound_by[B]) == 1, (B, bound_by[B])
     k1 = dict(sums[1], max_rel_err=worst_rel["decode"],
               max_abs_err=worst["decode"], bound_by=bound_by[1].pop(),
               ms_b8=sums[8]["ms"], bound_ms_b8=sums[8]["bound_ms"],
               library_ms_b8=sums[8]["library_ms"])
     k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
-               max_abs_err=worst["tile"], bound_by=bound_by[600].pop())
+               max_abs_err=worst["tile"], bound_by=bound_by[600].pop(),
+               **{f"{k}_b2048": v for k, v in sums[2048].items()},
+               bound_by_b2048=bound_by[2048].pop())
     return k1, k1t
 
 
@@ -683,18 +698,23 @@ def _to_cpu_f32(model):
 
 
 @contextlib.contextmanager
-def fused_rht(on: bool):
-    """QUIP_FUSED_RHT=1 inside the block (ops/qlinear.py reads it at call
-    time), the caller's value restored after it."""
-    old = os.environ.get("QUIP_FUSED_RHT")
-    os.environ["QUIP_FUSED_RHT"] = "1" if on else "0"
+def _env(name: str, value: str):
+    """``name=value`` in the environment inside the block (the port reads
+    its switches at call time), the caller's value restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
     try:
         yield
     finally:
         if old is None:
-            del os.environ["QUIP_FUSED_RHT"]
+            del os.environ[name]
         else:
-            os.environ["QUIP_FUSED_RHT"] = old
+            os.environ[name] = old
+
+
+def fused_rht(on: bool):
+    """QUIP_FUSED_RHT=1 (or 0) inside the block."""
+    return _env("QUIP_FUSED_RHT", "1" if on else "0")
 
 
 def phase_slice(combos=((False, False), (True, True))):
@@ -764,6 +784,22 @@ def phase_slice(combos=((False, False), (True, True))):
     torch.cuda.empty_cache()
 
 
+def _zero_counts():
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
+    DM.launches = DM.launches_tile = DM.launches_decode = 0
+    FA.launches = K3.launches = 0
+
+
+def _read_counts() -> dict:
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.kernels import rht as K3
+    return dict(k1_tile=DM.launches_tile, k1_decode=DM.launches_decode,
+                k2=FA.launches, k3=K3.launches)
+
+
 def _run_engine(eng, reqs, cfg):
     """``eng.run(reqs)`` with every kernel's count set to 0 just before and
     read just after; checks finite logits, token ranges and lengths.
@@ -795,8 +831,7 @@ def _run_engine(eng, reqs, cfg):
     # and count per step there
     PG.paged_decode_step = checked(orig[0], decode=True)
     try:
-        DM.launches = DM.launches_tile = DM.launches_decode = 0
-        FA.launches = K3.launches = 0
+        _zero_counts()
         t = time.time()
         out = eng.run(reqs)
         torch.cuda.synchronize()
@@ -1059,8 +1094,7 @@ def _run_pump(eng, reqs, cfg, want):
     from quip_tpu_torch.kernels import flash_attn as FA
     from quip_tpu_torch.kernels import rht as K3
 
-    DM.launches = DM.launches_tile = DM.launches_decode = 0
-    FA.launches = K3.launches = 0
+    _zero_counts()
     chunks = eng._t_pump["chunks"]
     t = time.time()
     out = eng.run(reqs, chunked=True)
@@ -1188,9 +1222,7 @@ def _tap_hessians(model, cfg, tokens, flash: bool):
     or off (dense attention); returns (H by tap, K2 launches)."""
     from quip_tpu_torch.kernels import flash_attn as FA
     from quip_tpu_torch.quantize import driver as QD
-    old = os.environ.get("QUIP_FLASH_PREFILL")
-    os.environ["QUIP_FLASH_PREFILL"] = "1" if flash else "0"
-    try:
+    with _env("QUIP_FLASH_PREFILL", "1" if flash else "0"):
         n, S = tokens.shape
         accumulate, _ = QD._make_block_fns(cfg, S, n, tokens.device)
         H = {}
@@ -1199,26 +1231,20 @@ def _tap_hessians(model, cfg, tokens, flash: bool):
                    H)
         torch.cuda.synchronize()
         return H, FA.launches - k2
-    finally:
-        if old is None:
-            del os.environ["QUIP_FLASH_PREFILL"]
-        else:
-            os.environ["QUIP_FLASH_PREFILL"] = old
 
 
-def phase_quantize(name: str, smi: str):
+def phase_quantize(name: str, smi: str, ckpt: str):
     """Phase 9: QuIP's quantization path on a full-width random Llama-2-7B
     through the quantize CLI's calls (load_model with --weights random,
     fuse_params, get_data 'synthetic', quantize_model with
     QuantConfig.incoherence(2, 'ldlq') and quant_head, pack_quantized_model,
-    save_checkpoint); then the loaded checkpoint served by Engine.run."""
-    import tempfile
+    save_checkpoint into ``ckpt``, which phase 10 reads); then the loaded
+    checkpoint served by Engine.run."""
     from quip_tpu_torch.cli import common
     from quip_tpu_torch.cli import quantize as CLI
     from quip_tpu_torch.convert import params_from_numpy
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.kernels import flash_attn as FA
-    from quip_tpu_torch.kernels import rht as K3
     from quip_tpu_torch.models import model as TM
     from quip_tpu_torch.models import paged as PG
     from quip_tpu_torch.ops.qlinear import qlinear_apply
@@ -1273,8 +1299,7 @@ def phase_quantize(name: str, smi: str):
     sampled = [f"layers.{li}.{sp.name}"
                for li in sorted({0, cfg.n_layers - 1})
                for sp in TM.linear_specs(cfg, fused=True)] + ["lm_head"]
-    DM.launches = DM.launches_tile = DM.launches_decode = 0
-    FA.launches = K3.launches = 0
+    _zero_counts()
     t = time.time()
     newp, art = quantize_model(params, cfg, calib, qcfg, seed=args.seed,
                                chunk=args.chunk, keep_hessians=sampled,
@@ -1346,24 +1371,18 @@ def phase_quantize(name: str, smi: str):
     errors = dict(art.errors)
     del params, newp, art
     torch.cuda.empty_cache()
-    ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
-    try:
-        t = time.time()
-        save_checkpoint(ckpt, packed_model, {"model": args.model, "wbits": 2,
-                                             "quant": "ldlq", "packed": True,
-                                             "seqlen": seqlen})
-        save_s = time.time() - t
-        ckpt_mib = sum(os.path.getsize(os.path.join(ckpt, f))
-                       for f in os.listdir(ckpt)) / 2 ** 20
-        t = time.time()
-        tree, meta = load_checkpoint(ckpt)
-        assert meta["model"] == args.model and meta["packed"], meta
-        loaded = params_from_numpy(tree, cfg, device="cuda")
-        load_s = time.time() - t
-    finally:
-        for f in os.listdir(ckpt):
-            os.remove(os.path.join(ckpt, f))
-        os.rmdir(ckpt)
+    t = time.time()
+    save_checkpoint(ckpt, packed_model, {"model": args.model, "wbits": 2,
+                                         "quant": "ldlq", "packed": True,
+                                         "seqlen": seqlen})
+    save_s = time.time() - t
+    ckpt_mib = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt)) / 2 ** 20
+    t = time.time()
+    tree, meta = load_checkpoint(ckpt)
+    assert meta["model"] == args.model and meta["packed"], meta
+    loaded = params_from_numpy(tree, cfg, device="cuda")
+    load_s = time.time() - t
     want_sd, got_sd = packed_model.state_dict(), loaded.state_dict()
     assert list(want_sd) == list(got_sd), set(want_sd) ^ set(got_sd)
     for k, v in want_sd.items():
@@ -1405,17 +1424,10 @@ def phase_quantize(name: str, smi: str):
     torch.cuda.empty_cache()
     dense = unpack_model(loaded, torch.float32)
     del loaded
-    old = os.environ.get("QUIP_FLASH_PREFILL")
-    os.environ["QUIP_FLASH_PREFILL"] = "0"      # K2 takes bf16 only
-    try:
-        with torch.no_grad():
-            ref = TM.forward(dense, torch.tensor([prompts[600]],
-                                                 device="cuda"), cfg)[0, -1]
-    finally:
-        if old is None:
-            del os.environ["QUIP_FLASH_PREFILL"]
-        else:
-            os.environ["QUIP_FLASH_PREFILL"] = old
+    # K2 takes bf16 only
+    with _env("QUIP_FLASH_PREFILL", "0"), torch.no_grad():
+        ref = TM.forward(dense, torch.tensor([prompts[600]], device="cuda"),
+                         cfg)[0, -1]
     del dense
     torch.cuda.empty_cache()
     logit_err = _fro(first["logits"], ref)
@@ -1440,6 +1452,267 @@ def phase_quantize(name: str, smi: str):
     return RESULTS["quantize"]
 
 
+# Phase 10's tolerances, stated before its first run on the card. Mean nll
+# is in nats a predicted token. The packed window (bf16 activations through
+# K1-tile and K2) against the same checkpoint unpacked to f32 with dense
+# attention: 2e-2 (phase 9 holds served logits to 5e-2 of the f32 W_hat
+# forward, relative Frobenius; a window's mean averages 2047 such rows).
+# The dense bf16 model with K2 against dense attention: 1e-2 (the same
+# bf16 weights on both sides, only attention differs). A zero-shot request
+# through the kernels against the unpacked model, |diff ll| over its
+# continuation tokens: 1e-1. A request averages 5-30 tokens of one context,
+# whose errors move together, so it does not average like a window: a
+# token's log-prob moves with its logits, which phase 9 holds within 5e-2
+# (relative) of the f32 forward, and this model's logits have an RMS of
+# about 1.3 (unit-norm rows times an lm_head drawn at 0.02 over 4096
+# inputs): about 6.5e-2 a token, 1e-1 with room. (A first limit of 2e-2,
+# set as for the window, failed at 5.1e-2 on phase 9's checkpoint.)
+EVAL_NLL_TOL = 2e-2
+EVAL_FLASH_TOL = 1e-2
+EVAL_LL_TOL = 1e-1
+EVAL_TASKS = "synthetic,piqa,arc_easy"
+
+
+def _eval_cli(argv, fuse: bool = False) -> dict:
+    """``cli/eval.main(argv)``: its model kept (fused first when ``fuse``),
+    the kernels' counts set to 0 just before its ``perplexity`` call and
+    read just after, and that call's seconds."""
+    from quip_tpu_torch.cli import eval as ECLI
+    from quip_tpu_torch.eval import ppl as PPL
+    from quip_tpu_torch.models import model as TM
+
+    got = {}
+    load, perplexity = ECLI.load, PPL.perplexity
+
+    def loading(args):
+        params, cfg = load(args)
+        if fuse:
+            params = TM.fuse_params(params, cfg)
+        got.update(model=params, cfg=cfg)
+        return params, cfg
+
+    def scoring(params, cfg, stream, seqlen, batch=1):
+        torch.cuda.synchronize()
+        _zero_counts()
+        t = time.time()
+        out = perplexity(params, cfg, stream, seqlen, batch=batch)
+        torch.cuda.synchronize()
+        got.update(s=time.time() - t, counts=_read_counts(), stream=stream,
+                   seqlen=seqlen)
+        return out
+
+    ECLI.load, PPL.perplexity = loading, scoring
+    try:
+        got["ppl"] = ECLI.main(argv)
+    finally:
+        ECLI.load, PPL.perplexity = load, perplexity
+    return got
+
+
+def _window(model, cfg, tk) -> dict:
+    """One window's summed nll through ``window_nll``: host ms (the better
+    of two timed calls), then a profiled call's kernel ms, launches and the
+    device ms of K1-tile (``dm_prep`` + ``dm_tile``) and K2 (``flash_fwd``);
+    busy share = kernel ms over host ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from quip_tpu_torch.eval.ppl import window_nll
+
+    host = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            nll = float(window_nll(model, tk, cfg)[0])
+            host.append((time.perf_counter() - t) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window_nll(model, tk, cfg)
+            torch.cuda.synchronize()
+    dev_ms, launches, aten, top = _kernel_table(prof, 1, 6)
+    kern = [x for x in prof.key_averages() if x.device_type == DeviceType.CUDA]
+    dev_t = lambda x: getattr(x, "self_device_time_total",  # noqa: E731
+                              getattr(x, "self_cuda_time_total", 0))
+
+    def ms_of(*names):
+        return sum(dev_t(x) for x in kern
+                   if any(n in x.key for n in names)) / 1e3
+
+    host_ms = min(host)
+    return dict(nll=nll, host_ms=host_ms, device_ms=dev_ms,
+                kernel_launches=launches, aten_ops=aten, top=top,
+                k1_tile_ms=ms_of("dm_tile", "dm_prep"),
+                k2_ms=ms_of("flash_fwd"),
+                busy=dev_ms / host_ms if dev_ms else None)
+
+
+def _log_ppl_row(label: str, r: dict, nwin: int, seqlen: int):
+    w = r["window"]
+    share = (lambda ms: f"{ms / w['device_ms']:.1%}" if w["device_ms"]
+             else "not measured")
+    log(f"ppl {label}: {r['ppl']:.4f} over {nwin} windows of {seqlen} "
+        f"tokens in {r['s']:.2f} s ({r['tok_s']:.0f} tok/s); launches a "
+        f"window K1-tile {r['counts']['k1_tile'] / nwin:g}, K1-decode "
+        f"{r['counts']['k1_decode'] / nwin:g}, K2 {r['counts']['k2'] / nwin:g}"
+        f"; one window: {w['host_ms']:.1f} ms, {w['device_ms']:.2f} ms of "
+        f"kernels in {w['kernel_launches']:.0f} launches (K1-tile "
+        f"{w['k1_tile_ms']:.2f} ms = {share(w['k1_tile_ms'])}, K2 "
+        f"{w['k2_ms']:.2f} ms = {share(w['k2_ms'])}), busy "
+        + (f"{w['busy']:.1%}" if w["busy"] else "not measured"))
+    for key, ms, cnt in w["top"]:
+        log(f"  {key[:60]:60s} {ms:.3f} ms, {cnt:.0f} launches")
+
+
+def phase_eval(name: str, smi: str, ckpt: str):
+    """Phase 10: QuIP's evaluation stage at full width. Perplexity of the
+    synthetic test stream (8 windows of 2048 tokens) through cli/eval.main
+    for the dense bf16 source of phase 9's checkpoint (load_model with
+    --weights random --seed 0, fused) and for the packed 2-bit checkpoint
+    (--load); one window of each profiled; the packed window against the
+    checkpoint unpacked to f32 with dense attention, the dense window with
+    K2 against dense attention; then cli/zeroshot.main on the checkpoint
+    (synthetic, piqa, arc_easy over synthetic docs, the byte tokenizer), a
+    few of its requests against the unpacked model, and greedy_until on 4
+    prompts through the Engine (K1-decode)."""
+    from quip_tpu_torch.cli import zeroshot as ZCLI
+    from quip_tpu_torch.eval.ppl import window_nll
+    from quip_tpu_torch.eval.zeroshot.lm import ByteTokenizer, TorchLM
+    from quip_tpu_torch.pack.model import unpack_model
+
+    t_phase = time.time()
+    base = ["llama-2-7b", "synthetic", "--nsamples", str(QUANT_NSAMPLES),
+            "--seed", "0", "--device", "cuda"]
+    rows = {}
+
+    # --- perplexity: the dense bf16 source, then the packed checkpoint ----
+    dense = _eval_cli(base + ["--weights", "random"], fuse=True)
+    model, cfg = dense.pop("model"), dense.pop("cfg")
+    stream, seqlen = dense.pop("stream"), dense.pop("seqlen")
+    nwin = len(stream) // seqlen
+    assert (nwin, seqlen) == (8, 2048), (nwin, seqlen)
+    tk = torch.from_numpy(stream[:seqlen].astype(np.int64))[None].cuda()
+    dense["window"] = _window(model, cfg, tk)
+    with _env("QUIP_FLASH_PREFILL", "0"), torch.inference_mode():
+        nll_dense_attn = float(window_nll(model, tk, cfg)[0])
+    flash_d = abs(dense["window"]["nll"] - nll_dense_attn) / (seqlen - 1)
+    del model
+    torch.cuda.empty_cache()
+    assert dense["counts"] == dict(k1_tile=0, k1_decode=0, k2=32 * nwin,
+                                   k3=0), dense["counts"]
+
+    packed = _eval_cli(base + ["--load", ckpt])
+    model = packed.pop("model")
+    for k in ("cfg", "stream", "seqlen"):
+        packed.pop(k)
+    packed["window"] = _window(model, cfg, tk)
+    assert packed["counts"] == dict(k1_tile=129 * nwin, k1_decode=0,
+                                    k2=32 * nwin, k3=0), packed["counts"]
+    ref = unpack_model(model, torch.float32)
+    del model
+    torch.cuda.empty_cache()
+    with _env("QUIP_FLASH_PREFILL", "0"), torch.inference_mode():
+        nll_ref = float(window_nll(ref, tk, cfg)[0])
+    packed_d = abs(packed["window"]["nll"] - nll_ref) / (seqlen - 1)
+    for label, r in (("16-bit (dense bf16)", dense),
+                     ("2-bit packed", packed)):
+        r["tok_s"] = nwin * seqlen / r["s"]
+        assert math.isfinite(r["ppl"]) and r["ppl"] > 1, (label, r["ppl"])
+        _log_ppl_row(label, r, nwin, seqlen)
+        rows[label] = r
+    log(f"ppl window 0, mean nll a token: packed through the kernels "
+        f"{packed['window']['nll'] / (seqlen - 1):.5f}, unpacked f32 with "
+        f"dense attention {nll_ref / (seqlen - 1):.5f}: |diff| "
+        f"{packed_d:.2e} <= {EVAL_NLL_TOL:.0e}; dense bf16 with K2 against "
+        f"dense attention: |diff| {flash_d:.2e} <= {EVAL_FLASH_TOL:.0e}")
+    assert packed_d <= EVAL_NLL_TOL, packed_d
+    assert flash_d <= EVAL_FLASH_TOL, flash_d
+
+    # --- zero-shot through cli/zeroshot.main -------------------------------
+    box = {"reqs": [], "s": 0.0}
+    make_lm = ZCLI.make_lm
+
+    def making(params, cfg_, args):
+        lm = make_lm(params, cfg_, args)
+        score = lm.loglikelihood
+
+        def counted(reqs):
+            t = time.time()
+            out = score(reqs)
+            box["s"] += time.time() - t
+            box["reqs"] += reqs
+            return out
+
+        lm.loglikelihood = counted
+        box.update(lm=lm, score=score)
+        return lm
+
+    ZCLI.make_lm = making
+    _zero_counts()
+    t = time.time()
+    try:
+        res = ZCLI.main(["llama-2-7b", "--load", ckpt, "--tasks", EVAL_TASKS,
+                         "--synthetic_docs", "--limit", "8", "--batch_size",
+                         "4", "--device", "cuda"])
+    finally:
+        ZCLI.make_lm = make_lm
+    torch.cuda.synchronize()
+    zs = dict(s=time.time() - t, score_s=box["s"], counts=_read_counts(),
+              requests=len(box["reqs"]), results=res["results"])
+    zs["req_s"] = zs["requests"] / zs["score_s"]
+    lm = box["lm"]
+    assert isinstance(lm.tokenizer, ByteTokenizer), lm.tokenizer
+    assert sorted(res["results"]) == sorted(EVAL_TASKS.split(",")), res
+    assert zs["counts"]["k1_tile"] > 0, zs["counts"]
+    # a few requests against the unpacked model (per continuation token)
+    few = box["reqs"][:8]
+    got = box["score"](few)
+    want = TorchLM(ref, cfg, lm.tokenizer, batch_size=4).loglikelihood(few)
+    per_tok = [abs(g[0] - w[0]) / len(lm.tok_encode(c))
+               for g, w, (_, c) in zip(got, want, few)]
+    zs["ll_err_per_token"] = per_tok
+    del ref
+    torch.cuda.empty_cache()
+
+    prompts = ["The river ran past the mill", "Question: what is two and "
+               "two?\nAnswer:", "Once upon a time", "abc def ghi"]
+    _zero_counts()
+    t = time.time()
+    gen = lm.greedy_until([(p, ["\n\n"]) for p in prompts], max_gen_toks=16)
+    torch.cuda.synchronize()
+    zs.update(greedy_s=time.time() - t, greedy_counts=_read_counts(),
+              greedy=gen)
+    assert len(gen) == 4 and all(isinstance(g, str) for g in gen), gen
+    assert zs["greedy_counts"]["k1_decode"] >= 129 * 15, zs["greedy_counts"]
+    log(f"zero-shot (cli/zeroshot, {EVAL_TASKS}, synthetic docs, limit 8, "
+        f"batch 4, byte tokenizer): {zs['requests']} loglikelihood requests "
+        f"scored in {zs['score_s']:.2f} s ({zs['req_s']:.1f} requests/s; "
+        f"main {zs['s']:.1f} s with the checkpoint's load); launches K1-tile "
+        f"{zs['counts']['k1_tile']}, K1-decode {zs['counts']['k1_decode']}, "
+        f"K2 {zs['counts']['k2']}; results "
+        + json.dumps({k: {m: round(v, 4) for m, v in r.items()}
+                      for k, r in zs["results"].items()}))
+    log(f"zero-shot requests against the unpacked f32 model: |diff ll| a "
+        f"continuation token max {max(per_tok):.2e} <= {EVAL_LL_TOL:.0e} "
+        f"({len(few)} requests)")
+    assert max(per_tok) <= EVAL_LL_TOL, per_tok
+    log(f"greedy_until, 4 prompts, 16 new tokens, through the Engine: "
+        f"{zs['greedy_s']:.2f} s, launches K1-decode "
+        f"{zs['greedy_counts']['k1_decode']}, K1-tile "
+        f"{zs['greedy_counts']['k1_tile']}; {json.dumps(gen)}")
+    phase_s = time.time() - t_phase
+    log(f"phase 10: {phase_s:.1f} s; card: {smi}")
+    launches = {k: rows["2-bit packed"]["counts"][k]
+                + rows["16-bit (dense bf16)"]["counts"][k]
+                + zs["counts"][k] + zs["greedy_counts"][k]
+                for k in ("k1_tile", "k1_decode", "k2")}
+    RESULTS["eval"] = dict(ppl=rows, nll_packed_vs_unpacked=packed_d,
+                           nll_flash_vs_dense=flash_d, zeroshot=zs,
+                           launches=launches, phase_s=phase_s)
+    del lm, box
+    torch.cuda.empty_cache()
+    return RESULTS["eval"]
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1458,10 +1731,17 @@ def main():
         pump, dec = phase_pump(name, smi, model, cfg, prompts, base, conf)
     del model
     torch.cuda.empty_cache()
-    quant = phase_quantize(name, smi)
+    ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
+    try:
+        quant = phase_quantize(name, smi, ckpt)
+        with watchdog(600, "the evaluation phase"):
+            ev = phase_eval(name, smi, ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
     # from the fused / int8 / prefix Engine.run, K1' from the
-    # microbenchmark's path
+    # microbenchmark's path; launches_eval from phase 10's runs (both
+    # perplexity passes, cli/zeroshot and greedy_until)
     kernels = [
         dict(name="dequant_matmul_decode", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_decode.cu",
@@ -1472,6 +1752,7 @@ def main():
              launches_pump=pump["unfused"]["k1_decode"],
              launches_per_token_pump=dec[(False, 1)]["pump"]["per_step"][
                  "dm_decode"],
+             launches_eval=ev["launches"]["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
@@ -1484,17 +1765,24 @@ def main():
              launches=base["k1_tile"],
              launches_fused_int8_prefix=conf["k1_tile"],
              launches_quantized_serve=quant["serve"]["k1_tile"],
+             launches_eval=ev["launches"]["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
              library_ms=k1t["library_ms"], max_rel_err=k1t["max_rel_err"],
-             shape="sum over wqkv, wo, wgu, wd, lm_head at B=600"),
+             ms_b2048=k1t["ms_b2048"], plain_ms_b2048=k1t["plain_ms_b2048"],
+             bound_ms_b2048=k1t["bound_ms_b2048"],
+             bound_by_b2048=k1t["bound_by_b2048"],
+             library_ms_b2048=k1t["library_ms_b2048"],
+             shape="sum over wqkv, wo, wgu, wd, lm_head at B=600 (and "
+                   "B=2048, a perplexity window's rows)"),
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
              launches=base["k2"], launches_fused_int8_prefix=conf["k2"],
              launches_calibration=quant["k2_calibration"],
              launches_quantized_serve=quant["serve"]["k2"],
+             launches_eval=ev["launches"]["k2"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],

@@ -2,9 +2,10 @@
 data and quantization flags of quip_tpu's CLIs, with the port's ``--device``.
 
 Ported: ``--weights random`` (a dense random model from a seeded
-generator) and the ``synthetic`` dataset. A local Hugging Face directory
-waits for ``hf_import``, and the file datasets for their files (ROADMAP
-queue 1 item 8); both raise.
+generator), checkpoints of either package (``load_checkpoint_model``, for
+the CLIs' ``--load``) and the ``synthetic`` dataset. A local Hugging Face
+directory waits for ``hf_import``, and the file datasets for their files
+(ROADMAP queue 1 item 8); both raise.
 """
 from __future__ import annotations
 
@@ -100,6 +101,19 @@ def quant_config_from_args(args) -> QuantConfig:
         seed=args.seed)
 
 
+def model_config(args):
+    """(cfg, device) from the CLI's model flags: the preset with
+    ``--seqlen`` and ``--dtype`` (default bfloat16 on the card, float32 on
+    the CPU) applied; draws no weights."""
+    dev = resolve_device(args.device)
+    cfg = get_config(args.model)
+    if args.seqlen:
+        cfg = replace(cfg, max_seq=args.seqlen)
+    if args.dtype is None:
+        args.dtype = "bfloat16" if dev.type == "cuda" else "float32"
+    return replace(cfg, dtype=args.dtype), dev
+
+
 def load_model(args):
     """(Model, cfg) from the CLI's model flags, on ``--device``: a random
     model drawn from a generator on that device seeded with ``--seed``."""
@@ -108,15 +122,20 @@ def load_model(args):
             f"--weights {args.weights!r}: loading Hugging Face checkpoints "
             f"(models/hf_import.py) is not ported yet (ROADMAP queue 1 "
             f"item 8); use --weights random")
-    dev = resolve_device(args.device)
-    cfg = get_config(args.model)
-    if args.seqlen:
-        cfg = replace(cfg, max_seq=args.seqlen)
-    if args.dtype is None:
-        args.dtype = "bfloat16" if dev.type == "cuda" else "float32"
-    cfg = replace(cfg, dtype=args.dtype)
+    cfg, dev = model_config(args)
     gen = torch.Generator(device=dev).manual_seed(getattr(args, "seed", 0))
     return M.init_params(gen, cfg, device=dev), cfg
+
+
+def load_checkpoint_model(args):
+    """(Model, cfg, meta) from the checkpoint at ``--load`` (written by
+    either package), on ``--device``; cfg as ``model_config`` gives it,
+    with no random model drawn first. Leaves keep their stored dtypes."""
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.pack.model import load_checkpoint
+    cfg, dev = model_config(args)
+    tree, meta = load_checkpoint(args.load)
+    return params_from_numpy(tree, cfg, device=dev), cfg, meta
 
 
 def get_data(args, cfg):

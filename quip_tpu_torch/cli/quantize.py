@@ -7,12 +7,14 @@ Example (a full-width random Llama-2-7B on the card):
       --quant_head --packed --save DIR
 
 The checkpoint is quip_tpu's format (pack/model.py); either package reads
-it. ``--dp``, ``--trace``, ``--host_offload``, ``--resume_dir`` and
-``--eval`` are not ported yet and raise.
+it. ``--eval`` scores the dense quantized model's perplexity on the test
+stream afterwards. ``--dp``, ``--trace``, ``--host_offload`` and
+``--resume_dir`` are not ported yet and raise.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import torch
@@ -30,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--packed", action="store_true",
                    help="save packed int codes instead of dequantized dense")
     p.add_argument("--eval", action="store_true",
-                   help="perplexity after quantizing (not ported yet)")
+                   help="run perplexity after quantizing (opt.py:648-656)")
     p.add_argument("--chunk", type=int, default=4)
     p.add_argument("--proxy_only", action="store_true",
                    help="report proxy losses only, skip final eval")
@@ -56,14 +58,13 @@ def check_args(p: argparse.ArgumentParser, args) -> None:
                 "of the two flags.")
     waiting = {"--dp": args.dp > 1, "--trace": args.trace,
                "--host_offload": args.host_offload,
-               "--resume_dir": args.resume_dir,
-               "--eval": args.eval and not args.proxy_only}
+               "--resume_dir": args.resume_dir}
     asked = [flag for flag, on in waiting.items() if on]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported yet (ROADMAP queue 1 item 8 "
-            f"for --host_offload/--resume_dir, item 9 for --dp, --trace "
-            f"and --eval)")
+            f"for --host_offload/--resume_dir, item 9 for --dp and "
+            f"--trace)")
 
 
 def main(argv=None):
@@ -77,7 +78,7 @@ def main(argv=None):
     if args.fuse:
         from quip_tpu_torch.models import model as M
         params = M.fuse_params(params, cfg)
-    (calib, _), seqlen = common.get_data(args, cfg)
+    (calib, test_stream), seqlen = common.get_data(args, cfg)
     qcfg = common.quant_config_from_args(args)
 
     from quip_tpu_torch.quantize.driver import quantize_model
@@ -99,6 +100,11 @@ def main(argv=None):
             "packed": bool(args.packed), "seqlen": seqlen,
         })
         print(f"saved checkpoint to {args.save}")
+
+    if args.eval and not args.proxy_only:
+        from quip_tpu_torch.eval.ppl import perplexity
+        ppl = perplexity(newp, cfg, test_stream, seqlen)
+        print(json.dumps({"dataset": args.dataset, "ppl": ppl}))
     return newp, art
 
 

@@ -490,3 +490,34 @@ def test_quantize_layer_card_matches_cpu(cuda):
     share = (card.codes.cpu() == cpu.codes).float().mean().item()
     assert share >= 0.999, share
     assert abs(float(card.error) / float(cpu.error) - 1) < 1e-3
+
+
+def test_ppl_window_packed_matches_unpacked(cuda, monkeypatch):
+    """One 2048-token perplexity window of a 2-layer full-width 2-bit
+    Llama-2-7B (packed lm_head) through the kernels: 9 K1-tile launches at
+    2048 rows and 2 K2 launches at S = 2048; its mean nll a token within
+    2e-2 nats of the same weights unpacked to f32 with dense attention
+    (bf16 activations against f32)."""
+    import dataclasses
+
+    from quip_tpu_torch.eval.ppl import window_nll
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.pack.model import unpack_model
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
+    model = packed_llama(cfg, bits=2, seed=4, dtype=torch.bfloat16,
+                         head_bits=2, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    tk = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g).to(cuda)
+    t0, d0, k2 = DM.launches_tile, DM.launches_decode, FA.launches
+    with torch.inference_mode():
+        got = window_nll(model, tk, cfg)
+    torch.cuda.synchronize()
+    assert (DM.launches_tile - t0, DM.launches_decode - d0,
+            FA.launches - k2) == (4 * 2 + 1, 0, 2)
+    ref_model = unpack_model(model, torch.float32)
+    monkeypatch.setenv("QUIP_FLASH_PREFILL", "0")
+    with torch.inference_mode():
+        want = window_nll(ref_model, tk, cfg)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert abs(float(got[0] - want[0])) / 2047 <= 2e-2
