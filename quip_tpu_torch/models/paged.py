@@ -413,9 +413,11 @@ def paged_decode_step(params: M.Model, tokens: torch.Tensor,
 
 def flush_hot(caches: PagedKV) -> PagedKV:
     """Append each slot's hot ring into the frozen arena at its base, in
-    place. Rows past hot_len are garbage but land at >= the new base, which
-    masks and later flushes overwrite. Slots must keep base + hot <=
-    capacity (callers retire them earlier)."""
+    place, the cursors on the host: a slice copy a slot, queued without a
+    host-to-device copy of the cursors (which would wait for the stream).
+    Rows past hot_len are garbage but land at >= the new base, which masks
+    and later flushes overwrite. Slots must keep base + hot <= capacity
+    (callers retire them earlier)."""
     P = caches.hot_size
     for b, at in enumerate(caches.base.tolist()):
         if at + P > caches.capacity:
@@ -428,6 +430,32 @@ def flush_hot(caches: PagedKV) -> PagedKV:
             caches.vs[:, b, at:at + P] = caches.hot_vs[:, b]
     return caches._replace(base=caches.base + caches.hot_len,
                            hot_len=torch.zeros_like(caches.hot_len))
+
+
+def flush_hot_dev(caches: PagedKV, advance: bool = True) -> None:
+    """The flush with nothing read back, so the cursors may lie on the
+    device: every slot's whole ring lands at base..base+hot-1 through one
+    indexed write a tensor, then (``advance``) base += hot_len and hot_len
+    = 0 in the cursor tensors themselves. Caches that share one cursor pair
+    (a speculative engine's draft and target) flush the others with
+    ``advance=False`` first. Rows are clamped to the arena: a live slot
+    keeps base + hot <= capacity (the engine retires it earlier), and only
+    a free slot's frozen cursors could reach past it, onto its own dead
+    rows."""
+    B, P = caches.hot_k.shape[1], caches.hot_size
+    dev = caches.k.device
+    rows = (caches.base.to(dev, torch.int64)[:, None]
+            + torch.arange(P, device=dev)[None, :]).clamp_(
+                max=caches.capacity - 1)
+    slot = torch.arange(B, device=dev)[:, None].expand(B, P)
+    caches.k[:, slot, rows] = caches.hot_k
+    caches.v[:, slot, rows] = caches.hot_v
+    if caches.quantized:
+        caches.ks[:, slot, rows] = caches.hot_ks
+        caches.vs[:, slot, rows] = caches.hot_vs
+    if advance:
+        caches.base.add_(caches.hot_len)
+        caches.hot_len.zero_()
 
 
 def _prompt_kv(params: M.Model, tokens: torch.Tensor, plen: torch.Tensor,
@@ -468,6 +496,25 @@ def _store_kv(caches: PagedKV, ks, vs, slot: int) -> None:
             v, caches.vs[l, slot, :S] = M.quantize_kv(v)
         caches.k[l, slot, :S] = k.to(caches.k.dtype)
         caches.v[l, slot, :S] = v.to(caches.v.dtype)
+
+
+def paged_prefill(params: M.Model, tokens: torch.Tensor, plen,
+                  caches: PagedKV, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, PagedKV]:
+    """Prefill ALL slots with right-padded prompts (quip_tpu's
+    ``paged_prefill``). tokens (B, S), plen (B,) real lengths. Returns (the
+    last real positions' logits (B, V), caches with base = plen and
+    hot_len = 0, on the host). Padded rows land at >= base and are masked."""
+    B, S = tokens.shape
+    if S > caches.capacity:
+        raise ValueError(f"prompt of {S} exceeds capacity {caches.capacity}")
+    plen = torch.as_tensor(plen, dtype=torch.int32).reshape(B)
+    logits, ks, vs = _prompt_kv(params, tokens, plen, cfg)
+    for b in range(B):
+        _store_kv(caches, [k[b:b + 1] for k in ks], [v[b:b + 1] for v in vs],
+                  b)
+    return logits, caches._replace(base=plen.cpu().clone(),
+                                   hot_len=torch.zeros(B, dtype=torch.int32))
 
 
 def paged_prefill_slot(params: M.Model, tokens: torch.Tensor, plen: int,

@@ -29,9 +29,18 @@ attends it first, and its own prompt streams through the hot ring in
 power-of-two append windows, since the plain prefill cannot attend the
 prefix rows.
 
+``draft=(draft_model, draft_cfg)`` makes the engine speculative, as
+quip_tpu's is: each loop runs draft-and-verify iterations of ``spec_k``
+tokens (serve/speculative.py) over a draft cache that shares the target's
+cursors. The spec pump keeps those cursors on the device while its chunks
+are in flight (the host holds upper bounds), freezes free slots with an
+active mask, and replays each spec chunk shape as one CUDA graph.
+``stream`` yields one request's tokens as they come; serve/server.py is
+the HTTP front end.
+
 Not ported yet (ROADMAP): the non-paged arena path (this Engine is paged
-only), the speculative pump, ``stream``, the server, mesh sharding, and
-the 3-bit 3-in-4 widening (a 3-bit model runs as two planes).
+only), mesh sharding, and the 3-bit 3-in-4 widening (a 3-bit model runs as
+two planes).
 """
 from __future__ import annotations
 
@@ -47,6 +56,7 @@ from quip_tpu_torch.models import paged as PG
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.models.model import Model
 from quip_tpu_torch.ops.qlinear import _fused_rht_enabled
+from quip_tpu_torch.serve import speculative as SP
 from quip_tpu_torch.serve.graphs import ChunkGraphs
 
 
@@ -156,11 +166,19 @@ class Engine:
                  cache_dtype=torch.float32, kv_quant: bool = False,
                  hot: int = 32, page: int = 64, seed: int = 0,
                  shared_prefix=None, admit_limit: Optional[int] = None,
-                 pipeline_depth: int = 2, device="cuda"):
+                 pipeline_depth: int = 2, draft=None, spec_k: int = 4,
+                 device="cuda"):
         """``admit_limit`` caps the prefills per scheduling boundary while
         decode is ongoing (None: fill every free slot); ``pipeline_depth``
         chunks stay in flight before the pump commits the oldest (both as
-        in quip_tpu)."""
+        in quip_tpu).
+
+        draft=(draft_model, draft_cfg) makes the engine speculative: each
+        iteration drafts ``spec_k`` tokens a slot and verifies them in one
+        target append (serve/speculative.py). Greedy requests emit exactly
+        the target's greedy tokens; sampled ones go through rejection
+        sampling. A self-draft (``make_self_draft``) shares the target's
+        tensors, and moving it to the device copies nothing."""
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
@@ -176,6 +194,9 @@ class Engine:
         self._req_time_sum = 0.0
         self.hot = min(hot, max_seq)
         self.page = page
+        self.spec = draft is not None
+        if self.spec and spec_k >= self.hot:
+            raise ValueError(f"spec_k={spec_k} must be < hot={self.hot}")
         # capacity = max_seq + hot so a flush always fits (base <= max_seq)
         self.pkv = PG.init_paged(max_batch, max_seq + self.hot, cfg,
                                  dtype=cache_dtype, quantized=kv_quant,
@@ -188,9 +209,9 @@ class Engine:
         self.prefix = None
         self._prefix_on = np.zeros(max_batch, np.int32)
         if shared_prefix is not None:
+            self._prefix_tokens = np.asarray(shared_prefix, np.int64)
             _, self.prefix = PG.build_prefix(
-                self.params, np.asarray(shared_prefix, np.int64), cfg,
-                quantized=kv_quant)
+                self.params, self._prefix_tokens, cfg, quantized=kv_quant)
 
         self.admit_limit = admit_limit
         # the overlapped loop (pump): dispatched-but-uncommitted chunks,
@@ -227,10 +248,61 @@ class Engine:
         self._first_buf = torch.zeros(B, dtype=torch.int64, device=dev)
         self._front_mask = torch.zeros(B, dtype=torch.bool, device=dev)
         self._graphs = ChunkGraphs(dev, self.gen_dev)
+        self.accept_hist: List[int] = []   # spec: tokens emitted a step
+        self._spec_stale = False
+        if self.spec:
+            self._init_spec(draft, spec_k, cache_dtype, kv_quant)
+
+    def _init_spec(self, draft, spec_k: int, cache_dtype, kv_quant: bool):
+        """The draft's cache (same capacity, ring and page as the
+        target's, so one pair of cursors serves both), its shared prefix
+        built through its own weights, and the spec pump's state."""
+        dmodel, self.draft_cfg = draft
+        self.draft_params = dmodel.to(self.device)
+        self.spec_k = spec_k
+        B, dev = self.max_batch, self.device
+        self.dkv = PG.init_paged(B, self.pkv.capacity, self.draft_cfg,
+                                 dtype=cache_dtype, quantized=kv_quant,
+                                 hot=self.hot, page=self.page, device=dev)
+        self.dprefix = None
+        if self.prefix is not None:
+            _, self.dprefix = PG.build_prefix(
+                self.draft_params, self._prefix_tokens, self.draft_cfg,
+                quantized=kv_quant)
+        # device-authoritative cursors (the overlapped spec pump): a spec
+        # chunk advances each slot by its acceptance counts, so while
+        # chunks are in flight the device cursors (_base_d, _hot_d) are the
+        # truth (_spec_stale) and the host keeps upper bounds: _ub_hot on
+        # hot_len (dispatch adds S*K for the active slots, a commit takes
+        # back its measured slack, a flush zeroes it) and _base_ub on base
+        # (a flush adds _ub_hot; a commit after that flush takes the slack
+        # back there). They size the ring's room and the page bucket.
+        self._ub_hot = np.zeros(B, np.int64)
+        self._base_ub = np.zeros(B, np.int64)
+        self._flush_epoch = 0
+        self._act_d = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._tks_d = torch.zeros(B, dtype=torch.int64, device=dev)
 
     def _sync_pkv(self) -> PG.PagedKV:
-        return self.pkv._replace(base=torch.from_numpy(self._base.copy()),
-                                 hot_len=torch.from_numpy(self._hotlen.copy()))
+        return self._with_cursors(self.pkv)
+
+    def _sync_dkv(self) -> PG.PagedKV:
+        return self._with_cursors(self.dkv)
+
+    def _with_cursors(self, caches: PG.PagedKV) -> PG.PagedKV:
+        """A cache with the authoritative cursors: the device buffers while
+        spec chunks are in flight, else copies of the host's."""
+        if self._spec_stale:
+            return caches._replace(base=self._base_d, hot_len=self._hot_d)
+        return caches._replace(base=torch.from_numpy(self._base.copy()),
+                               hot_len=torch.from_numpy(self._hotlen.copy()))
+
+    def _spec_prefix_args(self) -> Dict[str, Any]:
+        """The prefix arguments of a host-cursor spec step."""
+        if self.prefix is None:
+            return {}
+        return dict(d_prefix=self.dprefix, t_prefix=self.prefix,
+                    prefix_on=torch.from_numpy(self._prefix_on.copy()))
 
     def _prefix_args(self) -> Dict[str, Any]:
         """The prefix arguments of a paged step ({} without a prefix)."""
@@ -249,10 +321,25 @@ class Engine:
         dst.copy_(src, non_blocking=True)
 
     def _flush_now(self):
+        if self._spec_stale:
+            # at the device cursors, in stream order behind the chunks in
+            # flight; the draft's ring first, before the cursors move
+            PG.flush_hot_dev(self._sync_dkv(), advance=False)
+            PG.flush_hot_dev(self._sync_pkv())
+            self._base_ub += self._ub_hot
+            self._ub_hot[:] = 0
+            self._flush_epoch += 1
+            return
         self.pkv = PG.flush_hot(self._sync_pkv())
+        if self.spec:
+            self.dkv = PG.flush_hot(self._sync_dkv())
         self._base += self._hotlen
         self._hotlen[:] = 0
         self._cursors_dirty = True
+        if self.spec:
+            self._base_ub[:] = self._base
+            self._ub_hot[:] = 0
+            self._flush_epoch += 1
 
     def _maybe_flush(self):
         if int(self._hotlen.max()) >= self.hot:
@@ -295,6 +382,11 @@ class Engine:
                 k: (round(v * 1e3 / n, 2) if k != "steps" else v)
                 for k, v in self._t_pump.items() if k != "chunks"}
             out["pump_chunks"] = n
+        if self.spec and self.accept_hist:
+            out["spec_emitted_mean"] = float(np.mean(self.accept_hist))
+            out["spec_emitted_hist"] = np.bincount(
+                np.asarray(self.accept_hist),
+                minlength=self.spec_k + 1).tolist()
         return out
 
     def _take_tokens(self, req: Request, toks) -> tuple:
@@ -352,7 +444,11 @@ class Engine:
         A last window that fills the ring exactly is flushed before
         returning: the decode step that follows needs a free row.
         (quip_tpu's ``_admit_with_prefix`` returns with the ring full there
-        and its next step writes past the ring; ROADMAP queue 3.)"""
+        and its next step writes past the ring; ROADMAP queue 3.) A spec
+        engine streams the same windows through the draft's cache (its
+        logits unused): both caches share the cursors, which are the
+        host's here (the spec pump drains before a prefix admission)."""
+        assert not self._spec_stale
         self._base[i] = 0
         self._hotlen[i] = 0
         self._prefix_on[i] = 1
@@ -371,11 +467,19 @@ class Engine:
                 S //= 2
             window = np.zeros((self.max_batch, S), np.int64)
             window[i, :n] = req.prompt[pos:pos + n]
+            window = torch.from_numpy(window).to(self.device)
             caches = self._sync_pkv()
             logits_w, hot = PG.paged_append_step(
-                self.params, torch.from_numpy(window).to(self.device),
-                caches, self.cfg, page=self.page, **self._prefix_args())
+                self.params, window, caches, self.cfg, page=self.page,
+                **self._prefix_args())
             self.pkv = PG.advance(caches, hot)
+            if self.spec:
+                dcaches = self._sync_dkv()
+                _, d_hot = PG.paged_append_step(
+                    self.draft_params, window, dcaches, self.draft_cfg,
+                    page=self.page, prefix=self.dprefix,
+                    prefix_on=torch.from_numpy(self._prefix_on.copy()))
+                self.dkv = PG.advance(dcaches, d_hot)
             self._hotlen[i] += n           # only this slot really advanced
             pos += n
             logits_last = logits_w[i, n - 1]
@@ -425,12 +529,25 @@ class Engine:
                 else:
                     plen = len(req.prompt)
                     tokens = torch.from_numpy(
-                        req.prompt.astype(np.int64))[None]
+                        req.prompt.astype(np.int64))[None].to(self.device)
                     logits, self.pkv = PG.paged_prefill_slot(
-                        self.params, tokens.to(self.device), plen,
-                        self._sync_pkv(), i, self.cfg)
+                        self.params, tokens, plen, self._sync_pkv(), i,
+                        self.cfg)
+                    if self.spec:
+                        _, self.dkv = PG.paged_prefill_slot(
+                            self.draft_params, tokens, plen,
+                            self._sync_dkv(), i, self.draft_cfg)
                     self._base[i] = plen
                     self._hotlen[i] = 0
+                    if self._spec_stale:
+                        # the device cursors are the truth: reset this
+                        # slot's there, in stream order behind the chunks
+                        # in flight (which may still move them)
+                        self._base_d[i] = plen
+                        self._hot_d[i] = 0
+                        self._pre_d[i] = 0
+                        self._base_ub[i] = plen
+                        self._ub_hot[i] = 0
                 if async_first and not req.use_prefix:
                     self._first_buf[i] = self._first_token(logits, req)
                     self._front_mask[i] = True
@@ -446,9 +563,64 @@ class Engine:
                 if req.stop and tok in req.stop:
                     self._retire_slot(i)
 
+    def _step_spec(self) -> None:
+        """One speculative iteration (the serial loop): admit, draft and
+        verify up to spec_k tokens a slot on the host's cursors, retire
+        finished requests. Sampled slots draw from the CPU generator."""
+        self._drain_pipeline()
+        self._admit()
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        if not active:
+            return
+        K = self.spec_k
+        if int(self._hotlen.max()) + K > self.hot:
+            self._flush_now()
+        last = np.zeros((self.max_batch, 1), np.int64)
+        for i in active:
+            last[i, 0] = self._slots[i].generated[-1]
+        temps, tks, tps = self._sampling_arrays(active)
+        dev = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        args = (self.draft_params, self.params, dev(last), self._sync_dkv(),
+                self._sync_pkv(), self.draft_cfg, self.cfg, K)
+        kw = dict(page=self.page, **self._spec_prefix_args())
+        if (temps > 0).any():
+            emitted, n_emit, _, _ = SP.spec_sample_step(
+                *args, self.gen, dev(temps), dev(tks) if tks.any() else None,
+                dev(tps) if (tps < 1.0).any() else None, **kw)
+        else:
+            emitted, n_emit, _, _ = SP.spec_decode_step(*args, **kw)
+        em, ne = emitted.cpu().numpy(), n_emit.cpu().numpy()
+        self._cursors_dirty = True
+        self.accept_hist.extend(int(ne[i]) for i in active)
+        for i in active:
+            req = self._slots[i]
+            # truncating keeps the host cursors exact: rows past hot_len
+            # are dead
+            toks = [int(t) for t in em[i, :ne[i]]]
+            take, stopped = self._take_tokens(req, toks)
+            req.generated.extend(toks[:take])
+            self._hotlen[i] += take
+            if (stopped or len(req.generated) >= req.max_new_tokens + 1
+                    or self._base[i] + self._hotlen[i] >= self.max_seq - 1):
+                self._retire_slot(i)
+
+    def _sampling_arrays(self, active: List[int]):
+        """Per-slot (temps, top_ks, top_ps) of the active slots; free slots
+        greedy and unfiltered."""
+        temps = np.zeros((self.max_batch,), np.float32)
+        tks = np.zeros((self.max_batch,), np.int64)
+        tps = np.ones((self.max_batch,), np.float32)
+        for i in active:
+            temps[i] = self._slots[i].temperature
+            tks[i] = self._slots[i].top_k
+            tps[i] = self._slots[i].top_p
+        return temps, tks, tps
+
     def step(self) -> None:
         """One continuous-batching iteration: admit, decode one token for
         all active slots, retire finished requests, flush a full ring."""
+        if self.spec:
+            return self._step_spec()
         self._drain_pipeline()
         self._admit()
         active = [i for i, r in enumerate(self._slots) if r is not None]
@@ -463,11 +635,7 @@ class Engine:
             self.cfg, page=self.page, **self._prefix_args())
         self.pkv = PG.advance(caches, hot)
         self._cursors_dirty = True      # the host advanced active slots only
-        temps = np.zeros((self.max_batch,), np.float32)
-        tops = np.ones((self.max_batch,), np.float32)
-        for i in active:
-            temps[i] = self._slots[i].temperature
-            tops[i] = self._slots[i].top_p
+        temps, _, tops = self._sampling_arrays(active)
         # per-slot top_k: sample per distinct k over the full (B, V)
         toks = np.zeros((self.max_batch,), np.int64)
         top_p_any = any(tops[i] < 1.0 for i in active)
@@ -535,11 +703,7 @@ class Engine:
         never adds again)."""
         # the ring must hold the chunk (models/paged._step_ctx_dev)
         assert int(self._hotlen.max()) + T <= self.hot, (self._hotlen, T)
-        temps = np.zeros((self.max_batch,), np.float32)
-        tops = np.ones((self.max_batch,), np.float32)
-        for i in active:
-            temps[i] = self._slots[i].temperature
-            tops[i] = self._slots[i].top_p
+        temps, _, tops = self._sampling_arrays(active)
         # device cursors equal the host's while every slot is busy (a chunk
         # advances hot_len for all slots, the host for the active ones)
         if self._cursors_dirty or any(s is None for s in self._slots):
@@ -578,11 +742,145 @@ class Engine:
         ready.record()
         return host, ready
 
+    # -- speculative chunks ---------------------------------------------------
+
+    def _spec_key(self, S: int, n_pages: int, greedy: bool, top_k_on: bool,
+                  top_p_on: bool) -> tuple:
+        """A spec chunk graph's key: iterations S, window K, page bucket,
+        greedy or sampled, top-k and top-p on, the prefix and the fused RHT
+        switch (the rule of ``_chunk_key``)."""
+        return ("spec", S, self.spec_k, n_pages, greedy, top_k_on, top_p_on,
+                self.prefix is not None, _fused_rht_enabled())
+
+    def _spec_chunk_fn(self, S: int, n_pages: int, greedy: bool,
+                       top_k_on: bool, top_p_on: bool):
+        """S spec iterations as a function of the engine's fixed buffers:
+        it reads the frontier, the shared cursors of both caches, the
+        sampling parameters and the active mask there, leaves the next
+        frontier and the new hot_len in them, and returns the (B, S, K+1)
+        tokens and acceptance counts, packed for one read."""
+        tc = self.pkv._replace(base=self._base_d, hot_len=self._hot_d)
+        dc = self.dkv._replace(base=self._base_d, hot_len=self._hot_d)
+        pre = ({} if self.prefix is None else
+               dict(d_prefix=self.dprefix, t_prefix=self.prefix,
+                    prefix_on=self._pre_d))
+
+        def fn():
+            ems, nes, _, t_hot, last = SP.spec_decode_chunk(
+                self.draft_params, self.params, self._tok, dc, tc,
+                self.draft_cfg, self.cfg, self.spec_k, S, page=self.page,
+                gen=self.gen_dev, temps=None if greedy else self._temps_d,
+                top_ks=self._tks_d if top_k_on else None,
+                top_ps=self._top_p_d if top_p_on else None,
+                active=self._act_d, n_pages=n_pages, **pre)
+            self._tok.copy_(last)
+            self._hot_d.copy_(t_hot.length)
+            return torch.cat([ems, nes[:, :, None]], dim=2)
+        return fn
+
+    def _launch_spec(self, active: List[int], S: int) -> torch.Tensor:
+        """Run S spec iterations for every slot from the device frontier on
+        the key's graph (the free slots frozen by the active mask) and
+        enter device-authoritative mode; the host's cursors are pushed
+        first when they are the truth. Returns the packed (B, S, K+1)
+        tokens on the device."""
+        temps, tks, tps = self._sampling_arrays(active)
+        act = np.zeros((self.max_batch,), np.int32)
+        act[active] = 1
+        if self._spec_stale:
+            self._push(self._temps_d, temps)
+            self._push(self._top_p_d, tps)
+            n_pages = PG.page_bucket(int(self._base_ub[active].max()),
+                                     self.page, self.pkv.capacity)
+        else:
+            self._push_cursors(temps, tps)
+            n_pages = PG.page_bucket(int(self._base.max()), self.page,
+                                     self.pkv.capacity)
+        self._push(self._tks_d, tks)
+        self._push(self._act_d, act)
+        greedy = not (temps > 0).any()
+        args = (S, n_pages, greedy, not greedy and bool(tks.any()),
+                not greedy and bool((tps < 1.0).any()))
+        self._spec_stale = True
+        _t0 = time.perf_counter()
+        packed = self._graphs.run(self._spec_key(*args),
+                                  self._spec_chunk_fn(*args))
+        self._t_pump["dispatch"] += time.perf_counter() - _t0
+        return packed
+
+    def _take_spec(self, i: int, em: np.ndarray, ne: np.ndarray) -> int:
+        """Commit slot i's part of a spec chunk: (S, K) tokens and (S,)
+        counts. Records the counts, takes the tokens (budget, stop) and
+        retires the slot when it is done; returns the tokens taken, or -1
+        when it retired."""
+        req = self._slots[i]
+        self.accept_hist.extend(int(n) for n in ne)
+        toks = [int(t) for s in range(len(ne)) for t in em[s, :ne[s]]]
+        take, stopped = self._take_tokens(req, toks)
+        req.generated.extend(toks[:take])
+        committed = len(req.prompt) + len(req.generated) - 1
+        if (stopped or len(req.generated) >= req.max_new_tokens + 1
+                or committed >= self.max_seq - 1):
+            self._retire_slot(i)
+            return -1
+        return take
+
+    def _spec_S(self, used: int, iters: int, max_chunk: int) -> int:
+        """A spec chunk's iteration count S, a power of two: flushes first
+        when the ring's ``used`` rows (or their bound) leave room for fewer
+        than two windows, then caps S by the ring's room, ``max_chunk`` and
+        the ``iters`` the slots' budgets allow (at least 1)."""
+        K = self.spec_k
+        room = self.hot - used
+        if room < 2 * K:
+            self._flush_now()
+            room = self.hot
+        s_cap = min(room // K, max(1, max_chunk // K), max(1, iters))
+        S = 1
+        while S * 2 <= s_cap:
+            S *= 2
+        return S
+
+    def _step_spec_chunk(self, max_chunk: int) -> int:
+        """Up to max_chunk // spec_k spec iterations in one dispatch, then
+        their read (the serial spec chunk), on the host's cursors. One
+        iteration is a chunk of S = 1 here, where quip_tpu runs its serial
+        step: both are one compiled program, and the port's serial step is
+        eager."""
+        self._drain_pipeline()
+        self._admit()
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        if not active:
+            return 0
+        K = self.spec_k
+        lens = self._base + self._hotlen
+        remaining = min(
+            min(self._slots[i].max_new_tokens + 1
+                - len(self._slots[i].generated) for i in active),
+            min(self.max_seq - 1 - int(lens[i]) for i in active))
+        S = self._spec_S(int(self._hotlen.max()), -(-remaining // K),
+                         max_chunk)
+        self._frontier_from_host(active)
+        host, ready = self._copy_out(self._launch_spec(active, S))
+        if ready is not None:
+            ready.synchronize()
+        arr = host.numpy()
+        self._spec_stale = False          # host cursors exact again below
+        self._cursors_dirty = True
+        for i in active:
+            take = self._take_spec(i, arr[i, :, :K], arr[i, :, K])
+            if take >= 0:
+                self._hotlen[i] += take
+        return S * K
+
     def step_chunk(self, max_chunk: int = 16) -> int:
         """Decode up to ``max_chunk`` tokens for all active slots in one
         dispatch, then read them back (the serial chunk). Falls back to
         ``step()`` when slots disagree on top_k or a slot has fewer than 2
-        tokens of room. Returns the tokens decoded per slot."""
+        tokens of room. Returns the tokens decoded per slot. A spec engine
+        runs whole draft-and-verify iterations (``_step_spec_chunk``)."""
+        if self.spec:
+            return self._step_spec_chunk(max_chunk)
         self._drain_pipeline()
         self._admit()
         active = [i for i, r in enumerate(self._slots) if r is not None]
@@ -641,10 +939,32 @@ class Engine:
         """Commit every chunk in flight and read the pending first tokens:
         the serial paths assume host-complete state."""
         while self._pending_q:
-            self._commit_chunk(self._pending_q.pop(0))
+            pend = self._pending_q.pop(0)
+            if pend.get("kind") == "spec":
+                self._commit_chunk_spec(pend)
+            else:
+                self._commit_chunk(pend)
         self._resolve_first_tokens()
         self._front_live = False
         self._host_token_slots.clear()
+        self._resync_spec_cursors()
+
+    def _resync_spec_cursors(self) -> None:
+        """Read the exact cursors back from the device after a spec-pump
+        drain (the design's only blocking cursor read: the serial
+        fallback, a prefix admission, a pump / step boundary). Free slots
+        are zeroed on the host; their device values stay frozen until the
+        next push."""
+        if not self._spec_stale:
+            return
+        self._base = self._base_d.cpu().numpy().astype(np.int32)
+        self._hotlen = self._hot_d.cpu().numpy().astype(np.int32)
+        for i, r in enumerate(self._slots):
+            if r is None:
+                self._base[i] = 0
+                self._hotlen[i] = 0
+        self._spec_stale = False
+        self._cursors_dirty = True
 
     def _resolve_first_tokens(self) -> None:
         """Read the asynchronously admitted first tokens (one read of the
@@ -723,14 +1043,34 @@ class Engine:
         while T * 2 <= min(remaining, max(needed, 2), room, max_chunk):
             T *= 2
 
-        # the input frontier: the previous chunk's last tokens on the
-        # device; rows of slots admitted since come from the host (sync
-        # admission) or from the first-token buffer (async admission)
+        active = self._prepare_frontier(active)
+        if not active:
+            return None
+        toks = self._launch(active, T, ks.pop())
+        self._t_pump["chunks"] += 1
+        self._front_live = True
+        self._maybe_flush()
+        rec = dict(slots=list(active),
+                   uids=[self._slots[i].uid for i in active], T=T)
+        if pack_first and self._first_pending:
+            # the first tokens ride this chunk's read: one read, not two
+            rec["first"] = self._first_pending
+            self._first_pending = []
+        rec["host"], rec["ready"] = self._copy_out(toks, "first" in rec)
+        return rec
+
+    def _prepare_frontier(self, active: List[int]) -> List[int]:
+        """Make ``_tok`` the input frontier of the next chunk: the previous
+        chunk's last tokens on the device, with the rows of slots admitted
+        since from the host (sync admission) or from the first-token
+        buffer (async admission); from the host alone when no chunk left
+        one. Returns the slots still active (a first token read here may
+        be a stop)."""
         if not self._front_live:
             self._resolve_first_tokens()
             active = [i for i in active if self._slots[i] is not None]
             if not active:
-                return None
+                return active
             self._frontier_from_host(active)
             self._host_token_slots.clear()
         else:
@@ -751,19 +1091,7 @@ class Engine:
         if self._front_any:
             self._front_mask.zero_()
             self._front_any = False
-
-        toks = self._launch(active, T, ks.pop())
-        self._t_pump["chunks"] += 1
-        self._front_live = True
-        self._maybe_flush()
-        rec = dict(slots=list(active),
-                   uids=[self._slots[i].uid for i in active], T=T)
-        if pack_first and self._first_pending:
-            # the first tokens ride this chunk's read: one read, not two
-            rec["first"] = self._first_pending
-            self._first_pending = []
-        rec["host"], rec["ready"] = self._copy_out(toks, "first" in rec)
-        return rec
+        return active
 
     def _commit_chunk(self, pend: Dict[str, Any]) -> None:
         """Wait for a dispatched chunk's read and do its bookkeeping (take,
@@ -795,8 +1123,150 @@ class Engine:
                 self._retire_slot(i)
         self._t_pump["bookkeep"] += time.perf_counter() - _t0
 
+    # -- the overlapped speculative loop -------------------------------------
+    #
+    # The spec pump keeps the frontier, both caches' cursors and the
+    # generator on the device, so chunk N+1 dispatches with no host read of
+    # chunk N. Acceptance counts make each chunk's advance data-dependent,
+    # so the host cannot mirror the cursors while chunks are in flight:
+    #   * the device cursors are authoritative (_spec_stale) and the host
+    #     keeps upper bounds (_ub_hot, _base_ub) for the ring's room, the
+    #     flushes (_flush_now flushes at the device cursors) and the page
+    #     bucket;
+    #   * free slots are frozen by the chunk's active mask;
+    #   * an admission prefills on the live caches and resets the slot's
+    #     device cursors in stream order;
+    #   * the serial paths (step, a prefix admission, the tail the pipeline
+    #     cannot serve) drain it and read the exact cursors back once.
+    # Greedy slots emit the target's greedy tokens whatever the schedule;
+    # a stop, budget or sequence cap retires its slot at commit, and the
+    # rows the chunks in flight wrote for it are dead.
+
+    def _try_dispatch_spec(self, active: List[int],
+                           max_chunk: int) -> Optional[Dict[str, Any]]:
+        """Dispatch the next spec chunk against the device state. Returns
+        the pending record (``_commit_chunk_spec`` reads it), or None when
+        the pipeline cannot proceed (a slot within one window of its
+        budget or the sequence cap)."""
+        K = self.spec_k
+        if not self._spec_stale:          # the host's values are exact
+            self._ub_hot[:] = self._hotlen
+            self._base_ub[:] = self._base
+        infl: Dict[int, int] = {}
+        for pend in self._pending_q:
+            for i, uid in zip(pend["slots"], pend["uids"]):
+                r = self._slots[i]
+                if r is not None and r.uid == uid:
+                    infl[i] = infl.get(i, 0) + pend["S"]
+        # the sequence cap is hard (every iteration in flight may emit K);
+        # the budget soft, counting the iterations in flight at the
+        # running acceptance mean (quip_tpu's rule)
+        est = float(K)
+        if self.accept_hist:
+            est = max(1.0, float(np.mean(self.accept_hist[-64:])))
+        rem_seq = self.max_seq
+        needed = 0
+        for i in active:
+            req = self._slots[i]
+            it = infl.get(i, 0)
+            committed = len(req.prompt) + len(req.generated) - 1
+            needed = max(needed, req.max_new_tokens + 1
+                         - len(req.generated) - int(it * est))
+            rem_seq = min(rem_seq, self.max_seq - 1 - committed - it * K)
+        if needed < 1 or rem_seq < K:
+            return None
+        # S = 1 stays in the pipeline (quip_tpu drains and steps there: its
+        # serial step is one compiled program, the port's is eager)
+        S = self._spec_S(int(self._ub_hot.max()),
+                         min(-(-needed // K), rem_seq // K), max_chunk)
+        active = self._prepare_frontier(active)
+        if not active:
+            return None
+        packed = self._launch_spec(active, S)
+        self._t_pump["chunks"] += 1
+        self._front_live = True
+        self._ub_hot[active] += S * K
+        rec = dict(kind="spec", slots=list(active), S=S,
+                   uids=[self._slots[i].uid for i in active],
+                   epoch=self._flush_epoch)
+        rec["host"], rec["ready"] = self._copy_out(packed)
+        return rec
+
+    def _commit_chunk_spec(self, pend: Dict[str, Any]) -> None:
+        """Wait for a spec chunk's one read (tokens and counts packed) and
+        do its bookkeeping; the bound that holds the chunk's slack (the
+        ring's, or the base's after a flush) takes it back."""
+        _t0 = time.perf_counter()
+        if pend["ready"] is not None:
+            pend["ready"].synchronize()
+        arr = pend["host"].numpy()
+        self._t_pump["commit_read"] += time.perf_counter() - _t0
+        _t0 = time.perf_counter()
+        K, S = self.spec_k, pend["S"]
+        for i, uid in zip(pend["slots"], pend["uids"]):
+            req = self._slots[i]
+            if req is None or req.uid != uid:
+                continue                            # slot was re-admitted
+            ne = arr[i, :, K]
+            if self._take_spec(i, arr[i, :, :K], ne) < 0:
+                continue
+            slack = S * K - int(ne.sum())
+            bound = (self._ub_hot if pend["epoch"] == self._flush_epoch
+                     else self._base_ub)
+            bound[i] = max(0, int(bound[i]) - slack)
+        self._t_pump["bookkeep"] += time.perf_counter() - _t0
+
+    def _pump_spec(self, max_chunk: int) -> bool:
+        """One overlapped speculative scheduling iteration (the section
+        comment above); ``pump``'s contract."""
+        if (self._queue and self._pending_q
+                and not any(s is None for s in self._slots)
+                and self._retire_plausible()):
+            self._commit_chunk_spec(self._pending_q.pop(0))
+        # a prefix admission streams windows on the host's cursors: drain
+        if (self._spec_stale and any(s is None for s in self._slots)
+                and any(r.use_prefix for r in self._queue)):
+            self._drain_pipeline()
+        _t0 = time.perf_counter()
+        self._admit()
+        self._t_pump["admit"] += time.perf_counter() - _t0
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        if not active and not self._pending_q:
+            if self._queue:
+                return True
+            if self._spec_stale:
+                # idle: the next burst starts from the host's zeros, pushed
+                # at its first dispatch
+                self._base[:] = 0
+                self._hotlen[:] = 0
+                self._spec_stale = False
+                self._cursors_dirty = True
+            self._front_live = False
+            return False
+        nxt = self._try_dispatch_spec(active, max_chunk) if active else None
+        if nxt is not None:
+            self._pending_q.append(nxt)
+        if self._pending_q and (nxt is None or len(self._pending_q)
+                                > self.pipeline_depth):
+            self._commit_chunk_spec(self._pending_q.pop(0))
+        if nxt is None and not self._pending_q and active:
+            # not pipelinable: drain (exact cursors), one serial spec
+            # iteration, then back in with a frontier from the host
+            self._drain_pipeline()
+            if not any(s is not None for s in self._slots):
+                return True
+            self._t_pump["steps"] += 1
+            self.step()
+            self._front_live = False
+        return True
+
     def _default_max_chunk(self) -> int:
-        return 16
+        """The chunk cap: 16 tokens, or for a spec engine spec_k times
+        S = min(8, hot // (2 spec_k)) iterations (at least 2), so the ring
+        flushes at most every other chunk."""
+        if not self.spec:
+            return 16
+        return self.spec_k * max(2, min(8, self.hot // (2 * self.spec_k)))
 
     def _retire_plausible(self) -> bool:
         """Could a slot free at the next commit? True when some slot's
@@ -804,10 +1274,11 @@ class Engine:
         tokens are not predictable and not counted)."""
         infl: Dict[int, int] = {}
         for pend in self._pending_q:
+            n = pend["T"] if "T" in pend else pend["S"] * self.spec_k
             for i, uid in zip(pend["slots"], pend["uids"]):
                 r = self._slots[i]
                 if r is not None and r.uid == uid:
-                    infl[i] = infl.get(i, 0) + pend["T"]
+                    infl[i] = infl.get(i, 0) + n
         for i, n in infl.items():
             req = self._slots[i]
             committed = len(req.prompt) + len(req.generated) - 1
@@ -831,6 +1302,8 @@ class Engine:
         by ``step()``."""
         if max_chunk is None:
             max_chunk = self._default_max_chunk()
+        if self.spec:
+            return self._pump_spec(max_chunk)
         # with a queue waiting, no slot free and a retire in flight, commit
         # the oldest chunk first so the slot frees a chunk earlier
         if (self._queue and self._pending_q
@@ -883,10 +1356,13 @@ class Engine:
         and replayed once (a graph's first replay also uploads it to the
         card) at each of ``page_buckets``, by default every page bucket the
         engine can reach (``_page_buckets``; the dummy requests reach only
-        the first). On the CPU the same chunks run eagerly. The engine is
-        left idle, its stats as they were."""
+        the first). A spec engine builds its spec chunk graphs instead: S =
+        1, 2, 4, ... up to the default chunk's iterations. On the CPU the same
+        chunks run eagerly. The engine is left idle, its stats as they
+        were."""
         kept = (self._done_reqs, self._done_tokens, self._ttft_sum,
-                self._req_time_sum, dict(self._t_pump))
+                self._req_time_sum, dict(self._t_pump),
+                list(self.accept_hist))
         # slack would cap every dummy chunk at slack_chunk: off for the walk
         slack_sv, self.slack_chunk = self.slack_chunk, 1 << 30
         try:
@@ -902,26 +1378,41 @@ class Engine:
             self.run([dict(prompt=[1], max_new_tokens=3)], chunked=False)
             self.run([dict(prompt=[1], max_new_tokens=3, temperature=0.5,
                            top_p=0.9)], chunked=False)
-            rungs = sorted(t for t in {1, 2, 4, 8, 16, self.slack_chunk,
-                                       2 * self.slack_chunk}
-                           if t <= self.hot)      # a chunk fits the ring
             idle = np.zeros((self.max_batch,), np.float32)
             if page_buckets is None:
                 page_buckets = self._page_buckets()
             for n_pages in page_buckets:
                 for greedy, top_p_on in ((True, False), (False, True)):
-                    for T in rungs:
-                        args = (T, n_pages, greedy, 0, top_p_on)
-                        key = self._chunk_key(*args)
+                    for key, fn in self._warm_graphs(n_pages, greedy,
+                                                     top_p_on):
                         for _ in range(1 if key in self._graphs else 2):
                             # idle: a chunk writes dead rows of free slots
                             self._push_cursors(idle, idle + 1.0)
-                            self._graphs.run(key, self._chunk_fn(*args))
+                            if self.spec:
+                                self._act_d.zero_()
+                                self._tks_d.zero_()
+                            self._graphs.run(key, fn)
             self._cursors_dirty = True
             self._front_live = False
         (self._done_reqs, self._done_tokens, self._ttft_sum,
-         self._req_time_sum, self._t_pump) = kept
+         self._req_time_sum, self._t_pump, self.accept_hist) = kept
         return self
+
+    def _warm_graphs(self, n_pages: int, greedy: bool, top_p_on: bool):
+        """(key, function) of every chunk graph ``warmup`` builds at one
+        page bucket: each rung of the chunk ladder that fits the ring (T =
+        1 fills its last row), or each spec chunk S = 1, 2, 4, ... up to the
+        default chunk's iterations."""
+        if self.spec:
+            top = min(self._default_max_chunk(), self.hot) // self.spec_k
+            for S in (2 ** e for e in range(top.bit_length())):
+                args = (S, n_pages, greedy, False, top_p_on)
+                yield self._spec_key(*args), self._spec_chunk_fn(*args)
+            return
+        for T in sorted(t for t in {1, 2, 4, 8, 16, self.slack_chunk,
+                                    2 * self.slack_chunk} if t <= self.hot):
+            args = (T, n_pages, greedy, 0, top_p_on)
+            yield self._chunk_key(*args), self._chunk_fn(*args)
 
     def run(self, requests: List[Dict], chunked: bool = False,
             overlap: bool = True,
@@ -944,3 +1435,20 @@ class Engine:
                 else:
                     self.step()
         return [all_reqs[uid] for uid in uids]
+
+    def stream(self, prompt, max_new_tokens=64, temperature=0.0, top_k=0,
+               top_p=1.0, stop=None):
+        """Yield one request's tokens as they are produced, stepping the
+        engine (other requests keep decoding in the same steps)."""
+        uid = self.submit(prompt, max_new_tokens, temperature, top_k, top_p,
+                          stop)
+        req = next(r for r in self._queue if r.uid == uid)
+        emitted = 0
+        while not req.done:
+            self.step()
+            while emitted < len(req.generated):
+                yield req.generated[emitted]
+                emitted += 1
+        while emitted < len(req.generated):
+            yield req.generated[emitted]
+            emitted += 1

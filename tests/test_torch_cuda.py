@@ -400,6 +400,72 @@ def test_pump_equals_serial_step(cuda, fused, monkeypatch):
     assert eng._t_pump["chunks"] > 0
 
 
+def test_spec_chunk_graph_replay_matches_eager(cuda):
+    """A spec chunk's graph (a one-layer self-draft, K = 2, S = 2),
+    replayed from the same state, gives the eager chunk's packed tokens
+    and counts, both hot rings, the frontier and the cursors bit for bit,
+    and counts the eager chunk's launches again."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.serve.speculative import make_self_draft
+    cfg = get_config("llama-tiny")
+    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+                         head_bits=2, device=cuda)
+    eng = _engine(cuda, cfg, model, max_batch=2, max_seq=64, hot=16, page=8,
+                  draft=make_self_draft(model, cfg, 1), spec_k=2)
+    eng.submit([5, 6, 7], max_new_tokens=20)
+    eng.submit(list(range(1, 12)), max_new_tokens=20)
+    eng._admit()
+    eng._frontier_from_host([0, 1])
+    eng._push_cursors(np.zeros(2, np.float32), np.ones(2, np.float32))
+    eng._act_d.fill_(1)
+    state = (eng.pkv.hot_k, eng.pkv.hot_v, eng.dkv.hot_k, eng.dkv.hot_v,
+             eng._tok, eng._hot_d)
+    saved = [t.clone() for t in state]
+    args = (2, 2, True, False, False)
+    key = eng._spec_key(*args)
+    d0 = DM.launches_decode
+    eager = eng._graphs.run(key, eng._spec_chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    n_eager = DM.launches_decode - d0
+    after = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    replay = eng._graphs.run(key, eng._spec_chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    # 2 iterations of 2 draft steps (1 layer: 4 linears and the head) and
+    # a 4-row verify (2 layers)
+    assert len(eng._graphs) == 1 and n_eager == 2 * (2 * 5 + 9)
+    assert DM.launches_decode - d0 == 2 * n_eager
+    assert torch.equal(replay, eager)
+    for t, a in zip(state, after):
+        assert torch.equal(t, a)
+
+
+def test_spec_pump_greedy_on_card(cuda):
+    """The spec pump on the card (graph replays, device cursors, flushes
+    in flight) gives the plain serial loop's greedy tokens on llama-tiny
+    in f32, with a self-draft and with an unrelated draft."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.serve.speculative import make_self_draft
+    cfg = get_config("llama-tiny")
+    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+                         head_bits=2, device=cuda)
+    other = packed_llama(cfg, bits=2, seed=1, dtype=torch.float32,
+                         head_bits=2, device=cuda)
+    kw = dict(max_batch=2, max_seq=64, hot=8, page=8)
+    reqs = [dict(prompt=[1, 2, 3], max_new_tokens=25),
+            dict(prompt=[4, 5], max_new_tokens=9),
+            dict(prompt=[9], max_new_tokens=17)]
+    want = [r.generated for r in _engine(cuda, cfg, model, **kw).run(reqs)]
+    for draft in (make_self_draft(model, cfg, 1), (other, cfg)):
+        eng = _engine(cuda, cfg, model, draft=draft, spec_k=2, **kw)
+        got = eng.run(reqs, chunked=True)
+        assert [r.generated for r in got] == want
+        assert len(eng._graphs) > 0 and eng._flush_epoch > 0
+
+
 def test_capture_failure_raises(cuda):
     """A chunk that cannot be captured raises from the engine's graph
     cache and leaves no graph behind: nothing falls back to eager
