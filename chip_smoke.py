@@ -15,15 +15,18 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      them ragged and one that only K1-decode takes, f32 and
      bf16 x, each kernel forced past its threshold too, with kernel, plain,
      bound and library (torch.matmul of the dequantised bf16 weight) times,
-     and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover);
+     and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover); then
+     OPT-6.7B's four shapes (fc2 at d = 16384) at B = 1, 4, 8, 9, 32, 37,
+     128, 600 and 2048, timed at all but 32, 37 and 128;
   3. K2 (flash_prefill) against its plain version (B=2, H=32, S=600,
      plen=[600, 431]; GQA H=64, KV=8 and H=32, KV=8; S = 513 with a row of
      plen 1; S = 1000 and 2048), with SDPA as the library yardstick;
   4. K3 (rht_apply_fused) against its plain version at the five
-     Llama-2-7B (a, b) splits, B in (1, 5, 32, 70), both directions, bf16
-     and f32, with a scaleWH fold, and a right-factor-free case; the round
-     trip; times at B = 1, 2, 8, 32 beside the un-fused apply_rht and
-     beside an empty kernel's (the launch floor);
+     Llama-2-7B (a, b) splits and OPT-6.7B's n = 16384 (128 x 128), B in
+     (1, 5, 32, 70), both directions, bf16 and f32, with a scaleWH fold,
+     and a right-factor-free case; the round trip; times at B = 1, 2, 8,
+     32 beside the un-fused apply_rht and beside an empty kernel's (the
+     launch floor), summed over each model's pairs of a decode step;
   5. K1' (slabdot_matmul) against its plain version and against K1 for
      bits 2/3/4, B = 1, 5, 8, 13 and every legal tile_m at two small shapes
      (one ragged), one device kernel per call (profiler), then through the
@@ -58,14 +61,27 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      each greedy token the teacher-forced argmax of the target or within a
      stated tolerance of it, and two planted faults (every draft token
      emitted unverified; a stream one row early) outside it; acceptance,
-     launches by kernel, one sampled request; b1 and b4 decode through
-     the spec pump (ms a token, launches an iteration by the profiler);
+     launches by kernel, one sampled request; b1 and b4 decode of the
+     self-draft through the spec pump (ms a token, launches an iteration
+     by the profiler; the perfect draft's timing windows are cut);
      ``serve_http`` with 4 concurrent requests and a streamed one, their
      tokens the engine's; and ``cli/serve.main --self_draft 4 --warmup``
      on the model saved as a checkpoint, its tokens an Engine's;
+ 12. (run after phase 11) the OPT and BLOOM families: 2-layer full-width
+     OPT-6.7B and BLOOM-7b1 (nonzero biases, dense tied head) held against
+     the CPU f32 plain path as in phase 6; full-depth 2-bit OPT-6.7B
+     serving phase 7's requests through the serial ``Engine.run`` and the
+     pump, whose chunk graphs are built at first use, not warmed (greedy
+     tokens equal, launches counted exactly), b1 and b4 pump
+     decode beside phase 8's Llama-2-7B; BLOOM-7b1 at 4 layers (ALiBi,
+     int8 KV, QUIP_FUSED_RHT=1, a 200-token prefix) serial against the
+     pump, K2 never launched; a 2-layer full-width OPT-6.7B quantized (32
+     synthetic windows, LDLQ), LDLQ / nearest below 1 on every linear, a
+     bit-exact checkpoint and its prefill against the f32 W_hat forward;
   9. QuIP's quantization path on a full-width random Llama-2-7B through
-     the quantize CLI's calls (synthetic calibration, 128 windows of 2048
-     tokens; LDLQ with incoherence processing, the lm_head too): layer 0's
+     the quantize CLI's calls (synthetic calibration, 32 windows of 2048
+     tokens, cut from the reference's 128 for the script's time limit;
+     LDLQ with incoherence processing, the lm_head too): layer 0's
      tap Hessians with K2 against dense attention, seconds a layer by part,
      K2's calibration launches, peak memory, LDLQ / nearest proxy-loss
      ratios on layers 0 and 31 and the head, K1 on the packed layers
@@ -252,65 +268,94 @@ def phase_k1(name: str):
         f"err K1-decode {worst_rel['decode']:.2e}, K1-tile "
         f"{worst_rel['tile']:.2e} <= 1e-3")
 
-    shapes = {"wqkv": (12288, 4096), "wo": (4096, 4096),
-              "wgu": (22528, 4096), "wd": (4096, 11008),
-              "lm_head": (32000, 4096)}
     # 2048: the rows of one 2048-token perplexity window (phase 10)
     timed = (1, 2, 4, 8, 16, 32, 128, 600, 2048)
     crossed = (1, 2, 4, 8, 16)
-    rows = []
-    zero_sums = lambda: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0,  # noqa: E731
-                             library_ms=0.0)
-    sums = {B: zero_sums() for B in timed}
-    cross = {B: dict(decode=0.0, tile=0.0) for B in crossed}
-    bound_by = {B: set() for B in timed}
     scale = torch.tensor(0.02, device=dev)
-    for sname, (m, d) in shapes.items():
-        pbytes = d * 2 * m // 8
-        ncopy = max(1, math.ceil(120e6 / pbytes))
-        copies = [planes_for(m, d, 2) for _ in range(ncopy)]
-        W = DM.dequant_weight(copies[0], scale, None, bits=2,
-                              d=d).to(torch.bfloat16)
-        for B in (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000, 2048):
-            x = torch.randn(B, d, device=dev, generator=g).bfloat16()
-            path, rel, rel16 = check(x, copies[0], scale, None, (sname, B),
-                                     bits=2)
-            if B not in timed:
-                continue
 
-            def run(path=None, it=20 if B <= 128 else 5):
-                return time_ms([lambda c=c: DM.dequant_matmul(
-                    x, c, scale, None, bits=2, path=path) for c in copies],
-                    it)
+    def sweep(model, shapes, checked, timed, crossed=()):
+        """Each 2-bit projection shape against its plain version at every
+        B of ``checked``; kernel, plain, bound and torch.matmul times at
+        ``timed`` (each kernel forced at ``crossed`` too). Returns (rows,
+        sums by B, crossover sums by B, bound words by B)."""
+        rows = []
+        sums = {B: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+                for B in timed}
+        cross = {B: dict(decode=0.0, tile=0.0) for B in crossed}
+        bound_by = {B: set() for B in timed}
+        for sname, (m, d) in shapes.items():
+            pbytes = d * 2 * m // 8
+            ncopy = max(1, math.ceil(120e6 / pbytes))
+            copies = [planes_for(m, d, 2) for _ in range(ncopy)]
+            W = DM.dequant_weight(copies[0], scale, None, bits=2,
+                                  d=d).to(torch.bfloat16)
+            for B in checked:
+                x = torch.randn(B, d, device=dev, generator=g).bfloat16()
+                path, rel, rel16 = check(x, copies[0], scale, None,
+                                         (sname, B), bits=2)
+                if B not in sums:
+                    continue
 
-            ms = run()
-            plain = time_ms([lambda: DM.dequant_matmul_ref(
-                x, copies[0], scale, None, bits=2)], 2)
-            lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
-            bms, by = bound_ms(B * d * 2 + pbytes + B * m * 2,
-                               2 * B * d * m, name)
-            row = dict(shape=sname, m=m, d=d, B=B, path=path, ms=ms,
-                       plain_ms=plain, library_ms=lib, bound_ms=bms,
-                       bound_by=by, rel_err=rel, rel_err_bf16=rel16)
-            extra = ""
-            if B in cross:      # the other kernel at the same shape
-                other = "tile" if path == "decode" else "decode"
-                row[f"ms_{path}"] = ms
-                row[f"ms_{other}"] = run(other)
-                for k in cross[B]:
-                    cross[B][k] += row[f"ms_{k}"]
-                extra = f", forced {other} {row[f'ms_{other}']:.4f} ms"
-            rows.append(row)
-            log(f"K1 {sname:8s} {m}x{d} B={B:4d} [{path}]: {ms:.4f} ms "
-                f"(bound {bms:.4f} {by}, {bms / ms:.0%}){extra}, plain "
-                f"{plain:.3f} ms, torch.matmul bf16 {lib:.4f} ms, "
-                f"rel err {rel:.1e} / bf16 out {rel16:.1e}")
-            bound_by[B].add(by)
-            for k, v in (("ms", ms), ("plain_ms", plain),
-                         ("bound_ms", bms), ("library_ms", lib)):
-                sums[B][k] += v
-        del copies, W
-        torch.cuda.empty_cache()
+                def run(path=None, it=20 if B <= 128 else 5):
+                    return time_ms([lambda c=c: DM.dequant_matmul(
+                        x, c, scale, None, bits=2, path=path)
+                        for c in copies], it)
+
+                ms = run()
+                plain = time_ms([lambda: DM.dequant_matmul_ref(
+                    x, copies[0], scale, None, bits=2)], 2)
+                lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
+                bms, by = bound_ms(B * d * 2 + pbytes + B * m * 2,
+                                   2 * B * d * m, name)
+                row = dict(model=model, shape=sname, m=m, d=d, B=B,
+                           path=path, ms=ms, plain_ms=plain, library_ms=lib,
+                           bound_ms=bms, bound_by=by, rel_err=rel,
+                           rel_err_bf16=rel16)
+                extra = ""
+                if B in cross:      # the other kernel at the same shape
+                    other = "tile" if path == "decode" else "decode"
+                    row[f"ms_{path}"] = ms
+                    row[f"ms_{other}"] = run(other)
+                    for k in cross[B]:
+                        cross[B][k] += row[f"ms_{k}"]
+                    extra = f", forced {other} {row[f'ms_{other}']:.4f} ms"
+                rows.append(row)
+                log(f"K1 {model} {sname:8s} {m}x{d} B={B:4d} [{path}]: "
+                    f"{ms:.4f} ms (bound {bms:.4f} {by}, {bms / ms:.0%})"
+                    f"{extra}, plain {plain:.3f} ms, torch.matmul bf16 "
+                    f"{lib:.4f} ms, rel err {rel:.1e} / bf16 out "
+                    f"{rel16:.1e}")
+                bound_by[B].add(by)
+                for k, v in (("ms", ms), ("plain_ms", plain),
+                             ("bound_ms", bms), ("library_ms", lib)):
+                    sums[B][k] += v
+            del copies, W
+            torch.cuda.empty_cache()
+        return rows, sums, cross, bound_by
+
+    rows, sums, cross, bound_by = sweep(
+        "llama-2-7b",
+        {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
+         "wd": (4096, 11008), "lm_head": (32000, 4096)},
+        (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000, 2048), timed,
+        crossed)
+    # OPT-6.7B's (and BLOOM-7b1's) four projections, phase 12's path: fc2
+    # reads d = 16384, the widest fan-in yet; the tied head is dense. Also
+    # checked at the other row counts phase 12 gives K1-tile: the 37- and
+    # 128-token prompts and the 32-row admission windows
+    opt_timed = (1, 4, 8, 9, 600, 2048)
+    opt_rows, opt_sums, _, opt_by = sweep(
+        "opt-6.7b", {"wqkv": (12288, 4096), "wo": (4096, 4096),
+                     "fc1": (16384, 4096), "fc2": (4096, 16384)},
+        (1, 4, 8, 9, 32, 37, 128, 600, 2048), opt_timed)
+    for B in opt_timed:
+        t = opt_sums[B]
+        log(f"K1 sum of OPT-6.7B's four shapes, B={B:4d}: {t['ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.0%}), "
+            f"plain {t['plain_ms']:.3f}, torch.matmul bf16 "
+            f"{t['library_ms']:.4f}")
+    for B in (1, 4, 8):
+        assert opt_sums[B]["ms"] < opt_sums[B]["library_ms"], (B, opt_sums)
     for B in timed:
         t = sums[B]
         log(f"K1 sum of the five shapes, B={B:4d}: {t['ms']:.4f} ms, bound "
@@ -336,19 +381,27 @@ def phase_k1(name: str):
     log(f"K1-tile sum at B=600: {sums[600]['ms']:.3f} ms (first slice "
         f"{BEFORE['k1_sum_b600_ms']}); at B=32: {sums[32]['ms']:.4f} ms "
         f"(first slice {BEFORE['k1_sum_b32_ms']})")
-    RESULTS["k1"] = rows
+    RESULTS["k1"] = rows + opt_rows
     RESULTS["k1_sums"] = {str(B): t for B, t in sums.items()}
+    RESULTS["k1_sums_opt"] = {str(B): t for B, t in opt_sums.items()}
     RESULTS["k1_crossover"] = {str(B): c for B, c in cross.items()}
     for B in (1, 600, 2048):    # one word for each summed row
         assert len(bound_by[B]) == 1, (B, bound_by[B])
+    for B in (1, 600, 2048):
+        assert len(opt_by[B]) == 1, (B, opt_by[B])
     k1 = dict(sums[1], max_rel_err=worst_rel["decode"],
               max_abs_err=worst["decode"], bound_by=bound_by[1].pop(),
               ms_b8=sums[8]["ms"], bound_ms_b8=sums[8]["bound_ms"],
-              library_ms_b8=sums[8]["library_ms"])
+              library_ms_b8=sums[8]["library_ms"],
+              **{f"{k}_opt_b1": v for k, v in opt_sums[1].items()},
+              bound_by_opt_b1=opt_by[1].pop())
     k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
                max_abs_err=worst["tile"], bound_by=bound_by[600].pop(),
                **{f"{k}_b2048": v for k, v in sums[2048].items()},
-               bound_by_b2048=bound_by[2048].pop())
+               bound_by_b2048=bound_by[2048].pop(),
+               **{f"{k}_opt_b600": v for k, v in opt_sums[600].items()},
+               **{f"{k}_opt_b2048": v for k, v in opt_sums[2048].items()},
+               bound_by_opt_b600=opt_by[600].pop())
     return k1, k1t
 
 
@@ -444,13 +497,19 @@ def phase_k3(name: str):
                   tr)
 
     # the (n, direction) pairs of one b1 decode step: V side forward, U
-    # side transpose
+    # side transpose; Llama-2-7B's, then OPT-6.7B's (and BLOOM-7b1's):
+    # fc1's U side and fc2's V side at n = 16384
     on_path = {(4096, False), (4096, True), (11008, False), (12288, True),
                (22016, True), (32000, True)}
+    opt_on_path = {(4096, False), (4096, True), (12288, True),
+                   (16384, False), (16384, True)}
     splits = {4096: (64, 64), 11008: (128, 86), 12288: (128, 96),
-              22016: (128, 172), 32000: (128, 250)}
+              16384: (128, 128), 22016: (128, 172), 32000: (128, 250)}
     rows = []
     sums = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    opt_sums = dict(sums)
+    n16k = dict(sums)                  # n = 16384, both directions, B = 1
+    opt_bound_by = set()
     by_B = {B: dict(ms=0.0, library_ms=0.0) for B in (1, 2, 8, 32)}
     bound_by = set()
     # the launch floor: a kernel that does nothing, replayed the same way
@@ -499,12 +558,23 @@ def phase_k3(name: str):
                     f"{'transpose' if tr else 'forward  '}: {ms:.4f} ms "
                     f"(bound {bms:.5f} {by}), plain {plain:.4f} ms, "
                     f"apply_rht (2 matmuls + multiply) {lib:.4f} ms")
-                if B == 1 and (n, tr) in on_path:
-                    bound_by.add(by)
-                    for k, v in (("ms", ms), ("plain_ms", plain),
-                                 ("bound_ms", bms), ("library_ms", lib)):
-                        sums[k] += v
-    assert len(bound_by) == 1, bound_by    # one word for the summed row
+                if B != 1:
+                    continue
+                kv = (("ms", ms), ("plain_ms", plain), ("bound_ms", bms),
+                      ("library_ms", lib))
+                for pairs, acc, words in ((on_path, sums, bound_by),
+                                          (opt_on_path, opt_sums,
+                                           opt_bound_by)):
+                    if (n, tr) in pairs:
+                        words.add(by)
+                        for k, v in kv:
+                            acc[k] += v
+                if n == 16384:
+                    for k, v in kv:
+                        n16k[k] += v
+    # one word for each summed row
+    assert len(bound_by) == 1 and len(opt_bound_by) == 1, (bound_by,
+                                                           opt_bound_by)
     sums["bound_by"] = bound_by.pop()
     for B, t in by_B.items():
         log(f"K3 sum of the six (n, direction) pairs of a decode step, bf16, "
@@ -515,11 +585,21 @@ def phase_k3(name: str):
         f"floor: an empty kernel replayed alone {empty_ms * 1e3:.2f} us a "
         f"launch ({6 * empty_ms:.4f} ms for six), ten to a graph "
         f"{empty10_ms * 1e3:.2f} us")
+    opt_sums["bound_by"] = opt_bound_by.pop()
+    log(f"K3 at B=1, OPT-6.7B's five (n, direction) pairs: "
+        f"{opt_sums['ms']:.4f} ms, bound {opt_sums['bound_ms']:.5f} ms "
+        f"{opt_sums['bound_by']}, plain {opt_sums['plain_ms']:.4f}, "
+        f"un-fused apply_rht {opt_sums['library_ms']:.4f}; n = 16384 "
+        f"forward + transpose {n16k['ms']:.4f} ms (apply_rht "
+        f"{n16k['library_ms']:.4f})")
     # fused beats un-fused in this call (the margin is 1.9x at B = 1)
     assert sums["ms"] < sums["library_ms"], sums
     sums.update(empty_ms=empty_ms, empty_in_graph_ms=empty10_ms,
-                by_B={str(B): t for B, t in by_B.items()})
-    log(f"K3 vs plain, 5 Llama-2-7B splits + right=None, B in (1, 5, 32, 70), "
+                by_B={str(B): t for B, t in by_B.items()},
+                **{f"{k}_opt_b1": v for k, v in opt_sums.items()},
+                **{f"{k}_n16384_b1": v for k, v in n16k.items()})
+    log(f"K3 vs plain, 5 Llama-2-7B splits, OPT-6.7B's 16384 and "
+        f"right=None, B in (1, 5, 32, 70), "
         f"both directions, scaleWH fold: max rel err bf16 "
         f"{worst[torch.bfloat16]:.2e} <= 2e-2, f32 "
         f"{worst[torch.float32]:.2e} <= 2e-5; round trip <= 1e-5")
@@ -731,17 +811,36 @@ def fused_rht(on: bool):
 
 
 def phase_slice(combos=((False, False), (True, True))):
+    """Phase 6: the 2-layer full-width Llama-2-7B slice check."""
     from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
+    model = packed_model(cfg, bits=2, seed=3, dtype=torch.bfloat16,
+                         head_bits=2, device="cuda")
+    _slice_check(model, cfg, combos, "slice check", RESULTS, "slice_err")
+
+
+def _slice_check(model, cfg, combos, label, out: dict, key: str,
+                 dense_ref: bool = False) -> dict:
+    """A 600-token prefill and 4 teacher-forced decode steps of ``model``
+    on the card in bf16 against the plain path on the CPU in f32 on the
+    same weights, in each (fused RHT, int8 KV) configuration of
+    ``combos``; the prefill runs K2 once a layer unless ALiBi bars it.
+    ``dense_ref``: the CPU side runs the model unpacked to its dense f32
+    W_hat (``unpack_model``, dequantised once on the card), the function
+    the plain packed path computes; that path dequantises every weight at
+    every call (about 0.7 s a call at these widths on the host).
+    Records each normalised error in ``out`` under ``key``; returns the
+    kernels' launches in the last configuration's card run."""
     from quip_tpu_torch.models import paged as PG
-    from quip_tpu_torch.models.build import packed_llama
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.kernels import flash_attn as FA
     from quip_tpu_torch.kernels import rht as K3
+    from quip_tpu_torch.pack.model import unpack_model
 
-    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
-    model = packed_llama(cfg, bits=2, seed=3, dtype=torch.bfloat16,
-                         head_bits=2, device="cuda")
-    ref = _to_cpu_f32(model)
+    ref = (unpack_model(model, torch.float32).to("cpu") if dense_ref
+           else _to_cpu_f32(model))
     rng = np.random.default_rng(3)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 600)))
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4,)))
@@ -771,15 +870,24 @@ def phase_slice(combos=((False, False), (True, True))):
     # step is 1/127 of the row's absmax, the size of bf16's own rounding.
     # That is a second, independent error of the same size on every K and V
     # row, so the limit grows by sqrt(2): 4e-2.
+    # packed linears: 4 a layer (K1-tile at the prompt's 600 rows), and a
+    # packed lm_head (K1-decode: the prefill unembeds its last row only; a
+    # tied family's head is the dense token table)
+    n_proj = 4 * cfg.n_layers
+    head = 0 if cfg.tie_word_embeddings else 1
+    n_lin = n_proj + head
+    k2_want = 0 if cfg.positions == "alibi" else cfg.n_layers
     for fused, quantized in combos:
-        k1, k2 = DM.launches, FA.launches
+        _zero_counts()
         with fused_rht(fused):
             got, k3_step = drive(model, "cuda", torch.bfloat16, quantized)
             torch.cuda.synchronize()
-            assert FA.launches - k2 == cfg.n_layers, "prefill did not run K2"
-            assert DM.launches > k1
-            # V and U side of 4 projections per layer and of the lm_head
-            want_k3 = 2 * (4 * cfg.n_layers + 1) if fused else 0
+            counts = _read_counts()
+            assert counts["k2"] == k2_want, (counts, k2_want)
+            assert counts["k1_tile"] == n_proj and counts["k1_decode"] == (
+                n_lin * len(steps) + head), (counts, n_lin)
+            # V and U side of every packed linear
+            want_k3 = 2 * n_lin if fused else 0
             assert k3_step == [want_k3] * len(steps), (k3_step, want_k3)
             want, _ = drive(ref, "cpu", torch.float32, quantized)
         assert torch.isfinite(got).all()
@@ -787,14 +895,16 @@ def phase_slice(combos=((False, False), (True, True))):
         what = (f"{'QUIP_FUSED_RHT=1' if fused else 'un-fused RHT'}, "
                 f"{'int8' if quantized else 'bf16'} KV")
         limit = 4e-2 if quantized else 3e-2
-        log(f"slice check, {what} (2 layers, full width, 600-token prefill "
-            f"+ 4 decode steps, card bf16 vs CPU f32 plain): normalised max "
-            f"err {err:.2e} <= {limit:.0e}; K3 launches per decode step "
-            f"{k3_step[0]}")
-        assert err <= limit, (what, err)
-        RESULTS[f"slice_err_fused{int(fused)}_int8{int(quantized)}"] = err
-    del model, ref
+        log(f"{label}, {what} ({cfg.n_layers} layers, full width, 600-token "
+            f"prefill + 4 decode steps, card bf16 vs CPU f32 plain): "
+            f"normalised max err {err:.2e} <= {limit:.0e}; launches "
+            f"K1-tile {counts['k1_tile']}, K1-decode {counts['k1_decode']}, "
+            f"K2 {counts['k2']}, K3 a decode step {k3_step[0]}")
+        assert err <= limit, (label, what, err)
+        out[f"{key}_fused{int(fused)}_int8{int(quantized)}"] = err
+    del ref
     torch.cuda.empty_cache()
+    return counts
 
 
 def _zero_counts():
@@ -997,13 +1107,13 @@ def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
 def phase_serve(name: str, smi: str):
     from quip_tpu_torch.models import get_config
     from quip_tpu_torch.models import paged as PG
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.serve.engine import Engine
 
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("llama-2-7b")
     t = time.time()
-    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.bfloat16,
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.bfloat16,
                          head_bits=2, device="cuda")
     torch.cuda.synchronize()
     log(f"built 32-layer 2-bit Llama-2-7B (packed lm_head) in "
@@ -1267,7 +1377,7 @@ def _spec_exactness(model, cfg, reqs, gens, prefix, tol=None):
         pre = (list(prefix) if prefix is not None and q.get("use_prefix", True)
                else [])
         seq = pre + list(q["prompt"]) + g[:-1]
-        dev = model.embed_tokens.device
+        dev = model.embed.tokens.device
         with torch.inference_mode():
             lg = M.forward(model, torch.tensor(seq, device=dev)[None],
                            cfg)[0, len(pre) + len(q["prompt"]) - 1:].float()
@@ -1594,16 +1704,19 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
                     "; planted faults read worst gaps " + ", ".join(
                         f"{k} {v:.2e}" for k, v in r["faults"].items())
                     if "faults" in r else ""))
-            if fused:
+            if fused or dname != "self4":
                 del eng
             else:
                 keep[dname] = eng
             torch.cuda.empty_cache()
 
-    # decode timing: b4 on the un-fused engines above (warm), b1 on new ones
+    # decode timing of the self-draft: b4 on the un-fused engine above
+    # (warm), b1 on a new one. The perfect draft's timing windows are cut
+    # (the script's 1200 s limit); its exactness runs above stay.
     rng = np.random.default_rng(11)
     dec = {}
-    for dname, draft in drafts.items():
+    for dname in ("self4",):
+        draft = drafts[dname]
         b1 = Engine(model, cfg, max_batch=1, max_seq=1024,
                     hot=SPEC_HOT[dname], page=64, cache_dtype=torch.bfloat16,
                     draft=draft, spec_k=SPEC_K, device="cuda")
@@ -1671,10 +1784,269 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
     return res, dec
 
 
-# Phase 9's calibration: the reference's defaults (128 windows of 2048
-# tokens, chunks of 4) at full depth and width. Its budget is 300 s; past
+# Phase 12: the OPT and BLOOM families at their published widths.
+FAMILY_PRESETS = ("opt-6.7b", "bloom-7b1")
+BLOOM_LAYERS = 4          # phase 12c's BLOOM-7b1 depth (of 30): a cut
+FAMILY_QUANT_LAYERS = 2   # phase 12d's OPT-6.7B depth (of 32): a cut
+FAMILY_QUANT_NSAMPLES = 32
+
+
+def _random_biases(model, seed: int):
+    """Redraw every bias of ``model``'s blocks (normal, 0.02) in place:
+    init_params draws them zero, which would hide a dropped add."""
+    from quip_tpu_torch.models import model as TM
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for b in model.blocks:
+        for mod, names in ((b.attn, TM.Attention.NAMES),
+                           (b.mlp, TM.MLP.NAMES)):
+            for n in names:
+                t = getattr(mod, n)
+                if n.startswith("b") and t is not None:
+                    t.copy_(torch.randn(t.shape, generator=gen,
+                                        device="cuda") * 0.02)
+
+
+def phase_families(name: str, smi: str, llama_dec=None):
+    """Phase 12: the OPT and BLOOM families (module docstring).
+    ``llama_dec``: phase 8's decode timings, printed beside OPT-6.7B's."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.serve.engine import Engine
+
+    t_phase = time.time()
+    res = {}
+    # a. two full-width layers of each, against the CPU f32 plain path
+    for preset in FAMILY_PRESETS:
+        t = time.time()
+        cfg = dataclasses.replace(get_config(preset), n_layers=2)
+        model = packed_model(cfg, bits=2, seed=5, dtype=torch.bfloat16,
+                             device="cuda")
+        res[f"slice_{preset}"] = dict(
+            counts=_slice_check(model, cfg, ((False, False), (True, True)),
+                                f"{preset} 2-layer check", res, preset,
+                                dense_ref=True),
+            s=time.time() - t)
+        log(f"{preset} 2-layer checks: {time.time() - t:.1f} s")
+        del model
+        torch.cuda.empty_cache()
+
+    # b. full-depth OPT-6.7B: phase 7's requests, serial and through the pump
+    cfg = dataclasses.replace(get_config("opt-6.7b"), dtype="bfloat16")
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.bfloat16,
+                         device="cuda")
+    rng = np.random.default_rng(12)
+    lens = (600, 128, 37, 5)
+    prompts = {n: rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in lens + (200,)}
+    reqs = [dict(prompt=prompts[n], max_new_tokens=40) for n in lens]
+    n_lin = 4 * cfg.n_layers            # the tied head is dense
+    tiled = sum(n >= 9 for n in lens)
+    kw = dict(max_batch=4, max_seq=1024, hot=32, page=64,
+              cache_dtype=torch.bfloat16, device="cuda")
+    t_b = time.time()
+    with fused_rht(False):
+        eng = Engine(model, cfg, **kw)
+        serial = _run_engine(eng, reqs, cfg)
+        del eng
+        # K1-decode: every decode step and the 5-token prompt
+        assert serial["k1_tile"] == n_lin * tiled, serial
+        assert serial["k1_decode"] == n_lin * (
+            serial["decode_steps"] + len(lens) - tiled), serial
+        assert serial["k1_per_step"] == n_lin, serial
+        assert serial["k2"] == cfg.n_layers and serial["k3"] == 0, serial
+        # no warmup: the pump builds each chunk graph at its first use
+        # (phase 8 times warmup; a build runs the chunk eagerly once, so
+        # the tokens and counts stay exact)
+        eng = Engine(model, cfg, **kw)
+        pump = _run_pump(eng, reqs, cfg, serial["tokens"])
+        pump.update(graphs=len(eng._graphs), capture_s=eng._graphs.capture_s)
+        del eng
+        assert pump["k1_tile"] == n_lin * tiled and pump["k2"] == 32, pump
+        assert pump["k1_decode"] >= n_lin * 40, pump
+        assert pump["k1_decode"] % n_lin == 0 and pump["k3"] == 0, pump
+        t = time.time()
+        dec = {B: _pump_decode(model, cfg, rng, B) for B in (1, 4)}
+        dec_s = time.time() - t
+    torch.cuda.empty_cache()
+    log(f"OPT-6.7B (32 layers, 2-bit, dense tied head): Engine.run 4 "
+        f"requests in {serial['run_s']:.2f} s, {serial['decode_steps']} "
+        f"decode steps; launches K1-decode {serial['k1_decode']} "
+        f"({serial['k1_per_step']} a step), K1-tile {serial['k1_tile']}, K2 "
+        f"{serial['k2']}; pump: the same tokens in {pump['run_s']:.2f} s "
+        f"({pump['graphs']} graphs built in it, {pump['capture_s']:.1f} s), "
+        f"{pump['chunks']} chunks, launches "
+        f"K1-decode {pump['k1_decode']}, K1-tile {pump['k1_tile']}, K2 "
+        f"{pump['k2']}; decode timing {dec_s:.1f} s (first runs "
+        + ", ".join(f"{x['first_run_s']:.1f}" for x in dec.values())
+        + f" s); 12b {time.time() - t_b:.1f} s")
+    busy = lambda x: (f"{x['busy']:.1%}" if x["busy"]  # noqa: E731
+                      else "not measured")
+    for B, x in dec.items():
+        log(f"decode b{B} through the pump, un-fused: OPT-6.7B "
+            f"{x['ms_per_step']:.2f} ms/step [windows "
+            f"{', '.join(f'{v:.2f}' for v in x['ms_reps'])}], "
+            f"{x['device_ms']:.2f} ms of kernels a step, "
+            f"{x['kernel_launches']:.0f} launches (K1-decode "
+            f"{x['per_step']['dm_decode']:.0f}), busy {busy(x)}"
+            + ("" if llama_dec is None else
+               f"; Llama-2-7B (phase 8, this call) "
+               f"{llama_dec[(False, B)]['pump']['ms_per_step']:.2f} ms/step, "
+               f"{llama_dec[(False, B)]['pump']['device_ms']:.2f} ms of "
+               f"kernels, busy {busy(llama_dec[(False, B)]['pump'])}"))
+        for key, ms, cnt in x["top"]:
+            log(f"    {key[:60]:60s} {ms:.3f} ms/step, {cnt:.0f} "
+                f"launches/step")
+        assert round(x["per_step"]["dm_decode"]) == n_lin, x["per_step"]
+    res["opt"] = dict(serial=serial, pump=pump,
+                      decode={f"b{B}": x for B, x in dec.items()})
+    del model
+    torch.cuda.empty_cache()
+
+    # c. BLOOM-7b1 at reduced depth: ALiBi through the paged cache, int8
+    # KV, QUIP_FUSED_RHT=1, a shared prefix; serial against the pump
+    t_c = time.time()
+    cfg = dataclasses.replace(get_config("bloom-7b1"), n_layers=BLOOM_LAYERS,
+                              dtype="bfloat16")
+    model = packed_model(cfg, bits=2, seed=1, dtype=torch.bfloat16,
+                         device="cuda")
+    rng = np.random.default_rng(13)
+    bp = {n: rng.integers(0, cfg.vocab_size, n).tolist()
+          for n in lens + (200,)}
+    breqs = [dict(prompt=bp[n], max_new_tokens=40) for n in lens[1:]] + [
+        dict(prompt=bp[600], max_new_tokens=40, use_prefix=False)]
+    bkw = dict(kw, kv_quant=True, shared_prefix=bp[200])
+    with fused_rht(True):
+        eng = Engine(model, cfg, **bkw)
+        bserial = _run_engine(eng, breqs, cfg)
+        del eng
+        eng = Engine(model, cfg, **bkw)
+        bpump = _run_pump(eng, breqs, cfg, bserial["tokens"])
+        bpump.update(graphs=len(eng._graphs),
+                     capture_s=eng._graphs.capture_s)
+        del eng
+    for r in (bserial, bpump):
+        assert r["k2"] == 0 and r["k1_decode"] > 0 and r["k1_tile"] > 0, r
+    assert bserial["k3_per_step"] == 8 * cfg.n_layers, bserial
+    assert bserial["k1_per_step"] == 4 * cfg.n_layers, bserial
+    log(f"BLOOM-7b1 ({cfg.n_layers} of 30 layers, 2-bit, ALiBi, int8 KV, "
+        f"QUIP_FUSED_RHT=1, 200-token prefix for 128/37/5, 600 without): "
+        f"Engine.run in {bserial['run_s']:.2f} s, launches K1-decode "
+        f"{bserial['k1_decode']}, K1-tile {bserial['k1_tile']}, K2 "
+        f"{bserial['k2']}, K3 {bserial['k3']} ({bserial['k3_per_step']} a "
+        f"step); the pump the same greedy tokens in {bpump['run_s']:.2f} s "
+        f"({bpump['graphs']} graphs built in it), K2 {bpump['k2']}; 12c "
+        f"{time.time() - t_c:.1f} s")
+    res["bloom"] = dict(serial=bserial, pump=bpump, s=time.time() - t_c)
+    del model
+    torch.cuda.empty_cache()
+
+    # d. quantizing full-width OPT-6.7B at reduced depth
+    res["quantize"] = _quantize_family(smi)
+    phase_s = time.time() - t_phase
+    log(f"phase 12: {phase_s:.1f} s; card: {smi}")
+    res["phase_s"] = phase_s
+    RESULTS["families"] = res
+    return res
+
+
+def _quantize_family(smi: str) -> dict:
+    """Phase 12d: a dense random OPT-6.7B (nonzero biases) of
+    FAMILY_QUANT_LAYERS layers quantized as the CLI does it (fused,
+    synthetic calibration, LDLQ with incoherence; a tied head stays
+    dense); LDLQ / nearest on every linear, a bit-exact checkpoint round
+    trip, and the checkpoint's 600-token prefill through K1-tile against
+    the f32 W_hat forward."""
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.data.calib import get_loaders
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models import model as TM
+    from quip_tpu_torch.models import paged as PG
+    from quip_tpu_torch.pack.model import (load_checkpoint,
+                                           pack_quantized_model,
+                                           save_checkpoint, unpack_model)
+    from quip_tpu_torch.quantize.config import QuantConfig
+    from quip_tpu_torch.quantize.driver import quantize_model
+    from quip_tpu_torch.quantize.pipeline import quantize_layer
+
+    t0 = time.time()
+    cfg = dataclasses.replace(get_config("opt-6.7b"),
+                              n_layers=FAMILY_QUANT_LAYERS, dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = TM.fuse_params(TM.init_params(gen, cfg, device="cuda"), cfg)
+    _random_biases(params, 1)
+    calib, _ = get_loaders("synthetic", nsamples=FAMILY_QUANT_NSAMPLES,
+                           seed=0, seqlen=2048, vocab_size=cfg.vocab_size)
+    calib = torch.from_numpy(calib).cuda()
+    specs = TM.linear_specs(cfg, fused=True)
+    names = [f"layers.{li}.{sp.name}" for li in range(cfg.n_layers)
+             for sp in specs]
+    t = time.time()
+    newp, art = quantize_model(params, cfg, calib,
+                               QuantConfig.incoherence(2, "ldlq"), seed=0,
+                               chunk=4, keep_hessians=names, progress=True)
+    torch.cuda.synchronize()
+    quant_s = time.time() - t
+    ratios = {}
+    for nm in names:
+        res = art.results[nm]
+        li, sp = int(nm.split(".")[1]), {s.name: s for s in specs}[
+            nm.split(".", 2)[2]]
+        W = getattr(getattr(params.blocks[li], sp.path[0]), sp.path[1])
+        near = quantize_layer(W.t(), art.hessians[nm],
+                              QuantConfig.incoherence(2, "nearest"),
+                              rot=(res.preproc.U, res.preproc.V))
+        ratios[nm] = art.errors[nm] / float(near.error)
+    log(f"OPT-6.7B quantize ({cfg.n_layers} of 32 layers, full width, "
+        f"{FAMILY_QUANT_NSAMPLES} x 2048 synthetic windows): "
+        f"quantize_model {quant_s:.1f} s; LDLQ / nearest proxy loss "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    assert all(v < 1 for v in ratios.values()), ratios
+    assert set(art.results) == set(names), sorted(art.results)
+    packed = pack_quantized_model(newp, cfg, art, 2)
+    del params, newp, art
+    ckpt = tempfile.mkdtemp(prefix="quip_opt_ckpt_")
+    try:
+        save_checkpoint(ckpt, packed, {"model": "opt-6.7b", "wbits": 2})
+        tree, _ = load_checkpoint(ckpt)
+        loaded = params_from_numpy(tree, cfg, device="cuda")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    want_sd, got_sd = packed.state_dict(), loaded.state_dict()
+    assert list(want_sd) == list(got_sd), set(want_sd) ^ set(got_sd)
+    for k, v in want_sd.items():
+        assert v.dtype == got_sd[k].dtype and torch.equal(v, got_sd[k]), k
+    del packed, want_sd, got_sd, tree
+    prompt = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, 600))).cuda()
+    kv = PG.init_paged(1, 640 + 32, cfg, dtype=torch.bfloat16, hot=32,
+                       page=64, device="cuda")
+    _zero_counts()
+    got, _ = PG.paged_prefill_slot(loaded, prompt, 600, kv, 0, cfg)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    assert counts["k1_tile"] == 4 * cfg.n_layers, counts
+    assert counts["k2"] == cfg.n_layers, counts
+    dense = unpack_model(loaded, torch.float32)
+    del loaded, kv
+    with _env("QUIP_FLASH_PREFILL", "0"), torch.no_grad():
+        ref = TM.forward(dense, prompt, cfg)[0, -1]
+    del dense
+    torch.cuda.empty_cache()
+    err = _fro(got.float(), ref)
+    log(f"OPT-6.7B checkpoint: bit-exact round trip; its 600-token prefill "
+        f"through K1-tile ({counts['k1_tile']} launches, K2 "
+        f"{counts['k2']}) against the f32 W_hat forward: relative "
+        f"Frobenius {err:.2e} <= 5e-2; phase 12d {time.time() - t0:.1f} s")
+    assert err <= 5e-2, err
+    return dict(quant_s=quant_s, ratios=ratios, logit_err=err,
+                counts=counts, s=time.time() - t0)
+
+
+# Phase 9's calibration: the reference's defaults are 128 windows of 2048
+# tokens, chunks of 4, at full depth and width. Its budget is 300 s; past
 # it the samples are cut first (to 32), then the depth, never the width.
-QUANT_NSAMPLES = 128
+# Cut to 32 since phase 12 joined the script: the 1200 s limit.
+QUANT_NSAMPLES = 32
 QUANT_BUDGET_S = 300.0
 
 
@@ -2202,6 +2574,8 @@ def main():
         spec, _ = phase_spec(name, smi, model, cfg, prompts)
     del model
     torch.cuda.empty_cache()
+    with watchdog(600, "the families phase"):
+        fam = phase_families(name, smi, dec)
     ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
     try:
         quant = phase_quantize(name, smi, ckpt)
@@ -2215,8 +2589,12 @@ def main():
     # perplexity passes, cli/zeroshot and greedy_until); launches_spec from
     # phase 11's spec pump with the 4-layer self-draft (un-fused, bf16 KV;
     # K3's fused, int8 KV, prefix), and K1′'s there (read, not assumed:
-    # the path must not run it)
+    # the path must not run it); launches_opt from phase 12's full-depth
+    # OPT-6.7B Engine.run (un-fused: K3's is 0), K3's
+    # launches_opt_slice_fused from its fused 2-layer check,
+    # launches_bloom from its BLOOM-7b1 Engine.run (fused, int8, prefix)
     spec_u, spec_f = spec["unfused_self4"], spec["fused_int8_prefix_self4"]
+    opt, bloom = fam["opt"]["serial"], fam["bloom"]["serial"]
     kernels = [
         dict(name="dequant_matmul_decode", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_decode.cu",
@@ -2229,12 +2607,18 @@ def main():
                  "dm_decode"],
              launches_eval=ev["launches"]["k1_decode"],
              launches_spec=spec_u["k1_decode"],
+             launches_opt=opt["k1_decode"],
+             launches_bloom=bloom["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
              max_rel_err=k1["max_rel_err"], ms_b8=k1["ms_b8"],
              bound_ms_b8=k1["bound_ms_b8"], library_ms_b8=k1["library_ms_b8"],
-             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8)"),
+             ms_opt_b1=k1["ms_opt_b1"], plain_ms_opt_b1=k1["plain_ms_opt_b1"],
+             bound_ms_opt_b1=k1["bound_ms_opt_b1"],
+             library_ms_opt_b1=k1["library_ms_opt_b1"],
+             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8); "
+                   "_opt: OPT-6.7B's wqkv, wo, fc1, fc2 at B=1"),
         dict(name="dequant_matmul_tile", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
@@ -2243,6 +2627,7 @@ def main():
              launches_quantized_serve=quant["serve"]["k1_tile"],
              launches_eval=ev["launches"]["k1_tile"],
              launches_spec=spec_u["k1_tile"],
+             launches_opt=opt["k1_tile"], launches_bloom=bloom["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
@@ -2251,8 +2636,11 @@ def main():
              bound_ms_b2048=k1t["bound_ms_b2048"],
              bound_by_b2048=k1t["bound_by_b2048"],
              library_ms_b2048=k1t["library_ms_b2048"],
+             **{f"{k}_opt_b{B}": k1t[f"{k}_opt_b{B}"] for B in (600, 2048)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=600 (and "
-                   "B=2048, a perplexity window's rows)"),
+                   "B=2048, a perplexity window's rows); _opt: OPT-6.7B's "
+                   "wqkv, wo, fc1, fc2"),
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
@@ -2261,6 +2649,7 @@ def main():
              launches_quantized_serve=quant["serve"]["k2"],
              launches_eval=ev["launches"]["k2"],
              launches_spec=spec_u["k2"],
+             launches_opt=opt["k2"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],
@@ -2270,6 +2659,9 @@ def main():
              replaces="quip_tpu/kernels/rht.py:87",
              launches=conf["k3"], max_abs_err=k3_err,
              launches_spec=spec_f["k3"],
+             launches_opt=opt["k3"],
+             launches_opt_slice_fused=fam["slice_opt-6.7b"]["counts"]["k3"],
+             launches_bloom=bloom["k3"],
              launches_pump=pump["fused_int8_prefix"]["k3"],
              launches_per_token_pump=dec[(True, 1)]["pump"]["per_step"][
                  "rht_mma"],
@@ -2279,9 +2671,13 @@ def main():
              max_rel_err_f32=k3["max_rel_err_f32"],
              empty_kernel_ms=k3["empty_ms"],
              empty_kernel_in_graph_ms=k3["empty_in_graph_ms"],
+             **{f"{k}_{w}_b1": k3[f"{k}_{w}_b1"] for w in ("opt", "n16384")
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             bound_by_opt_b1=k3["bound_by_opt_b1"],
              shape="sum over the six (n, direction) pairs of a b1 decode "
                    "step: 4096 fwd/T, 11008 fwd, 12288 T, 22016 T, 32000 T; "
-                   "bf16"),
+                   "_opt: OPT-6.7B's five, 4096 fwd/T, 12288 T, 16384 "
+                   "fwd/T; _n16384: 16384 fwd + T; bf16"),
         dict(name="slabdot_matmul", route="cuda",
              source="quip_tpu_torch/kernels/csrc/slabdot_matmul.cu",
              replaces="scripts/bench_kernel.py:69",

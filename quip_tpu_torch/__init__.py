@@ -1,8 +1,8 @@
 """quip_tpu_torch: the PyTorch/CUDA port of quip_tpu.
 
-Quantizes Llama models with QuIP (calibration, incoherence processing,
-LDLQ / OPTQ rounding, packing, checkpoints: ``quantize/``, ``core/``,
-``pack/``, ``cli/quantize.py``) and serves the packed models on an NVIDIA
+Quantizes OPT, Llama and BLOOM models with QuIP (calibration, incoherence
+processing, LDLQ / OPTQ rounding, packing, checkpoints: ``quantize/``,
+``core/``, ``pack/``, ``cli/quantize.py``) and serves the packed models on an NVIDIA
 H100 through hand-written CUDA kernels (``kernels/csrc``): the packed
 dequant-matmul, the flash prefill, the fused RHT application and the
 slab-dot variant of the dequant-matmul that the kernel microbenchmark

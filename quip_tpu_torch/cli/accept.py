@@ -15,8 +15,9 @@ pass/fail JSON report.
 Everything is wired against synthetic data (`synthetic --tasks synthetic
 --weights random` runs the full matrix with zero egress, smoke-tested in
 tests/test_torch_zeroshot.py); once real weights and datasets are in the
-repository the same command produces the parity report. Hugging Face
-weights and ``--host_offload`` are not ported yet and raise.
+repository the same command produces the parity report (``--weights``
+takes a local Hugging Face directory). ``--host_offload`` is not ported
+yet and raises.
 
 Baseline schema (BASELINE.json "published" — empty until the reference
 numbers are regenerated, BASELINE.md):

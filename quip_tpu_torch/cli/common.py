@@ -2,10 +2,11 @@
 data and quantization flags of quip_tpu's CLIs, with the port's ``--device``.
 
 Ported: ``--weights random`` (a dense random model from a seeded
-generator), checkpoints of either package (``load_checkpoint_model``, for
-the CLIs' ``--load``) and the ``synthetic`` dataset. A local Hugging Face
-directory waits for ``hf_import``, and the file datasets for their files
-(ROADMAP queue 1 item 8); both raise.
+generator), ``--weights <local dir>`` (a Hugging Face checkpoint through
+``models/hf_import.py``; nothing is downloaded), checkpoints of either
+package (``load_checkpoint_model``, for the CLIs' ``--load``) and the
+``synthetic`` dataset. The file datasets wait for their files (ROADMAP
+queue 1 item 8) and raise.
 """
 from __future__ import annotations
 
@@ -22,10 +23,13 @@ from quip_tpu_torch.quantize.config import PreprocConfig, QuantConfig
 
 def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("model", type=str,
-                   help="model name/preset (e.g. llama-2-7b, llama-tiny)")
+                   help="model name/preset: opt-125m ... opt-66b, "
+                        "llama-2-7b/13b/70b, bloom-560m/1b7/7b1, or "
+                        "opt-tiny / llama-tiny / bloom-tiny")
     p.add_argument("--weights", type=str, default=None,
-                   help="'random' for a random init (the default); local "
-                        "HF checkpoints are not ported yet")
+                   help="'random' for a random init (the default), or a "
+                        "local directory of Hugging Face checkpoint files "
+                        "(*.safetensors / *.bin)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; tests pass cpu)")
     p.add_argument("--dtype", type=str, default=None,
@@ -115,14 +119,15 @@ def model_config(args):
 
 
 def load_model(args):
-    """(Model, cfg) from the CLI's model flags, on ``--device``: a random
-    model drawn from a generator on that device seeded with ``--seed``."""
-    if args.weights and args.weights != "random":
-        raise NotImplementedError(
-            f"--weights {args.weights!r}: loading Hugging Face checkpoints "
-            f"(models/hf_import.py) is not ported yet (ROADMAP queue 1 "
-            f"item 8); use --weights random")
+    """(Model, cfg) from the CLI's model flags, on ``--device``: the
+    Hugging Face checkpoint in the local directory ``--weights`` (cast to
+    the model dtype), else a random model drawn from a generator on that
+    device seeded with ``--seed``."""
     cfg, dev = model_config(args)
+    if args.weights and args.weights != "random":
+        from quip_tpu_torch.models.hf_import import load_hf_params
+        return load_hf_params(args.weights, cfg, dtype=cfg.dtype,
+                              device=dev)
     gen = torch.Generator(device=dev).manual_seed(getattr(args, "seed", 0))
     return M.init_params(gen, cfg, device=dev), cfg
 

@@ -154,7 +154,16 @@ def main(argv=None):
     cache_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
     prefix = (tokenizer.encode(args.system_prompt)
               if args.system_prompt else None)
-    eng = Engine(params, cfg, max_batch=args.max_batch, max_seq=args.max_seq,
+    max_seq = args.max_seq
+    if cfg.positions == "learned":
+        # OPT's learned table bounds a sequence, the prefix's rows included
+        # (the engine raises past it): cap the engine at the table
+        room = params.embed.positions.shape[0] - 2 - len(prefix or ())
+        if max_seq > room:
+            print(f"--max_seq {max_seq} capped at {room}: the learned "
+                  f"position table's rows", file=sys.stderr)
+            max_seq = room
+    eng = Engine(params, cfg, max_batch=args.max_batch, max_seq=max_seq,
                  kv_quant=args.kv_quant, cache_dtype=cache_dtype,
                  hot=args.hot, page=args.page, seed=args.seed, draft=draft,
                  spec_k=args.spec_k, shared_prefix=prefix,

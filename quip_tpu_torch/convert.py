@@ -23,8 +23,8 @@ import torch
 
 from quip_tpu_torch import resolve_device
 from quip_tpu_torch.models.config import ModelConfig
-from quip_tpu_torch.models.model import (MLP, Attention, Block, KVCache,
-                                         Model)
+from quip_tpu_torch.models.model import (MLP, Attention, Block, Embed,
+                                         KVCache, Model, Norm)
 from quip_tpu_torch.models.paged import PagedKV, Prefix
 from quip_tpu_torch.pack.format import PackedLinear
 
@@ -86,9 +86,12 @@ def packed_from_numpy(obj, layer: Optional[int] = None,
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
                       dtype: Optional[torch.dtype] = None) -> Model:
-    """quip_tpu params (numpy leaves) -> a port ``Model`` on ``device``.
-    Dense leaves are cast to ``dtype`` (None keeps theirs); packed planes,
-    grid scales and rotations keep int32/f32."""
+    """quip_tpu params (numpy leaves) -> a port ``Model`` on ``device``,
+    for every family: norms are ``{"scale"[, "bias"]}`` dicts,
+    ``final_ln`` None for post-norm OPT, ``embed`` holds ``tokens`` and
+    whichever of ``positions``, ``proj_in``, ``proj_out`` and ``ln`` the
+    family has. Dense leaves are cast to ``dtype`` (None keeps theirs);
+    packed planes, grid scales and rotations keep int32/f32."""
     dev = resolve_device(device)
 
     def leaf(a, layer=None):
@@ -99,18 +102,21 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
         t = _tensor(_pick(a, layer))
         return t.to(device=dev, dtype=dtype or t.dtype)
 
+    def norm(d, layer=None):
+        if d is None:
+            return None
+        return Norm(leaf(d["scale"], layer), leaf(d.get("bias"), layer))
+
     blocks = tree["blocks"]
-    L = cfg.n_layers
     mods = []
-    for l in range(L):
+    for l in range(cfg.n_layers):
         attn = {k: leaf(v, l) for k, v in blocks["attn"].items()}
         mlp = {k: leaf(v, l) for k, v in blocks["mlp"].items()}
-        mods.append(Block(leaf(blocks["ln1"]["scale"], l),
-                          leaf(blocks["ln2"]["scale"], l),
+        mods.append(Block(norm(blocks["ln1"], l), norm(blocks["ln2"], l),
                           Attention(**attn), MLP(**mlp)))
-    final = tree.get("final_ln")
-    return Model(cfg, leaf(tree["embed"]["tokens"]), mods,
-                 leaf(final["scale"]) if final is not None else None,
+    e = tree["embed"]
+    emb = Embed(*(leaf(e.get(k)) for k in Embed.TABLES), ln=norm(e.get("ln")))
+    return Model(cfg, emb, mods, norm(tree.get("final_ln")),
                  leaf(tree.get("lm_head")))
 
 

@@ -48,7 +48,7 @@ def perplexity(
     assert nwin > 0, "test stream shorter than one window"
     windows = torch.from_numpy(
         token_stream[: nwin * seqlen].reshape(nwin, seqlen).astype(np.int64))
-    dev = params.embed_tokens.device
+    dev = params.embed.tokens.device
     total = torch.zeros((), dtype=torch.float64, device=dev)
     with torch.inference_mode():
         for i in range(0, nwin, batch):

@@ -148,7 +148,7 @@ class TorchLM:
         # kv_quant: int8 KV caches in the generation engine only; scoring
         # runs the cache-free forward
         self.kv_quant = bool(kv_quant)
-        self.device = params.embed_tokens.device
+        self.device = params.embed.tokens.device
 
     def tok_encode(self, s: str) -> List[int]:
         return self.tokenizer.encode(s)
@@ -238,7 +238,7 @@ class TorchLM:
         self._gen_engine_cached = None       # free the old cache first
         self._gen_engine_cached = Engine(
             self.params, self.cfg, max_batch=4, max_seq=max_seq,
-            cache_dtype=self.params.embed_tokens.dtype,
+            cache_dtype=self.params.embed.tokens.dtype,
             kv_quant=self.kv_quant, device=self.device)
         return self._gen_engine_cached
 

@@ -2,8 +2,7 @@
 
 A copy of ``quip_tpu.models.config`` (the port never imports the JAX
 package: its ``__init__`` pulls in jax). One typed config describes the
-family differences; ``models/model.py`` serves the Llama family in this
-slice.
+family differences; ``models/model.py`` serves all three families.
 """
 from __future__ import annotations
 

@@ -1,22 +1,27 @@
-"""Decoder LM for the Llama family (port of quip_tpu/models/model.py).
+"""Decoder LM for OPT / Llama / BLOOM (port of quip_tpu/models/model.py).
 
-Parameters are ``nn.Module``s: a ``Model`` holds the embedding, the final
-norm, the lm_head and an ``nn.ModuleList`` of per-layer ``Block``s (the
-unrolled per-layer form that quip_tpu's ``paged.split_blocks`` builds by
-hand). Every linear is y = x @ W with W stored (in, out), or a
-``PackedLinear`` (pack/format.py); ``ops.qlinear.linear_apply`` dispatches.
-Attention and the norms are plain functions on tensors, named as in
-quip_tpu so each counterpart is easy to find.
+Parameters are ``nn.Module``s: a ``Model`` holds the embedding (``Embed``),
+the final norm, the lm_head and an ``nn.ModuleList`` of per-layer
+``Block``s (the unrolled per-layer form that quip_tpu's
+``paged.split_blocks`` builds by hand). The attribute names follow
+quip_tpu's tree keys (``embed.tokens``, ``embed.positions``,
+``embed.proj_in`` / ``proj_out``, ``embed.ln``, ``ln1``, ``ln2``,
+``final_ln``; a norm's ``scale`` and ``bias``). Every linear is y = x @ W
+(+ b) with W stored (in, out), or a ``PackedLinear`` (pack/format.py);
+``ops.qlinear.linear_apply`` dispatches. Attention and the norms are plain
+functions on tensors, named as in quip_tpu so each counterpart is easy to
+find.
 
-Llama only in this slice: OPT (learned positions, LayerNorm, ReLU) and
-BLOOM (ALiBi, embedding LayerNorm, GELU) raise NotImplementedError
-(ROADMAP: "OPT/BLOOM branches").
+Family specifics, as in quip_tpu: learned positions with offset 2, ReLU
+MLP and OPT-350m's post-norm and project_in/out (OPT); RoPE, RMSNorm,
+SwiGLU and GQA (Llama-2); ALiBi, the embedding LayerNorm and exact GELU
+(BLOOM). OPT and BLOOM tie the lm_head to the token table.
 """
 from __future__ import annotations
 
 import math
 import os
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -29,16 +34,6 @@ from quip_tpu_torch.ops.qlinear import linear_apply
 from quip_tpu_torch.pack.format import PackedLinear
 
 Linear = Union[torch.Tensor, PackedLinear]
-
-def check_supported(cfg: ModelConfig) -> None:
-    """The functions below implement the Llama family only."""
-    if (cfg.family != "llama" or cfg.positions != "rope" or cfg.norm != "rms"
-            or cfg.act != "silu_glu" or not cfg.do_layer_norm_before
-            or cfg.embed_proj_dim is not None or cfg.embed_layer_norm):
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is a later slice of the port "
-            f"(ROADMAP queue 1: OPT/BLOOM branches)")
-
 
 # ---------------------------------------------------------------------------
 # Modules (parameter containers)
@@ -66,9 +61,10 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """wgu (fused gate+up) or wg/wu, then wd."""
+    """SwiGLU: wgu (fused gate+up) or wg/wu, then wd. ReLU / GELU (OPT,
+    BLOOM): w1 (+ b1), then w2 (+ b2)."""
 
-    NAMES = ("wgu", "wg", "wu", "wd")
+    NAMES = ("wgu", "wg", "wu", "wd", "w1", "b1", "w2", "b2")
 
     def __init__(self, **weights):
         super().__init__()
@@ -77,29 +73,73 @@ class MLP(nn.Module):
             _set_linear(self, name, weights.get(name))
 
 
-class Block(nn.Module):
-    def __init__(self, ln1: torch.Tensor, ln2: torch.Tensor, attn: Attention,
-                 mlp: MLP):
+Convert = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _mapped(t: Optional[torch.Tensor], fn: Convert):
+    return None if t is None else fn(t)
+
+
+class Norm(nn.Module):
+    """One norm's parameters: ``scale`` (D,), and ``bias`` (D,) for a
+    LayerNorm (None for RMSNorm)."""
+
+    def __init__(self, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
         super().__init__()
-        self.register_buffer("ln1", ln1)
-        self.register_buffer("ln2", ln2)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", bias)
+
+    def mapped(self, fn: Convert) -> "Norm":
+        """A new Norm holding ``fn`` of each tensor (``to`` converts in
+        place, and norms are shared between models)."""
+        return Norm(fn(self.scale), _mapped(self.bias, fn))
+
+
+class Embed(nn.Module):
+    """The embedding: ``tokens`` (V, E); OPT's learned ``positions``
+    (max_seq + 2, D); OPT-350m's ``proj_in`` (E, D) and ``proj_out``
+    (D, E); BLOOM's embedding LayerNorm ``ln``. Absent parts are None."""
+
+    TABLES = ("tokens", "positions", "proj_in", "proj_out")
+
+    def __init__(self, tokens: torch.Tensor,
+                 positions: Optional[torch.Tensor] = None,
+                 proj_in: Optional[torch.Tensor] = None,
+                 proj_out: Optional[torch.Tensor] = None,
+                 ln: Optional[Norm] = None):
+        super().__init__()
+        for name, t in zip(self.TABLES, (tokens, positions, proj_in,
+                                         proj_out)):
+            self.register_buffer(name, t)
+        self.ln = ln
+
+    def mapped(self, fn: Convert) -> "Embed":
+        return Embed(*(_mapped(getattr(self, k), fn) for k in self.TABLES),
+                     ln=None if self.ln is None else self.ln.mapped(fn))
+
+
+class Block(nn.Module):
+    def __init__(self, ln1: Norm, ln2: Norm, attn: Attention, mlp: MLP):
+        super().__init__()
+        self.ln1 = ln1
+        self.ln2 = ln2
         self.attn = attn
         self.mlp = mlp
 
 
 class Model(nn.Module):
-    """A decoder LM: embed_tokens (V, D), blocks, final_ln (D,) and lm_head
-    ((D, V) dense or PackedLinear)."""
+    """A decoder LM: embed (``Embed``), blocks, final_ln (a ``Norm``, None
+    for OPT-350m's post-norm) and lm_head ((D, V) dense or PackedLinear;
+    None for the tied families)."""
 
-    def __init__(self, cfg: ModelConfig, embed_tokens: torch.Tensor,
-                 blocks, final_ln: torch.Tensor,
-                 lm_head: Optional[Linear] = None):
+    def __init__(self, cfg: ModelConfig, embed: Embed, blocks,
+                 final_ln: Optional[Norm], lm_head: Optional[Linear] = None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
-        self.register_buffer("embed_tokens", embed_tokens)
+        self.embed = embed
         self.blocks = nn.ModuleList(blocks)
-        self.register_buffer("final_ln", final_ln)
+        self.final_ln = final_ln
         _set_linear(self, "lm_head", lm_head)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -111,14 +151,22 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+def layer_norm(p: Norm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """quip_tpu's ``layer_norm`` (population variance). One fused kernel,
+    which accumulates in f32 for bf16 x."""
+    return F.layer_norm(x, x.shape[-1:], p.scale, p.bias, eps)
+
+
+def rms_norm(p: Norm, x: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.to(torch.float32).square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps).to(x.dtype)
-    return y * scale
+    return y * p.scale
 
 
-def norm(scale: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
-    return rms_norm(scale, x, cfg.norm_eps)
+def norm(p: Norm, x: torch.Tensor, cfg: ModelConfig):
+    if cfg.norm == "rms":
+        return rms_norm(p, x, cfg.norm_eps)
+    return layer_norm(p, x, cfg.norm_eps)
 
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor
@@ -139,6 +187,46 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     c = cos[..., None, :]
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def position_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE's (cos, sin) at ``positions`` for the rope family, else None:
+    the tables every layer of a step shares."""
+    return rope_tables(cfg, positions) if cfg.positions == "rope" else None
+
+
+def _slopes_list(n_heads: int) -> list:
+    """BLOOM's ALiBi head slopes (quip_tpu's ``alibi_slopes``): a geometric
+    series for a power-of-two head count; otherwise the nearest lower
+    power's series plus every other slope of the doubled one."""
+    def power_of_2(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        return power_of_2(n_heads)
+    closest = 2 ** math.floor(math.log2(n_heads))
+    return (power_of_2(closest)
+            + power_of_2(2 * closest)[0::2][: n_heads - closest])
+
+
+_SLOPES: Dict[Tuple[int, torch.device], torch.Tensor] = {}
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """The (n_heads,) f32 ALiBi slopes on ``device`` (the CPU by default),
+    made once per (n_heads, device) and cached: a CUDA graph's capture
+    forbids the host-to-device copy that making them costs, and every
+    graph is captured after an eager run of the same step, which fills
+    the cache. Callers must not write into the result."""
+    dev = torch.device(device or "cpu")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (n_heads, dev)
+    if key not in _SLOPES:
+        _SLOPES[key] = torch.tensor(_slopes_list(n_heads),
+                                    dtype=torch.float32, device=dev)
+    return _SLOPES[key]
 
 
 # ---------------------------------------------------------------------------
@@ -226,14 +314,18 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
               rope_cs=None, plen: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None,
               taps: Optional[dict] = None):
-    """Self-attention over the window x (B, S, D).
+    """Self-attention over the window x (B, S, D) at absolute
+    ``positions`` (B, S).
 
     ``mask`` (B, S, L) True = attend, L = S without a cache, else the
-    cache's max_len. ``plen`` (B,) is the caller's contract that the mask
-    is exactly causal & (key < plen): long prompts on the card then run the
-    flash kernel (K2). With a ``cache`` the window's post-RoPE K/V rows are
-    written into it at ``cache.length`` (in place; int8 caches quantise
-    them) and the window attends the whole cache. ``taps`` (a dict) records
+    cache's max_len (key l at position l). RoPE (``rope_cs``, made here if
+    None) rotates q and k for the rope family; ALiBi subtracts
+    slope_h · (query_pos − key_pos) from the logits. ``plen`` (B,) is the
+    caller's contract that the mask is exactly causal & (key < plen): long
+    prompts on the card then run the flash kernel (K2; never with ALiBi).
+    With a ``cache`` the window's K/V rows (after RoPE) are written into
+    it at ``cache.length`` (in place; int8 caches quantise them) and the
+    window attends the whole cache. ``taps`` (a dict) records
     the inputs of the projections, 'attn_in' and 'o_in', on both attention
     paths. Returns (out (B, S, D), kv): the cache with its length advanced,
     or without one the window's (k, v) rows."""
@@ -242,9 +334,11 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     if taps is not None:
         taps["attn_in"] = x
     q, k, v = qkv_project(p, x, cfg)
-    cos, sin = rope_cs if rope_cs is not None else rope_tables(cfg, positions)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cfg.positions == "rope":
+        cos, sin = (rope_cs if rope_cs is not None
+                    else rope_tables(cfg, positions))
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
     scale = 1.0 / math.sqrt(hd)
 
     kv = (k, v)
@@ -282,6 +376,14 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         # fold the per-(position, head) K scales in after the int8 dot
         logits = logits * ks_all.permute(0, 2, 1)[:, :, None, :].to(
             logits.dtype)
+    if cfg.positions == "alibi":
+        # the bias in f32: bf16 holds positions exactly only up to 256
+        L = logits.shape[-1]
+        slopes = alibi_slopes(H, logits.device)
+        dist = (positions[:, None, :, None].to(torch.float32)
+                - torch.arange(L, device=logits.device,
+                               dtype=torch.float32))      # (B, 1, S, L)
+        logits = logits.to(torch.float32) - slopes[None, :, None, None] * dist
     neg = torch.finfo(logits.dtype).min
     logits = logits.masked_fill(~mask[:, None], neg)
     probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
@@ -295,37 +397,66 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return out_project(p, out), kv
 
 
+def _biased(w: Linear, b: Optional[torch.Tensor], x: torch.Tensor):
+    y = linear_apply(w, x)
+    return y if b is None else y + b
+
+
 def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
         taps: Optional[dict] = None) -> torch.Tensor:
-    """SwiGLU MLP (the Llama family; Model rejects the others). ``taps``
-    records 'mlp_in' and 'down_in'."""
+    """SwiGLU (Llama), or w1 -> ReLU (OPT) / exact GELU (BLOOM) -> w2 with
+    their biases. ``taps`` records 'mlp_in' and 'down_in'."""
     if taps is not None:
         taps["mlp_in"] = x
-    if p.fused:
-        gu = linear_apply(p.wgu, x)
-        g, u = gu[..., : cfg.d_ff], gu[..., cfg.d_ff:]
+    if cfg.act == "silu_glu":
+        if p.fused:
+            gu = linear_apply(p.wgu, x)
+            g, u = gu[..., : cfg.d_ff], gu[..., cfg.d_ff:]
+        else:
+            g, u = linear_apply(p.wg, x), linear_apply(p.wu, x)
+        h = F.silu(g) * u
+        w_out, b_out = p.wd, None
     else:
-        g, u = linear_apply(p.wg, x), linear_apply(p.wu, x)
-    h = F.silu(g) * u
+        h = _biased(p.w1, p.b1, x)
+        h = F.relu(h) if cfg.act == "relu" else F.gelu(h, approximate="none")
+        w_out, b_out = p.w2, p.b2
     if taps is not None:
         taps["down_in"] = h
-    return linear_apply(p.wd, h)
+    return _biased(w_out, b_out, h)
 
 
 def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, mask: torch.Tensor, rope_cs=None,
                 plen: Optional[torch.Tensor] = None,
                 cache: Optional[KVCache] = None, with_taps: bool = False):
-    """One pre-norm decoder block. Returns (y, kv) with ``attention``'s kv
-    (the advanced cache, or the window's (k, v) rows); with ``with_taps``
-    (y, kv, taps), taps holding each linear's input ('attn_in', 'o_in',
-    'mlp_in', 'down_in'): the calibration driver's Hessian sources."""
+    """One decoder block: pre-norm, or post-norm (the norm after each
+    residual add) for ``do_layer_norm_before=False`` (OPT-350m). Returns
+    (y, kv) with ``attention``'s kv (the advanced cache, or the window's
+    (k, v) rows); with ``with_taps`` (y, kv, taps), taps holding each
+    linear's input ('attn_in', 'o_in', 'mlp_in', 'down_in'): the
+    calibration driver's Hessian sources."""
     taps: Optional[dict] = {} if with_taps else None
-    a, kv = attention(p.attn, norm(p.ln1, x, cfg), cfg, positions, mask,
-                      rope_cs, plen=plen, cache=cache, taps=taps)
-    x = x + a
-    x = x + mlp(p.mlp, norm(p.ln2, x, cfg), cfg, taps)
+    attend = lambda h: attention(  # noqa: E731
+        p.attn, h, cfg, positions, mask, rope_cs, plen=plen, cache=cache,
+        taps=taps)
+    x, kv = residual(p, x, cfg, attend,
+                     lambda h: mlp(p.mlp, h, cfg, taps))
     return (x, kv, taps) if with_taps else (x, kv)
+
+
+def residual(p: Block, x: torch.Tensor, cfg: ModelConfig, attend, ffn):
+    """The block's two residual steps around ``attend(h) -> (a, kv)`` and
+    ``ffn(h)``, pre- or post-norm as ``cfg`` says (quip_tpu's
+    ``block_apply`` and paged ``_block_step``). Returns (x, kv)."""
+    pre = cfg.do_layer_norm_before
+    a, kv = attend(norm(p.ln1, x, cfg) if pre else x)
+    x = x + a
+    if not pre:
+        x = norm(p.ln1, x, cfg)
+    x = x + ffn(norm(p.ln2, x, cfg) if pre else x)
+    if not pre:
+        x = norm(p.ln2, x, cfg)
+    return x, kv
 
 
 # ---------------------------------------------------------------------------
@@ -334,21 +465,49 @@ def block_apply(p: Block, x: torch.Tensor, cfg: ModelConfig,
 
 
 def embed(params: Model, tokens: torch.Tensor, cfg: ModelConfig,
-          positions: torch.Tensor) -> torch.Tensor:
-    return params.embed_tokens[tokens]
+          positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Token rows, then OPT-350m's project_in, OPT's learned positions
+    (row ``position + 2``; ``positions`` on the tokens' device) and BLOOM's
+    embedding LayerNorm."""
+    e = params.embed
+    x = e.tokens[tokens]
+    if cfg.embed_proj_dim is not None:
+        x = x @ e.proj_in
+    if cfg.positions == "learned":
+        x = x + e.positions[positions + 2]
+    if cfg.embed_layer_norm:
+        x = layer_norm(e.ln, x, cfg.norm_eps)
+    return x
+
+
+def check_positions(params: Model, cfg: ModelConfig, n: int) -> None:
+    """Raise if a sequence of ``n`` positions runs past OPT's learned
+    table (rows 2.., max_seq of them): the gather would index out of
+    bounds (on the card a device-side assert; quip_tpu's gather clamps to
+    the table's last row instead)."""
+    if cfg.positions == "learned":
+        room = params.embed.positions.shape[0] - 2
+        if n > room:
+            raise ValueError(f"{n} positions exceed the learned position "
+                             f"table's {room}")
 
 
 def head_input(params: Model, x: torch.Tensor, cfg: ModelConfig):
-    """Hidden states as seen by the lm_head (final norm)."""
+    """Hidden states as seen by the lm_head (final norm, then OPT-350m's
+    project_out): also the head's calibration tap."""
     if params.final_ln is not None:
         x = norm(params.final_ln, x, cfg)
+    if cfg.embed_proj_dim is not None:
+        x = x @ params.embed.proj_out
     return x
 
 
 def unembed(params: Model, x: torch.Tensor, cfg: ModelConfig):
+    """Logits; the tied families multiply by the token table (a dense
+    matmul, as quip_tpu computes it)."""
     x = head_input(params, x, cfg)
     if cfg.tie_word_embeddings:
-        return x @ params.embed_tokens.t()
+        return x @ params.embed.tokens.t()
     return linear_apply(params.lm_head, x)
 
 
@@ -360,12 +519,13 @@ def causal_mask(B: int, S: int, device=None) -> torch.Tensor:
 def forward(params: Model, tokens: torch.Tensor, cfg: ModelConfig):
     """Full-sequence forward -> logits (B, S, V)."""
     B, S = tokens.shape
+    check_positions(params, cfg, S)
     dev = tokens.device
     positions = torch.arange(S, device=dev).expand(B, S)
     mask = causal_mask(B, S, dev)
     plen = torch.full((B,), S, dtype=torch.int32, device=dev)
     x = embed(params, tokens, cfg, positions)
-    cs = rope_tables(cfg, positions)
+    cs = position_tables(cfg, positions)
     for bp in params.blocks:
         x, _ = block_apply(bp, x, cfg, positions, mask, rope_cs=cs,
                            plen=plen)
@@ -380,11 +540,12 @@ def decode_step(params: Model, tokens: torch.Tensor, caches: KVCache,
     B = tokens.shape[0]
     dev = tokens.device
     length = int(caches.length[0])           # the same for all layers
+    check_positions(params, cfg, length + 1)
     positions = torch.full((B, 1), length, dtype=torch.int64, device=dev)
     mask = (torch.arange(caches.k.shape[2], device=dev)[None, None, :]
             <= positions[:, :, None])        # (B, 1, L)
     x = embed(params, tokens, cfg, positions)
-    cs = rope_tables(cfg, positions)
+    cs = position_tables(cfg, positions)
     quantized = caches.ks is not None
     for l, bp in enumerate(params.blocks):
         cache = KVCache(caches.k[l], caches.v[l], caches.length[l],
@@ -403,17 +564,19 @@ def decode_step(params: Model, tokens: torch.Tensor, caches: KVCache,
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device="cuda") -> Model:
-    """Dense random Llama (port of quip_tpu's ``init_params``, Llama
-    branch), un-fused (wq/wk/wv, wg/wu), in ``cfg.dtype``: linears are
-    normal · fan_in^-1/2, the embedding and lm_head normal · 0.02, the norms
-    ones. Drawn from ``gen`` on its own device (a CUDA generator for a
-    full-size model), then moved to ``device``, an entry point's: the card
-    by default. The same seed on another device gives other weights."""
-    check_supported(cfg)
+    """Dense random model of any family (port of quip_tpu's
+    ``init_params``), un-fused (wq/wk/wv, wg/wu), in ``cfg.dtype``: linears
+    are normal · fan_in^-1/2 with zero biases (where the family has them),
+    the embedding tables and lm_head normal · 0.02, the norms ones (and
+    zero shifts); post-norm OPT has no final norm. Drawn from ``gen`` on
+    its own device (a CUDA generator for a full-size model), then moved to
+    ``device``, an entry point's: the card by default. The same seed on
+    another device gives other weights."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    E = cfg.embed_proj_dim or D
 
     def normal(shape, std):
         t = torch.randn(shape, generator=gen, device=gen.device) * std
@@ -422,16 +585,39 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     def lin(fan_in, fan_out):
         return normal((fan_in, fan_out), fan_in ** -0.5)
 
-    ones = lambda: torch.ones(D, dtype=dtype, device=dev)  # noqa: E731
-    embed = normal((V, D), 0.02)
-    blocks = [
-        Block(ones(), ones(),
-              Attention(wq=lin(D, H * hd), wk=lin(D, KV * hd),
-                        wv=lin(D, KV * hd), wo=lin(H * hd, D)),
-              MLP(wg=lin(D, F_), wu=lin(D, F_), wd=lin(F_, D)))
-        for _ in range(cfg.n_layers)]
+    zeros = lambda n: torch.zeros(n, dtype=dtype, device=dev)  # noqa: E731
+
+    def ln():
+        return Norm(torch.ones(D, dtype=dtype, device=dev),
+                    zeros(D) if cfg.norm == "ln" else None)
+
+    tokens = normal((V, E), 0.02)
+    emb = Embed(
+        tokens,
+        normal((cfg.max_seq + 2, D), 0.02)
+        if cfg.positions == "learned" else None,
+        *((normal((E, D), 0.02), normal((D, E), 0.02))
+          if cfg.embed_proj_dim is not None else (None, None)),
+        ln=ln() if cfg.embed_layer_norm else None)
+
+    def block():
+        attn = dict(wq=lin(D, H * hd), wk=lin(D, KV * hd),
+                    wv=lin(D, KV * hd), wo=lin(H * hd, D))
+        if cfg.attn_bias:
+            attn.update(bq=zeros(H * hd), bk=zeros(KV * hd),
+                        bv=zeros(KV * hd), bo=zeros(D))
+        if cfg.act == "silu_glu":
+            mlp_ = dict(wg=lin(D, F_), wu=lin(D, F_), wd=lin(F_, D))
+        else:
+            mlp_ = dict(w1=lin(D, F_), w2=lin(F_, D))
+            if cfg.mlp_bias:
+                mlp_.update(b1=zeros(F_), b2=zeros(D))
+        return Block(ln(), ln(), Attention(**attn), MLP(**mlp_))
+
+    blocks = [block() for _ in range(cfg.n_layers)]
     head = None if cfg.tie_word_embeddings else normal((D, V), 0.02)
-    return Model(cfg, embed, blocks, ones(), head)
+    return Model(cfg, emb, blocks,
+                 ln() if cfg.do_layer_norm_before else None, head)
 
 
 class LinearSpec(NamedTuple):
@@ -446,10 +632,10 @@ class LinearSpec(NamedTuple):
 
 
 def fuse_params(params: Model, cfg: ModelConfig) -> Model:
-    """A Model with q/k/v (and gate/up) concatenated into fused leaves
-    ``wqkv`` / ``wgu``: the same forward, one incoherence rotation and one
-    packed matmul per group once quantized. Norms and the embedding are
-    shared with ``params``."""
+    """A Model with q/k/v (and SwiGLU's gate/up) concatenated into fused
+    leaves ``wqkv`` (with ``bqkv``) / ``wgu``: the same forward, one
+    incoherence rotation and one packed matmul per group once quantized.
+    Norms, the embedding and the other MLPs are shared with ``params``."""
     blocks = []
     for b in params.blocks:
         a, m = b.attn, b.mlp
@@ -457,17 +643,16 @@ def fuse_params(params: Model, cfg: ModelConfig) -> Model:
                     bo=a.bo)
         if a.bq is not None:
             attn["bqkv"] = torch.cat([a.bq, a.bk, a.bv], dim=-1)
-        blocks.append(Block(b.ln1, b.ln2, Attention(**attn),
-                            MLP(wgu=torch.cat([m.wg, m.wu], dim=-1),
-                                wd=m.wd)))
-    return Model(cfg, params.embed_tokens, blocks, params.final_ln,
-                 params.lm_head)
+        if cfg.act == "silu_glu":
+            m = MLP(wgu=torch.cat([m.wg, m.wu], dim=-1), wd=m.wd)
+        blocks.append(Block(b.ln1, b.ln2, Attention(**attn), m))
+    return Model(cfg, params.embed, blocks, params.final_ln, params.lm_head)
 
 
 def replace_linears(b: Block, specs, new) -> Block:
     """A Block with the linear w at each spec's path replaced by
-    ``new(spec, w)``, in the order of ``specs``; the norms and every other
-    weight are shared with ``b``."""
+    ``new(spec, w)``, in the order of ``specs``; the norms, the biases and
+    every other weight are shared with ``b``."""
     parts = {"attn": {k: getattr(b.attn, k) for k in Attention.NAMES},
              "mlp": {k: getattr(b.mlp, k) for k in MLP.NAMES}}
     for spec in specs:
@@ -480,21 +665,33 @@ def replace_linears(b: Block, specs, new) -> Block:
 
 
 def linear_specs(cfg: ModelConfig, fused: bool = False) -> list:
-    """The quantizable linears of a block, in quantization order."""
-    check_supported(cfg)
+    """The quantizable linears of a block, in quantization order, under
+    each family's Hugging Face names (quip_tpu's ``linear_specs``)."""
+    L = LinearSpec
+    if cfg.act == "silu_glu":
+        mlp_specs = [L("mlp.gate_proj", ("mlp", "wg"), "mlp_in"),
+                     L("mlp.up_proj", ("mlp", "wu"), "mlp_in"),
+                     L("mlp.down_proj", ("mlp", "wd"), "down_in")]
+        fused_mlp = [L("mlp.gate_up_proj", ("mlp", "wgu"), "mlp_in"),
+                     mlp_specs[2]]
+    else:
+        mlp_specs = fused_mlp = [L("fc1", ("mlp", "w1"), "mlp_in"),
+                                 L("fc2", ("mlp", "w2"), "down_in")]
     if fused:
-        return [
-            LinearSpec("self_attn.qkv_proj", ("attn", "wqkv"), "attn_in"),
-            LinearSpec("self_attn.o_proj", ("attn", "wo"), "o_in"),
-            LinearSpec("mlp.gate_up_proj", ("mlp", "wgu"), "mlp_in"),
-            LinearSpec("mlp.down_proj", ("mlp", "wd"), "down_in"),
-        ]
-    return [
-        LinearSpec("self_attn.q_proj", ("attn", "wq"), "attn_in"),
-        LinearSpec("self_attn.k_proj", ("attn", "wk"), "attn_in"),
-        LinearSpec("self_attn.v_proj", ("attn", "wv"), "attn_in"),
-        LinearSpec("self_attn.o_proj", ("attn", "wo"), "o_in"),
-        LinearSpec("mlp.gate_proj", ("mlp", "wg"), "mlp_in"),
-        LinearSpec("mlp.up_proj", ("mlp", "wu"), "mlp_in"),
-        LinearSpec("mlp.down_proj", ("mlp", "wd"), "down_in"),
-    ]
+        return [L("self_attn.qkv_proj", ("attn", "wqkv"), "attn_in"),
+                L("self_attn.o_proj", ("attn", "wo"), "o_in")] + fused_mlp
+    if cfg.family == "bloom":
+        qkv = "self_attention.query_key_value."
+        return [L(qkv + "q", ("attn", "wq"), "attn_in"),
+                L(qkv + "k", ("attn", "wk"), "attn_in"),
+                L(qkv + "v", ("attn", "wv"), "attn_in"),
+                L("self_attention.dense", ("attn", "wo"), "o_in"),
+                L("mlp.dense_h_to_4h", ("mlp", "w1"), "mlp_in"),
+                L("mlp.dense_4h_to_h", ("mlp", "w2"), "down_in")]
+    if cfg.family not in ("opt", "llama"):
+        raise ValueError(cfg.family)
+    out = "out_proj" if cfg.family == "opt" else "o_proj"
+    return [L("self_attn.q_proj", ("attn", "wq"), "attn_in"),
+            L("self_attn.k_proj", ("attn", "wk"), "attn_in"),
+            L("self_attn.v_proj", ("attn", "wv"), "attn_in"),
+            L(f"self_attn.{out}", ("attn", "wo"), "o_in")] + mlp_specs

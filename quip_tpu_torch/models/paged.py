@@ -25,6 +25,11 @@ int8 KV (``model.quantize_kv``) composes: codes and per-(slot, position,
 head) scales live in both levels, and the scales fold around the attention
 dots as in ``model.KVCache``. A shared :class:`Prefix` (a system prompt) is
 computed once and attended first by every slot that opts in.
+
+Every family runs here: RoPE rotates the keys before they are stored;
+learned positions (OPT) enter at the embedding; ALiBi (BLOOM) biases each
+block's logits by the keys' absolute positions (the prefix's 0..P0-1, a
+slot's own rows shifted past its prefix).
 """
 from __future__ import annotations
 
@@ -100,7 +105,7 @@ def build_prefix(params: M.Model, tokens, cfg: ModelConfig,
     """Run a shared prefix once and freeze its per-layer K/V. tokens: (P,)
     or (1, P) ids. Returns (last-position logits (V,), Prefix); the prefix
     takes absolute positions 0..P-1."""
-    dev = params.embed_tokens.device
+    dev = params.embed.tokens.device
     tokens = torch.as_tensor(tokens, dtype=torch.int64).reshape(1, -1).to(dev)
     P = tokens.shape[1]
     logits, ks, vs = _prompt_kv(params, tokens,
@@ -153,11 +158,22 @@ def init_paged(batch: int, capacity: int, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 
-def _accum(state, q2, keys, vals, valid, ksc, vsc, scale: float):
+class _Alibi(NamedTuple):
+    """ALiBi's inputs to a block update: slopes (KV, rep) f32 and the
+    queries' absolute positions pos (B, S)."""
+
+    slopes: torch.Tensor
+    pos: torch.Tensor
+
+
+def _accum(state, q2, keys, vals, valid, ksc, vsc, scale: float,
+           alibi: Optional[_Alibi] = None, kpos=None):
     """One online-softmax block update (multi-query window).
 
     q2 (B, KV, rep, S, hd); keys/vals (B, T, KV, hd); valid (B, S, T);
-    ksc/vsc (B, T, KV) int8-mode scales or None.
+    ksc/vsc (B, T, KV) int8-mode scales or None; with ``alibi``, kpos
+    (B or 1, T) the keys' absolute positions and the logits lose
+    slope · (query_pos − key_pos).
     state = (m, lsum, acc) f32: (B, KV, rep, S) / same / (B, KV, rep, S, hd).
     """
     m, lsum, acc = state
@@ -165,6 +181,10 @@ def _accum(state, q2, keys, vals, valid, ksc, vsc, scale: float):
                       keys.to(q2.dtype)).to(torch.float32) * scale
     if ksc is not None:
         lg = lg * ksc.permute(0, 2, 1)[:, :, None, None, :]
+    if alibi is not None:
+        dist = (alibi.pos[:, None, None, :, None].to(torch.float32)
+                - kpos[:, None, None, None, :].to(torch.float32))
+        lg = lg - alibi.slopes[None, :, :, None, None] * dist
     vmask = valid[:, None, None, :, :]
     lg = lg.masked_fill(~vmask, _NEG)
     m_new = torch.maximum(m, lg.amax(dim=-1))
@@ -203,6 +223,7 @@ class _StepCtx(NamedTuple):
     base: torch.Tensor            # (B,) int32 on the device
     n_pages: int                  # frozen pages the loop reads
     pre_valid: Optional[torch.Tensor]   # (B, S, P0) bool, shared prefix
+    pre_len: Optional[torch.Tensor]     # (B,) prefix rows a slot attends
 
 
 def _step_ctx(caches: PagedKV, S: int, device,
@@ -224,11 +245,12 @@ def _step_ctx(caches: PagedKV, S: int, device,
     if pre_len is not None:       # opted-out slots mask the prefix entirely
         pre_valid = to((torch.arange(P0)[None, :] < pre_len[:, None])
                        [:, None, :].expand(B, S, P0))
+        pre_len = to(pre_len)
     return _StepCtx((to(slot[keep]), to(row[keep])),
                     (to(slot[keep]), to(s[keep])), to(hot_valid),
                     to(caches.base),
                     page_bucket(int(caches.base.max()), page,
-                                caches.capacity), pre_valid)
+                                caches.capacity), pre_valid, pre_len)
 
 
 def _step_ctx_dev(caches: PagedKV, S: int,
@@ -253,27 +275,29 @@ def _step_ctx_dev(caches: PagedKV, S: int,
         pre_valid = ((torch.arange(P0, device=dev)[None, :] < pre_len[:, None])
                      [:, None, :].expand(B, S, P0))
     return _StepCtx((slot, row), (slot, s), hot_valid, caches.base, n_pages,
-                    pre_valid)
+                    pre_valid, pre_len)
 
 
 def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
                      layer: int, caches: PagedKV, rope_cs, page: int,
-                     ctx: _StepCtx, prefix: Optional[Prefix]
-                     ) -> torch.Tensor:
+                     ctx: _StepCtx, prefix: Optional[Prefix],
+                     alibi: Optional[_Alibi] = None) -> torch.Tensor:
     """Window attention against (shared prefix + frozen pages + hot) for
     one layer.
 
     h (B, S, D), the S-token append window (S = 1 is plain decode). The
     window's K/V rows are written into the layer's hot ring in place at
-    each slot's hot_len (int8 caches quantise them). Returns out
-    (B, S, D)."""
+    each slot's hot_len (int8 caches quantise them). ``rope_cs`` rotates
+    q and k (the rope family; else None); ``alibi`` biases every block by
+    its keys' absolute positions. Returns out (B, S, D)."""
     B, S, _ = h.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     rep = H // KV
     q, k, v = M.qkv_project(p, h, cfg)
-    cos, sin = rope_cs
-    q = M.apply_rope(q, cos, sin)
-    k = M.apply_rope(k, cos, sin)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q = M.apply_rope(q, cos, sin)
+        k = M.apply_rope(k, cos, sin)
 
     hot_k, hot_v = caches.hot_k[layer], caches.hot_v[layer]
     hot_ks = hot_vs = None
@@ -293,13 +317,22 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
              torch.zeros((B, KV, rep, S), **f32),
              torch.zeros((B, KV, rep, S, hd), **f32))
 
+    def kpos(start, n: int):
+        """The absolute positions (B, n) of n keys from row ``start`` of a
+        slot's own rows, which sit past the prefix rows it attends."""
+        if alibi is None:
+            return None
+        row = start + torch.arange(n, device=h.device)[None, :]
+        return row if ctx.pre_len is None else row + ctx.pre_len[:, None]
+
     if prefix is not None:
         # one K/V slab read for the whole batch (positions 0..P0-1)
         ex = lambda t: t[layer][None].expand(B, *t.shape[1:])  # noqa: E731
         q8 = prefix.ks is not None
         state = _accum(state, q2, ex(prefix.k), ex(prefix.v), ctx.pre_valid,
                        ex(prefix.ks) if q8 else None,
-                       ex(prefix.vs) if q8 else None, scale)
+                       ex(prefix.vs) if q8 else None, scale, alibi,
+                       torch.arange(prefix.k.shape[1], device=h.device)[None])
 
     def page_step(state, start: int, psize: int):
         rows = (layer, slice(None), slice(start, start + psize))
@@ -311,7 +344,8 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
         # frozen rows are < base, hence before every query position
         valid = (ridx[None, :] < ctx.base[:, None])[:, None, :].expand(
             B, S, psize)
-        return _accum(state, q2, pk, pv, valid, psc, pvs, scale)
+        return _accum(state, q2, pk, pv, valid, psc, pvs, scale, alibi,
+                      kpos(start, psize))
 
     # telescoped page loop over the bucket's pages: big pages (8x) cover
     # the bulk, small pages the tail
@@ -327,7 +361,7 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
 
     # hot block: query s (hot index hlen+s) attends hot rows j <= hlen+s
     state = _accum(state, q2, hot_k, hot_v, ctx.hot_valid, hot_ks, hot_vs,
-                   scale)
+                   scale, alibi, kpos(ctx.base[:, None], caches.hot_size))
 
     _, lsum, acc = state
     out = acc / torch.clamp(lsum, min=1e-30)[..., None]
@@ -381,16 +415,23 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
     positions = (pos0[:, None]
                  + torch.arange(S, device=cdev)[None, :]).to(dev)
     x = M.embed(params, tokens, cfg, positions)
-    rope_cs = M.rope_tables(cfg, positions)
+    rope_cs = M.position_tables(cfg, positions)
+    alibi = None
+    if cfg.positions == "alibi":
+        alibi = _Alibi(M.alibi_slopes(cfg.n_heads, dev).reshape(
+            cfg.kv_heads, -1), positions)
     P0 = prefix.k.shape[1] if prefix is not None else 0
     if n_pages is None:
         ctx = _step_ctx(caches, S, dev, pre_len, P0, page)
     else:
         ctx = _step_ctx_dev(caches, S, pre_len, P0, n_pages)
     for l, bp in enumerate(params.blocks):
-        x = x + _paged_attention(bp.attn, M.norm(bp.ln1, x, cfg), cfg, l,
-                                 caches, rope_cs, page, ctx, prefix)
-        x = x + M.mlp(bp.mlp, M.norm(bp.ln2, x, cfg), cfg)
+        x, _ = M.residual(
+            bp, x, cfg,
+            lambda h, l=l, bp=bp: (_paged_attention(
+                bp.attn, h, cfg, l, caches, rope_cs, page, ctx, prefix,
+                alibi), None),
+            lambda h, bp=bp: M.mlp(bp.mlp, h, cfg))
     logits = M.unembed(params, x, cfg)
     return logits, Hot(caches.hot_k, caches.hot_v, caches.hot_len + S,
                        caches.hot_ks, caches.hot_vs)
@@ -461,11 +502,13 @@ def flush_hot_dev(caches: PagedKV, advance: bool = True) -> None:
 def _prompt_kv(params: M.Model, tokens: torch.Tensor, plen: torch.Tensor,
                cfg: ModelConfig):
     """Run the prompt through the model, returning the last real
-    position's logits (B, V) and per-layer post-RoPE K/V (B, S, KV, hd).
+    position's logits (B, V) and per-layer K/V (B, S, KV, hd), after RoPE
+    for the rope family.
 
     tokens (B, S) (right-padded); plen (B,) real lengths. Only the last
     real rows go through the lm_head."""
     B, S = tokens.shape
+    M.check_positions(params, cfg, S)
     dev = tokens.device
     plen = plen.to(device=dev, dtype=torch.int64)
     positions = torch.arange(S, device=dev).expand(B, S)
@@ -473,7 +516,7 @@ def _prompt_kv(params: M.Model, tokens: torch.Tensor, plen: torch.Tensor,
     mask = ((key[None, None, :] <= positions[:, :, None])
             & (key[None, None, :] < plen[:, None, None]))
     x = M.embed(params, tokens, cfg, positions)
-    rope_cs = M.rope_tables(cfg, positions)
+    rope_cs = M.position_tables(cfg, positions)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for bp in params.blocks:

@@ -87,7 +87,7 @@ def _replace_linears(params: M.Model, cfg: ModelConfig, new) -> M.Model:
     head = params.lm_head
     if head is not None:
         head = new("lm_head", head)
-    return M.Model(cfg, params.embed_tokens, blocks, params.final_ln, head)
+    return M.Model(cfg, params.embed, blocks, params.final_ln, head)
 
 
 def pack_quantized_model(params: M.Model, cfg: ModelConfig, artifacts,
@@ -95,7 +95,9 @@ def pack_quantized_model(params: M.Model, cfg: ModelConfig, artifacts,
     """Swap each quantized linear for a PackedLinear built from its result
     in ``artifacts`` (a QuantizedModelArtifacts); linears without codes
     stay dense. The model routes every projection through
-    ``ops.qlinear.linear_apply``, which dispatches on the leaf's type."""
+    ``ops.qlinear.linear_apply``, which dispatches on the leaf's type;
+    the biases stay beside the packed weights (``bqkv``, ``bo``, ``b1``,
+    ``b2``), where quip_tpu's tree keeps them."""
     def new(name, w):
         res = artifacts.results.get(name)
         if res is None or res.codes is None:
@@ -108,19 +110,28 @@ def unpack_model(params: M.Model, dtype=torch.float32) -> M.Model:
     """Packed -> dense: every PackedLinear becomes its dequantized (in, out)
     weight in ``dtype`` (quip_tpu's unpack_model; reference opt.py:318-348).
     torch's matmul does not promote, so every other floating buffer of the
-    model (embedding, norms, a dense head) is cast to ``dtype`` too."""
+    model (embedding tables, norms, biases, a dense head) is cast to
+    ``dtype`` too."""
+    cast = lambda t: t.to(dtype)  # noqa: E731
+
     def new(_, w):
         if isinstance(w, PackedLinear):
             return w.dequantize(dtype).t()
-        return w.to(dtype)
+        return cast(w)
 
     cfg = params.cfg
     out = _replace_linears(params, cfg, new)
-    cast = lambda t: None if t is None else t.to(dtype)  # noqa: E731
-    blocks = [M.Block(cast(b.ln1), cast(b.ln2), b.attn, b.mlp)
-              for b in out.blocks]
-    return M.Model(cfg, cast(out.embed_tokens), blocks, cast(out.final_ln),
-                   out.lm_head)
+
+    def with_cast_biases(mod, cls):      # bq/bk/bv/bqkv/bo/b1/b2
+        kids = {k: getattr(mod, k) for k in cls.NAMES}
+        return cls(**{k: cast(v) if k.startswith("b") else v
+                      for k, v in kids.items() if v is not None})
+
+    blocks = [M.Block(b.ln1.mapped(cast), b.ln2.mapped(cast),
+                      with_cast_biases(b.attn, M.Attention),
+                      with_cast_biases(b.mlp, M.MLP)) for b in out.blocks]
+    final = None if out.final_ln is None else out.final_ln.mapped(cast)
+    return M.Model(cfg, out.embed.mapped(cast), blocks, final, out.lm_head)
 
 
 # ---------------------------------------------------------------------------
@@ -171,19 +182,28 @@ def _node(w):
     return _packed_leaf(w) if isinstance(w, PackedLinear) else w
 
 
+def _norm_tree(n: Optional[M.Norm]):
+    if n is None:
+        return None
+    return {"scale": n.scale} if n.bias is None else {"scale": n.scale,
+                                                       "bias": n.bias}
+
+
 def model_tree(params: M.Model) -> Dict[str, Any]:
     """The port's Model as quip_tpu's param tree: embed / blocks (stacked)
-    / final_ln / lm_head, packed linears as PackedLeaf nodes."""
+    / final_ln / lm_head, packed linears as PackedLeaf nodes, absent parts
+    left out as quip_tpu leaves them out."""
     names = lambda mod, keys: {k: _node(getattr(mod, k))  # noqa: E731
                                for k in keys if getattr(mod, k) is not None}
-    layers = [{"ln1": {"scale": b.ln1}, "ln2": {"scale": b.ln2},
+    layers = [{"ln1": _norm_tree(b.ln1), "ln2": _norm_tree(b.ln2),
                "attn": names(b.attn, M.Attention.NAMES),
                "mlp": names(b.mlp, M.MLP.NAMES)}
               for b in params.blocks]
-    tree = {"embed": {"tokens": params.embed_tokens},
-            "blocks": _stack(layers),
-            "final_ln": (None if params.final_ln is None
-                         else {"scale": params.final_ln})}
+    embed = names(params.embed, M.Embed.TABLES)
+    if params.embed.ln is not None:
+        embed["ln"] = _norm_tree(params.embed.ln)
+    tree = {"embed": embed, "blocks": _stack(layers),
+            "final_ln": _norm_tree(params.final_ln)}
     if params.lm_head is not None:
         tree["lm_head"] = _node(params.lm_head)
     return tree

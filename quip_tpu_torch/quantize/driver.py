@@ -81,19 +81,24 @@ def _clock(dev: torch.device) -> float:
 def _block_inputs(params: M.Model, cfg: ModelConfig, tokens: torch.Tensor,
                   chunk: int = 8) -> torch.Tensor:
     """Block-0 inputs for all calibration samples (the functional Catcher,
-    opt.py:55-73). tokens: (N, S) on the model's device."""
-    return torch.cat([M.embed(params, tokens[i:i + chunk], cfg, None)
-                      for i in range(0, tokens.shape[0], chunk)])
+    opt.py:55-73), each window at positions 0..S-1 (OPT's learned table
+    reads them). tokens: (N, S) on the model's device."""
+    S = tokens.shape[1]
+    pos = torch.arange(S, device=tokens.device)
+    return torch.cat([
+        M.embed(params, tk, cfg, pos.expand(tk.shape[0], S))
+        for tk in tokens.split(chunk)])
 
 
 def _make_block_fns(cfg: ModelConfig, seqlen: int, chunk: int,
                     device: torch.device):
     """(accumulate, replay) over one chunk of windows, with the causal mask,
-    RoPE tables and ``plen`` built once for every layer."""
+    the RoPE tables (rope family) and ``plen`` built once for every
+    layer."""
     positions = torch.arange(seqlen, device=device).expand(chunk, seqlen)
     mask = M.causal_mask(chunk, seqlen, device)
     plen = torch.full((chunk,), seqlen, dtype=torch.int32, device=device)
-    cs = M.rope_tables(cfg, positions)
+    cs = M.position_tables(cfg, positions)
 
     def accumulate(layer: M.Block, inps: torch.Tensor,
                    H: Dict[str, torch.Tensor]) -> None:
@@ -165,7 +170,7 @@ def quantize_model(
     N, S = calib_tokens.shape
     if N % chunk:
         raise ValueError(f"nsamples {N} must be divisible by chunk {chunk}")
-    dev = params.embed_tokens.device
+    dev = params.embed.tokens.device
     fused = params.blocks[0].attn.fused
     specs = M.linear_specs(cfg, fused=fused)
     art = QuantizedModelArtifacts()
@@ -254,5 +259,5 @@ def quantize_model(
             print(f"[quantize] lm_head error={art.errors['lm_head']:.4f} "
                   f"t={art.times['lm_head']:.1f}s", flush=True)
 
-    return (M.Model(cfg, params.embed_tokens, new_blocks, params.final_ln,
-                    head), art)
+    return (M.Model(cfg, params.embed, new_blocks, params.final_ln, head),
+            art)

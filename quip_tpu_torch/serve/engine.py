@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from quip_tpu_torch import resolve_device
+from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models import paged as PG
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.models.model import Model
@@ -180,6 +181,9 @@ class Engine:
         sampling. A self-draft (``make_self_draft``) shares the target's
         tensors, and moving it to the device copies nothing."""
         self.device = resolve_device(device)
+        # positions run to the prefix's length + max_seq
+        M.check_positions(params, cfg, max_seq + (
+            0 if shared_prefix is None else len(shared_prefix)))
         self.params = params.to(self.device)
         self.cfg = cfg
         self.max_batch = max_batch

@@ -325,16 +325,17 @@ def make_self_draft(params: Model, cfg: ModelConfig,
 
     Returns (draft, draft cfg): a Model whose ``blocks`` is a ModuleList of
     the target's first n Block modules and whose embedding, final norm and
-    head are the target's, so no weight is copied. The draft holds the
-    target's buffer table itself, so ``.to()`` on either moves both and
-    never makes a second copy. Acceptance is the early-exit
+    head are the target's, so no weight is copied. The shared modules
+    convert in place and the draft holds the target's buffer table (a
+    dense head) itself, so ``.to()`` on either moves both and never makes
+    a second copy. Acceptance is the early-exit
     approximation's; verification keeps the emitted stream exact whatever
     the draft."""
     if not 0 < n_layers <= cfg.n_layers:
         raise ValueError(f"n_layers must be in [1, {cfg.n_layers}], "
                          f"got {n_layers}")
     dcfg = dataclasses.replace(cfg, n_layers=n_layers)
-    draft = Model(dcfg, params.embed_tokens, params.blocks[:n_layers],
+    draft = Model(dcfg, params.embed, params.blocks[:n_layers],
                   params.final_ln, params.lm_head)
     object.__setattr__(draft, "_buffers", params._buffers)
     return draft, dcfg

@@ -38,7 +38,7 @@ def worker(tree: str, batches, n_new: int, reps: int) -> dict:
     import quip_tpu_torch
     from quip_tpu_torch.kernels import _build
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.serve.engine import Engine
 
     where = os.path.dirname(os.path.abspath(quip_tpu_torch.__file__))
@@ -49,7 +49,7 @@ def worker(tree: str, batches, n_new: int, reps: int) -> dict:
                       "flash_attn", "rht"])
     build_s = time.time() - t
     cfg = get_config("llama-2-7b")
-    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.bfloat16,
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.bfloat16,
                          head_bits=2, device="cuda")
     rng = np.random.default_rng(8)
     out = dict(build_s=build_s)

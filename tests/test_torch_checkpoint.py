@@ -1,4 +1,5 @@
-"""Checkpoints and packing across the two packages (llama-tiny, float32).
+"""Checkpoints and packing across the two packages (llama-tiny and
+opt-tiny, float32).
 
 quip_tpu quantizes (quantize_model -> pack_quantized_model ->
 save_checkpoint); the port reads the checkpoint with planes bit for bit
@@ -88,7 +89,7 @@ def test_port_reads_quip_tpu_checkpoint(jax_ckpt):
     np.testing.assert_array_equal(model.lm_head.plane0.numpy(),
                                   np.asarray(jpacked["lm_head"].planes[0]))
     # the dense leaves too, and the dequantized weights
-    np.testing.assert_array_equal(model.embed_tokens.numpy(),
+    np.testing.assert_array_equal(model.embed.tokens.numpy(),
                                   np.asarray(jpacked["embed"]["tokens"]))
     ju = JPM.unpack_model(jpacked)
     tu = TPM.unpack_model(model)
@@ -127,6 +128,72 @@ def test_quip_tpu_reads_port_checkpoint(jax_ckpt, tmp_path):
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 9))
     want = np.asarray(JM.forward(tree, jnp.asarray(tokens, jnp.int32),
                                  jget_config("llama-tiny")))
+    got = model(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def jax_opt_ckpt(tmp_path_factory):
+    """quip_tpu's packed 2-bit opt-tiny (fused, nonzero biases and LN
+    shifts, tied head) and its checkpoint directory."""
+    from tests.test_torch_families import _nonzero
+    cfg = jget_config("opt-tiny")
+    tree = _nonzero(jax.tree.map(np.asarray, JM.init_params(
+        jax.random.key(2), cfg)), np.random.default_rng(2))
+    p = JM.fuse_params(jax.tree.map(jnp.asarray, tree), cfg)
+    calib, _ = get_synthetic(4, 0, 32, cfg.vocab_size)
+    new, art = jquantize_model(p, cfg, jnp.asarray(calib),
+                               JQC.incoherence(2, "ldlq"), jax.random.key(0),
+                               chunk=2)
+    packed = JPM.pack_quantized_model(new, cfg, art, 2)
+    path = str(tmp_path_factory.mktemp("jax_opt_ckpt"))
+    JPM.save_checkpoint(path, packed, {"model": "opt-tiny"})
+    return packed, path
+
+
+def test_opt_checkpoint_serves_same_tokens(jax_opt_ckpt):
+    """The port reads quip_tpu's OPT checkpoint (packed wqkv / wo / w1 /
+    w2, the biases beside them, LN scales and shifts, learned positions)
+    and its Engine serves quip_tpu's Engine's greedy tokens."""
+    jpacked, path = jax_opt_ckpt
+    cfg = get_config("opt-tiny")
+    model = params_from_numpy(TPM.load_checkpoint(path)[0], cfg,
+                              device="cpu")
+    blk = model.blocks[1]
+    assert isinstance(blk.mlp.w2, TF.PackedLinear) and blk.mlp.b2 is not None
+    np.testing.assert_array_equal(
+        blk.attn.bqkv.numpy(),
+        np.asarray(jpacked["blocks"]["attn"]["bqkv"][1]))
+    np.testing.assert_array_equal(
+        model.embed.positions.numpy(),
+        np.asarray(jpacked["embed"]["positions"]))
+    rng = np.random.default_rng(3)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                 max_new_tokens=8) for n in (5, 20, 3)]
+    kw = dict(max_batch=2, max_seq=64, hot=8, page=8)
+    want = [r.generated for r in JE.Engine(
+        jpacked, jget_config("opt-tiny"), paged=True, **kw).run(reqs)]
+    te = TE.Engine(model, cfg, device="cpu", **kw)
+    assert [r.generated for r in te.run(reqs)] == want
+
+
+def test_quip_tpu_reads_port_opt_checkpoint(jax_opt_ckpt, tmp_path):
+    """The port's OPT checkpoint has quip_tpu's tree.json layout: quip_tpu
+    reads every leaf equal and its forward gives the port's logits."""
+    jpacked, path = jax_opt_ckpt
+    cfg = get_config("opt-tiny")
+    model = params_from_numpy(TPM.load_checkpoint(path)[0], cfg,
+                              device="cpu")
+    out = str(tmp_path / "port_opt")
+    TPM.save_checkpoint(out, model, {"by": "port"})
+    with open(f"{path}/tree.json") as a, open(f"{out}/tree.json") as b:
+        import json
+        assert json.load(a)["treedef"] == json.load(b)["treedef"]
+    tree, _ = JPM.load_checkpoint(out)
+    _leaves_equal(tree, jpacked, skip_uint32=True)
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 9))
+    want = np.asarray(JM.forward(tree, jnp.asarray(tokens, jnp.int32),
+                                 jget_config("opt-tiny")))
     got = model(torch.from_numpy(tokens)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 

@@ -338,9 +338,9 @@ def test_chunk_graph_replay_matches_eager(cuda):
     chunk's tokens, hot ring, frontier and cursors bit for bit, and
     counts the launches the eager chunk counted."""
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     cfg = get_config("llama-tiny")
-    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.float32,
                          head_bits=2, device=cuda)
     eng = _engine(cuda, cfg, model, max_batch=2, max_seq=64, hot=16, page=8)
     eng.submit([5, 6, 7], max_new_tokens=20)
@@ -379,10 +379,10 @@ def test_pump_equals_serial_step(cuda, fused, monkeypatch):
     import dataclasses
 
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     monkeypatch.setenv("QUIP_FUSED_RHT", "1" if fused else "0")
     cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
-    model = packed_llama(cfg, bits=2, seed=1, dtype=torch.bfloat16,
+    model = packed_model(cfg, bits=2, seed=1, dtype=torch.bfloat16,
                          head_bits=2, device=cuda)
     g = torch.Generator().manual_seed(2)
     prompt = lambda n: torch.randint(0, cfg.vocab_size, (n,),  # noqa: E731
@@ -406,10 +406,10 @@ def test_spec_chunk_graph_replay_matches_eager(cuda):
     and counts, both hot rings, the frontier and the cursors bit for bit,
     and counts the eager chunk's launches again."""
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.serve.speculative import make_self_draft
     cfg = get_config("llama-tiny")
-    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.float32,
                          head_bits=2, device=cuda)
     eng = _engine(cuda, cfg, model, max_batch=2, max_seq=64, hot=16, page=8,
                   draft=make_self_draft(model, cfg, 1), spec_k=2)
@@ -447,12 +447,12 @@ def test_spec_pump_greedy_on_card(cuda):
     in flight) gives the plain serial loop's greedy tokens on llama-tiny
     in f32, with a self-draft and with an unrelated draft."""
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.serve.speculative import make_self_draft
     cfg = get_config("llama-tiny")
-    model = packed_llama(cfg, bits=2, seed=0, dtype=torch.float32,
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.float32,
                          head_bits=2, device=cuda)
-    other = packed_llama(cfg, bits=2, seed=1, dtype=torch.float32,
+    other = packed_model(cfg, bits=2, seed=1, dtype=torch.float32,
                          head_bits=2, device=cuda)
     kw = dict(max_batch=2, max_seq=64, hot=8, page=8)
     reqs = [dict(prompt=[1, 2, 3], max_new_tokens=25),
@@ -568,10 +568,10 @@ def test_ppl_window_packed_matches_unpacked(cuda, monkeypatch):
 
     from quip_tpu_torch.eval.ppl import window_nll
     from quip_tpu_torch.models import get_config
-    from quip_tpu_torch.models.build import packed_llama
+    from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.pack.model import unpack_model
     cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=2)
-    model = packed_llama(cfg, bits=2, seed=4, dtype=torch.bfloat16,
+    model = packed_model(cfg, bits=2, seed=4, dtype=torch.bfloat16,
                          head_bits=2, device=cuda)
     g = torch.Generator().manual_seed(4)
     tk = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g).to(cuda)

@@ -121,12 +121,6 @@ def test_paged_prefill_decode_matches(kv_heads):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["opt-tiny", "bloom-tiny"])
-def test_other_families_raise(name):
-    with pytest.raises(NotImplementedError, match="OPT/BLOOM"):
-        TM.Model(get_config(name), torch.zeros(4, 4), [], torch.ones(4))
-
-
 @pytest.mark.parametrize("module,name", [(TP, "init_paged"),
                                          (TM, "init_caches")])
 def test_cache_constructors_default_to_the_card(module, name):

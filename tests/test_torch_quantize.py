@@ -1,5 +1,6 @@
 """Port parity for the calibration + quantization driver, the data loader
-and the quantize CLI on llama-tiny, and plain properties of the solvers.
+and the quantize CLI on llama-tiny (the driver on opt-tiny too), and plain
+properties of the solvers.
 
 The driver against quip_tpu's quantize_model (float64 model, synthetic
 calibration, 4 samples of 32 tokens, quant_head), with quip_tpu's
@@ -81,11 +82,15 @@ def _jax_rotations(key, dtype=jnp.float64):
     return rot
 
 
-@pytest.mark.parametrize("fused", [False, True])
-def test_quantize_model_matches(fused):
-    jcfg = dataclasses.replace(jget_config("llama-tiny"), dtype="float64")
-    tcfg = dataclasses.replace(get_config("llama-tiny"), dtype="float64")
-    jp = JM.init_params(jax.random.key(1), jcfg)
+def _driver_both(name, fused, quant_head, tree_fn=lambda tree: tree):
+    """quip_tpu's driver and the port's (handed quip_tpu's rotations) on
+    the same float64 model of preset ``name`` and the same calibration.
+    Returns (jp, jcfg, key, jc, jart, tnew, tart)."""
+    jcfg = dataclasses.replace(jget_config(name), dtype="float64")
+    tcfg = dataclasses.replace(get_config(name), dtype="float64")
+    tree = tree_fn(jax.tree.map(np.asarray, JM.init_params(
+        jax.random.key(1), jcfg)))
+    jp = jax.tree.map(jnp.asarray, tree)
     if fused:
         jp = JM.fuse_params(jp, jcfg)
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
@@ -93,12 +98,19 @@ def test_quantize_model_matches(fused):
     key = jax.random.key(0)
     jc = JQC.incoherence(2, "ldlq")
     jnew, jart = JD.quantize_model(jp, jcfg, jnp.asarray(calib), jc, key,
-                                   chunk=2, quant_head=True)
+                                   chunk=2, quant_head=quant_head)
     tnew, tart = TD.quantize_model(tp, tcfg, torch.from_numpy(calib),
                                    t_cfg(jc), rotations=_jax_rotations(key),
-                                   chunk=2, quant_head=True,
+                                   chunk=2, quant_head=quant_head,
                                    keep_hessians=True)
     assert sorted(tart.results) == sorted(jart.results)
+    return jp, jcfg, key, jc, jart, tnew, tart
+
+
+def _codes_and_plumbing(jp, jcfg, key, jc, jart, tart, fused):
+    """Per linear: the port's codes against quip_tpu's (returns the share
+    equal) and against quip_tpu's quantize_layer on the Hessian the port's
+    driver kept (bit for bit)."""
     equal = total = 0
     for name, jr in jart.results.items():
         got, want = tart.results[name].codes.numpy(), np.asarray(jr.codes)
@@ -108,7 +120,6 @@ def test_quantize_model_matches(fused):
         total += got.size
         np.testing.assert_allclose(tart.errors[name], jart.errors[name],
                                    rtol=5e-2, err_msg=name)
-        # the plumbing: quip_tpu's quantize_layer on the port's Hessian
         W = (jp["lm_head"] if name == "lm_head" else
              _jax_weight(jp, jcfg, name, fused))
         lkey = jax.random.fold_in(key, jname_salt(name))
@@ -116,7 +127,15 @@ def test_quantize_model_matches(fused):
             jnp.asarray(W).T, jnp.asarray(tart.hessians[name].numpy()), lkey)
         np.testing.assert_array_equal(got, np.asarray(ref.codes),
                                       err_msg=name)
-    assert equal / total >= 0.95, equal / total
+    return equal / total
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_quantize_model_matches(fused):
+    jp, jcfg, key, jc, jart, tnew, tart = _driver_both("llama-tiny", fused,
+                                                       True)
+    share = _codes_and_plumbing(jp, jcfg, key, jc, jart, tart, fused)
+    assert share >= 0.95, share
     # the new model holds W_hat (in, out) in the model's dtype
     wd = tnew.blocks[1].mlp.wd
     assert wd.dtype == torch.float64
@@ -124,6 +143,45 @@ def test_quantize_model_matches(fused):
         wd.numpy(), tart.results["layers.1.mlp.down_proj"].W_hat.numpy().T)
     assert set(tart.phase_times) == {"layers.0", "layers.1"}
     assert set(tart.times) == {"layers.0", "layers.1", "lm_head"}
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_quantize_model_matches_opt(fused):
+    """opt-tiny with nonzero biases and LayerNorm shifts: learned
+    positions in the calibration windows, the fc1 / fc2 taps, biases kept
+    as they were beside the quantized weights."""
+    from tests.test_torch_families import _nonzero
+    jp, jcfg, key, jc, jart, tnew, tart = _driver_both(
+        "opt-tiny", fused, False,
+        lambda tree: _nonzero(tree, np.random.default_rng(1)))
+    assert sorted({n.split(".", 2)[2] for n in tart.results}) == (
+        ["fc1", "fc2", "self_attn.o_proj", "self_attn.qkv_proj"] if fused
+        else ["fc1", "fc2", "self_attn.k_proj", "self_attn.out_proj",
+              "self_attn.q_proj", "self_attn.v_proj"])
+    share = _codes_and_plumbing(jp, jcfg, key, jc, jart, tart, fused)
+    assert share == 1.0, share
+    b = tnew.blocks[1]
+    np.testing.assert_array_equal(b.mlp.b1.numpy(),
+                                  np.asarray(jp["blocks"]["mlp"]["b1"][1]))
+    np.testing.assert_array_equal(
+        b.mlp.w2.numpy(), tart.results["layers.1.fc2"].W_hat.numpy().T)
+
+
+def test_quant_head_on_a_tied_family_raises():
+    """Both packages refuse to quantize a tied lm_head (OPT, BLOOM)."""
+    calib, _ = JC.get_synthetic(2, 0, 16, 512)
+    for name in ("opt-tiny", "bloom-tiny"):
+        jcfg, tcfg = jget_config(name), get_config(name)
+        with pytest.raises(ValueError, match="untied"):
+            JD.quantize_model(JM.init_params(jax.random.key(0), jcfg), jcfg,
+                              jnp.asarray(calib), JQC.incoherence(2, "ldlq"),
+                              jax.random.key(0), chunk=2, quant_head=True)
+        tp = TM.init_params(torch.Generator().manual_seed(0), tcfg,
+                            device="cpu")
+        with pytest.raises(ValueError, match="untied"):
+            TD.quantize_model(tp, tcfg, torch.from_numpy(calib),
+                              TQC.incoherence(2, "ldlq"), chunk=2,
+                              quant_head=True)
 
 
 def _jax_weight(jp, jcfg, name, fused):
@@ -181,11 +239,14 @@ def test_cli_quantize_packed(tmp_path):
                                    atol=1e-5)
     x = torch.randint(0, cfg.vocab_size, (1, 12))
     torch.testing.assert_close(model(x), newp(x), rtol=1e-4, atol=1e-4)
-    for flag in (["--dp", "2"], ["--resume_dir", "x"], ["--host_offload"],
-                 ["--weights", "/some/hf/dir"]):
+    for flag in (["--dp", "2"], ["--resume_dir", "x"], ["--host_offload"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             CLI.main(["llama-tiny", "synthetic", "--wbits", "2",
                       "--device", "cpu", *flag])
+    # Hugging Face weights load from a local directory only
+    with pytest.raises(FileNotFoundError, match="must be local"):
+        CLI.main(["llama-tiny", "synthetic", "--wbits", "2", "--device",
+                  "cpu", "--weights", "/some/hf/dir"])
 
 
 # ---------------------------------------------------------------------------

@@ -196,6 +196,18 @@ def test_serve_cli_stop_eos(ckpt):
     assert reqs[0].stop == [7, 0]
 
 
+@pytest.mark.parametrize("model", ["opt-tiny", "bloom-tiny"])
+def test_serve_cli_default_max_seq(model, capsys):
+    """The default --max_seq (512) serves every family: OPT's engine is
+    capped at its learned position table (128 rows for opt-tiny), which
+    quip_tpu's gather would run past; ALiBi has no table to cap at."""
+    reqs = tcli.main([model, "--device", "cpu", "--max_new_tokens", "3",
+                      "--prompt", "Hi", "--no_chunked"])
+    err = capsys.readouterr().err
+    assert len(reqs[0].generated) == 4
+    assert ("capped at 128" in err) == (model == "opt-tiny"), err
+
+
 @pytest.mark.parametrize("flags", [["--no_paged"], ["--tp", "2"],
                                    ["--dp", "2"],
                                    ["--self_draft", "1", "--spec_draft", "x"]])

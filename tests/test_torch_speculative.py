@@ -156,10 +156,12 @@ def test_make_self_draft_shares_storage(tiny):
     assert dcfg.n_layers == 1 and len(draft.blocks) == 1
     assert draft.blocks[0] is tparams.blocks[0]
     assert draft.lm_head is tparams.lm_head
-    for name in ("embed_tokens", "final_ln"):
-        assert (getattr(draft, name).data_ptr()
-                == getattr(tparams, name).data_ptr())
-    assert draft.to("cpu").embed_tokens is tparams.embed_tokens
+    assert draft.embed is tparams.embed
+    assert draft.final_ln is tparams.final_ln
+    for mine, theirs in ((draft.embed.tokens, tparams.embed.tokens),
+                         (draft.final_ln.scale, tparams.final_ln.scale)):
+        assert mine.data_ptr() == theirs.data_ptr()
+    assert draft.to("cpu").embed.tokens is tparams.embed.tokens
     with pytest.raises(ValueError):
         SP.make_self_draft(tparams, tcfg, tcfg.n_layers + 1)
     jd, jdcfg = JS.make_self_draft(jparams, jcfg, 1)
