@@ -17,7 +17,10 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      bound and library (torch.matmul of the dequantised bf16 weight) times,
      and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover); then
      OPT-6.7B's four shapes (fc2 at d = 16384) at B = 1, 4, 8, 9, 32, 37,
-     128, 600 and 2048, timed at all but 32, 37 and 128;
+     128, 600 and 2048, timed at all but 32, 37 and 128; then 3-bit codes
+     at the five Llama-2-7B shapes as two planes and widened to 4-bit
+     fields (code_bits=3, by ``widen_3bit``), each against its plain version and against the other at
+     B = 1 (K1-decode) and 600 (K1-tile), timed beside their bounds;
   3. K2 (flash_prefill) against its plain version (B=2, H=32, S=600,
      plen=[600, 431]; GQA H=64, KV=8 and H=32, KV=8; S = 513 with a row of
      plen 1; S = 1000 and 2048), with SDPA as the library yardstick;
@@ -72,8 +75,8 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      the CPU f32 plain path as in phase 6; full-depth 2-bit OPT-6.7B
      serving phase 7's requests through the serial ``Engine.run`` and the
      pump, whose chunk graphs are built at first use, not warmed (greedy
-     tokens equal, launches counted exactly), b1 and b4 pump
-     decode beside phase 8's Llama-2-7B; BLOOM-7b1 at 4 layers (ALiBi,
+     tokens equal, launches counted exactly), b1 pump decode (the b4
+     window cut for phases 13-15) beside phase 8's Llama-2-7B; BLOOM-7b1 at 4 layers (ALiBi,
      int8 KV, QUIP_FUSED_RHT=1, a 200-token prefix) serial against the
      pump, K2 never launched; a 2-layer full-width OPT-6.7B quantized (32
      synthetic windows, LDLQ), LDLQ / nearest below 1 on every linear, a
@@ -97,6 +100,21 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      against dense attention; ``cli/zeroshot.main`` (synthetic, piqa,
      arc_easy over synthetic docs), a few requests against the unpacked
      model, and ``TorchLM.greedy_until`` through the Engine (K1-decode).
+ 13. (run right after phase 8, on phase 7's model) the slot arena,
+     ``Engine(paged=False)``: phase 7's 4 requests through the serial
+     ``run()`` (un-fused, bf16 arena; each greedy token held to phase 11's
+     teacher-forced check), ``warmup()`` (seconds, graphs), the same
+     requests through ``run(chunked=True)`` (chunk graphs) with the serial
+     run's tokens, launches by kernel (K2 and K1' read 0), ms a step with
+     1 and 4 of the 4 slots busy beside phase 8's pump; then
+     QUIP_FUSED_RHT=1 with an int8 arena, serial, K3's launches read;
+ 14. (after phase 12) a full-width 3-bit Llama-2-7B of W3_LAYERS layers
+     through the arena Engine, widened at load (seconds a layer) and with QUIP_NO_WIDEN3=1, both held to the
+     teacher-forced check against the two-plane model;
+ 15. (after phase 10, on phase 9's checkpoint) the decode-benchmark CLI,
+     ``cli/bench.main`` at --batch 1 and 4, arena and --paged, --check;
+     its JSON lines printed, every slot's greedy stream held to phase
+     11's teacher-forced check.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -348,6 +366,7 @@ def phase_k1(name: str):
         "opt-6.7b", {"wqkv": (12288, 4096), "wo": (4096, 4096),
                      "fc1": (16384, 4096), "fc2": (4096, 16384)},
         (1, 4, 8, 9, 32, 37, 128, 600, 2048), opt_timed)
+    w3 = _k1_widened(name, dev, g, scale, planes_for, check)
     for B in opt_timed:
         t = opt_sums[B]
         log(f"K1 sum of OPT-6.7B's four shapes, B={B:4d}: {t['ms']:.4f} ms, "
@@ -394,15 +413,96 @@ def phase_k1(name: str):
               ms_b8=sums[8]["ms"], bound_ms_b8=sums[8]["bound_ms"],
               library_ms_b8=sums[8]["library_ms"],
               **{f"{k}_opt_b1": v for k, v in opt_sums[1].items()},
-              bound_by_opt_b1=opt_by[1].pop())
+              bound_by_opt_b1=opt_by[1].pop(), **w3[1])
     k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
                max_abs_err=worst["tile"], bound_by=bound_by[600].pop(),
                **{f"{k}_b2048": v for k, v in sums[2048].items()},
                bound_by_b2048=bound_by[2048].pop(),
                **{f"{k}_opt_b600": v for k, v in opt_sums[600].items()},
                **{f"{k}_opt_b2048": v for k, v in opt_sums[2048].items()},
-               bound_by_opt_b600=opt_by[600].pop())
+               bound_by_opt_b600=opt_by[600].pop(), **w3[600])
     return k1, k1t
+
+
+LLAMA_SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096),
+                "wgu": (22528, 4096), "wd": (4096, 11008),
+                "lm_head": (32000, 4096)}
+
+
+def _k1_widened(name: str, dev, g, scale, planes_for, check) -> dict:
+    """Phase 2's 3-bit layouts: random 3-bit codes at the five Llama-2-7B
+    shapes as quip_tpu's two planes (2 + 1 bits) and widened to one plane
+    of 4-bit fields (``code_bits=3``, Engine's default at load), each
+    through ``check`` (its plain version, at B = 1 for K1-decode and 600
+    for K1-tile) and the widened output against the two planes' (the same
+    codes: 1e-3 of max |y|, the summation order). Kernel,
+    plain, bound and torch.matmul times of both. Returns, by B, the sums
+    as the ``kernels`` line's ``*_w3_b{B}`` (widened) and ``*_3bit_b{B}``
+    (two planes) keys."""
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.pack import format as PF
+    from quip_tpu_torch.utils.timing import time_ms
+
+    lays = {"3bit": dict(bits=3), "w3": dict(bits=4, code_bits=3)}
+    sums = {B: {f"{k}_{lay}_b{B}": 0.0 for lay in lays
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            for B in (1, 600)}
+    rows, worst = [], 0.0
+    for sname, (m, d) in LLAMA_SHAPES.items():
+        pbytes = {"3bit": d * 3 * m // 8, "w3": d * 4 * m // 8}
+        ncopy = max(1, math.ceil(120e6 / pbytes["3bit"]))
+        copies = {"3bit": [planes_for(m, d, 3) for _ in range(ncopy)]}
+        copies["w3"] = [PF.widen_3bit(PF.PackedLinear(
+            c, scale_b=scale, bits=3, qfn="b", proj_mode="rht",
+            out_features=m, in_features=d)).planes for c in copies["3bit"]]
+        W = DM.dequant_weight(copies["3bit"][0], scale, None, bits=3,
+                              d=d).to(torch.bfloat16)
+        for B in (1, 600):
+            x = torch.randn(B, d, device=dev, generator=g).bfloat16()
+            for lay, kw in lays.items():
+                check(x, copies[lay][0], scale, None, (lay, sname, B), **kw)
+            ys = [DM.dequant_matmul(x.float(), copies[lay][0], scale, None,
+                                    **kw) for lay, kw in lays.items()]
+            _, rel = rel_err(ys[1], ys[0])
+            assert rel <= 1e-3, (sname, B, rel)
+            worst = max(worst, rel)
+            lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
+            row = dict(shape=sname, m=m, d=d, B=B, widened_vs_two_planes=rel,
+                       library_ms=lib)
+            for lay, kw in lays.items():
+                ms = time_ms([lambda c=c: DM.dequant_matmul(
+                    x, c, scale, None, **kw) for c in copies[lay]],
+                    20 if B == 1 else 5)
+                plain = time_ms([lambda: DM.dequant_matmul_ref(
+                    x, copies[lay][0], scale, None, **kw)], 2)
+                bms, by = bound_ms(B * d * 2 + pbytes[lay] + B * m * 2,
+                                   2 * B * d * m, name)
+                row.update({f"ms_{lay}": ms, f"plain_ms_{lay}": plain,
+                            f"bound_ms_{lay}": bms, f"bound_by_{lay}": by})
+                for k, v in (("ms", ms), ("plain_ms", plain),
+                             ("bound_ms", bms), ("library_ms", lib)):
+                    sums[B][f"{k}_{lay}_b{B}"] += v
+            rows.append(row)
+            log(f"K1 3-bit {sname:8s} {m}x{d} B={B:4d}: two planes "
+                f"{row['ms_3bit']:.4f} ms (bound {row['bound_ms_3bit']:.4f}"
+                f" {row['bound_by_3bit']}), widened {row['ms_w3']:.4f} ms "
+                f"(bound {row['bound_ms_w3']:.4f} {row['bound_by_w3']}); "
+                f"torch.matmul bf16 {lib:.4f} ms; widened vs two planes "
+                f"{rel:.1e}")
+        del copies, W
+        torch.cuda.empty_cache()
+    for B, t in sums.items():
+        log(f"K1 3-bit sum of the five shapes, B={B:4d}: two planes "
+            f"{t[f'ms_3bit_b{B}']:.4f} ms (bound "
+            f"{t[f'bound_ms_3bit_b{B}']:.4f}), widened "
+            f"{t[f'ms_w3_b{B}']:.4f} ms (bound {t[f'bound_ms_w3_b{B}']:.4f});"
+            f" plain {t[f'plain_ms_3bit_b{B}']:.3f} / "
+            f"{t[f'plain_ms_w3_b{B}']:.3f} ms, torch.matmul bf16 "
+            f"{t[f'library_ms_w3_b{B}']:.4f} ms")
+    RESULTS["k1_3bit"] = dict(rows=rows, sums={str(B): t for B, t in
+                                               sums.items()},
+                              widened_vs_two_planes=worst)
+    return sums
 
 
 def phase_k2(name: str):
@@ -1015,7 +1115,7 @@ def _serial_decode(model, cfg, rng, B=1, n_steps=48, n_prof=4):
 
     def engine(n_new):
         e = Engine(model, cfg, max_batch=B, max_seq=1024, hot=32, page=64,
-                   cache_dtype=torch.bfloat16, device="cuda")
+                   cache_dtype=torch.bfloat16, paged=True, device="cuda")
         for _ in range(B):
             e.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
                      max_new_tokens=n_new)
@@ -1066,7 +1166,7 @@ def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
     from quip_tpu_torch.serve.engine import Engine
 
     e = Engine(model, cfg, max_batch=B, max_seq=1024, hot=32, page=64,
-               cache_dtype=torch.bfloat16, device="cuda")
+               cache_dtype=torch.bfloat16, paged=True, device="cuda")
     prompts = [rng.integers(0, cfg.vocab_size, 37).tolist()
                for _ in range(B)]
     t = time.time()
@@ -1127,7 +1227,7 @@ def phase_serve(name: str, smi: str):
 
     # --- the first slice's path: un-fused RHT, bf16 KV, no prefix ---------
     eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
-                 cache_dtype=torch.bfloat16, device="cuda")
+                 cache_dtype=torch.bfloat16, paged=True, device="cuda")
     reqs = [dict(prompt=prompts[n], max_new_tokens=40)
             for n in (600, 128, 37, 5)]
     with fused_rht(False):
@@ -1179,7 +1279,7 @@ def phase_serve(name: str, smi: str):
     with fused_rht(True):
         eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
                      cache_dtype=torch.bfloat16, kv_quant=True,
-                     shared_prefix=prompts[200], device="cuda")
+                     shared_prefix=prompts[200], paged=True, device="cuda")
         reqs = [dict(prompt=prompts[n], max_new_tokens=40) for n in
                 (128, 37, 5)] + [dict(prompt=prompts[600], max_new_tokens=40,
                                       use_prefix=False)]
@@ -1266,7 +1366,7 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     steps = 40        # decode steps of phase 7's requests
     with fused_rht(False):
         eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
-                     cache_dtype=torch.bfloat16, device="cuda")
+                     cache_dtype=torch.bfloat16, paged=True, device="cuda")
         w = warm(eng)
         reqs = [dict(prompt=prompts[n], max_new_tokens=40)
                 for n in (600, 128, 37, 5)]
@@ -1279,7 +1379,7 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     with fused_rht(True):
         eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
                      cache_dtype=torch.bfloat16, kv_quant=True,
-                     shared_prefix=prompts[200], device="cuda")
+                     shared_prefix=prompts[200], paged=True, device="cuda")
         w = warm(eng)
         reqs = [dict(prompt=prompts[n], max_new_tokens=40) for n in
                 (128, 37, 5)] + [dict(prompt=prompts[600], max_new_tokens=40,
@@ -1335,6 +1435,406 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     return res, dec
 
 
+def _run_arena(eng, reqs, cfg, chunked: bool = False):
+    """``eng.run(reqs, chunked=...)`` on an arena engine with every kernel's
+    count set to 0 just before and read just after; checks finite logits
+    (every arena step and prefill), token ranges and lengths. The serial
+    run also counts each decode step's K1 and K3 launches."""
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import rht as K3
+    from quip_tpu_torch.serve import arena as AR
+
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    orig = (AR.slot_attention_step, AR.arena_prefill)
+    per_step = []
+
+    def checked(fn, step=False):
+        def run(*a, **kw):
+            before = (DM.launches, K3.launches)
+            out = fn(*a, **kw)
+            finite.logical_and_(torch.isfinite(out).all())
+            if step and not chunked:
+                per_step.append((DM.launches - before[0],
+                                 K3.launches - before[1]))
+            return out
+        return run
+
+    AR.slot_attention_step = checked(orig[0], step=True)
+    AR.arena_prefill = checked(orig[1])
+    try:
+        _zero_counts()
+        t = time.time()
+        out = eng.run([dict(r) for r in reqs], chunked=chunked)
+        torch.cuda.synchronize()
+        run_s = time.time() - t
+        counts = _read_counts()
+    finally:
+        AR.slot_attention_step, AR.arena_prefill = orig
+    for r, q in zip(out, reqs):
+        assert len(r.generated) == q["max_new_tokens"] + 1, (r.uid,
+                                                             len(r.generated))
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
+    assert bool(finite), "NaN/inf logits"
+    res = dict(counts, tokens=[r.generated for r in out], run_s=run_s)
+    if per_step:
+        res.update(decode_steps=len(per_step),
+                   k1_per_step=min(x[0] for x in per_step),
+                   k3_per_step=min(x[1] for x in per_step))
+    return res
+
+
+def _arena_decode(eng, rng, cfg, n_active: int, n_new: int = 64,
+                  reps: int = 3):
+    """Decode on a warmed arena engine with ``n_active`` of its slots busy
+    (37-token prompts, ``n_new`` new tokens a slot): ``reps`` windows, each
+    from just after the admission and first chunk of a fresh batch to its
+    end (chunk graph replays), host ms a step (one token a slot), the
+    median kept; then one more window under torch.profiler (CUPTI sees a
+    replayed graph's kernels): kernels' device ms, launches and aten ops a
+    step, busy share = device ms over the median step."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(ctx=contextlib.nullcontext):
+        for _ in range(n_active):
+            eng.submit(rng.integers(0, cfg.vocab_size, 37).tolist(),
+                       max_new_tokens=n_new)
+        eng.step_chunk()              # admission and the first chunk
+        torch.cuda.synchronize()
+        with ctx() as prof:
+            t, n = time.perf_counter(), 0
+            while any(s is not None for s in eng._slots):
+                n += eng.step_chunk()
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n, n, prof
+
+    ms = [window()[0] for _ in range(reps)]
+    med = statistics.median(ms)
+    _, n, prof = window(lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    dev_ms, launches, aten, top = _kernel_table(prof, n)
+    return dict(ms_per_step=med, ms_reps=ms, steps_per_window=n,
+                tok_s=n_active * 1e3 / med, device_ms=dev_ms,
+                kernel_launches=launches, aten_ops=aten,
+                busy=dev_ms / med if dev_ms else None, top=top,
+                per_step=_kernels_named(prof, n))
+
+
+def phase_arena(name: str, smi: str, model, cfg, prompts, dec):
+    """Phase 13 (after phase 8, on phase 7's model): the slot arena,
+    ``Engine(paged=False)``, quip_tpu's default cache. Phase 7's four
+    requests through the serial ``run()``, un-fused with a bf16 arena,
+    each greedy token held to phase 11's teacher-forced check; ``warmup()``
+    (seconds, graphs); the same requests through ``run(chunked=True)``
+    (each chunk a graph replay), the greedy tokens equal to the serial
+    run's; launches by kernel (K2 and K1' must read 0: the arena prefill is
+    dense, as in quip_tpu); ms a step with 1 and with 4 of the 4 slots
+    busy beside phase 8's paged pump (``dec``); then QUIP_FUSED_RHT=1 with
+    an int8 arena, the serial run, K3's launches read, and the same run
+    with two planted faults (``_arena_faults``)."""
+    from quip_tpu_torch.serve.engine import Engine
+
+    t_phase = time.time()
+    reqs = [dict(prompt=prompts[n], max_new_tokens=40)
+            for n in (600, 128, 37, 5)]
+    steps = 40
+    kw = dict(max_batch=4, max_seq=1024, cache_dtype=torch.bfloat16,
+              device="cuda")
+    res = {}
+    with fused_rht(False):
+        eng = Engine(model, cfg, **kw)
+        assert not eng.paged
+        serial = _run_arena(eng, reqs, cfg)
+        serial["exact"], serial["worst_gap"] = _spec_exactness(
+            model, cfg, reqs, serial["tokens"], None, tol=SPEC_TOL[False])
+        t = time.time()
+        eng.warmup()
+        torch.cuda.synchronize()
+        g = eng._graphs
+        warm = dict(warmup_s=time.time() - t, graphs=len(g),
+                    capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20)
+        chunked = _run_arena(eng, reqs, cfg, chunked=True)
+        assert chunked["tokens"] == serial["tokens"], [
+            sum(a != b for a, b in zip(x, y))
+            for x, y in zip(chunked["tokens"], serial["tokens"])]
+        rng = np.random.default_rng(13)
+        timing = {B: _arena_decode(eng, rng, cfg, B) for B in (1, 4)}
+        del eng
+        torch.cuda.empty_cache()
+    for r in (serial, chunked):
+        assert r["k2"] == 0 and r["k1p"] == 0 and r["k3"] == 0, r
+        assert r["k1_tile"] == 128 * 3, r      # the three prompts of >= 9
+        assert r["k1_decode"] >= 129 * steps, r
+    assert serial["k1_per_step"] == 129 and serial["decode_steps"] == steps
+    with fused_rht(True):
+        eng = Engine(model, cfg, kv_quant=True, **kw)
+        fused = _run_arena(eng, reqs, cfg)
+        del eng
+        torch.cuda.empty_cache()
+    fused["exact"], fused["worst_gap"] = _spec_exactness(
+        model, cfg, reqs, fused["tokens"], None, tol=SPEC_TOL[True])
+    with fused_rht(True):
+        fused["faults"] = _arena_faults(model, cfg, reqs,
+                                        dict(kw, kv_quant=True))
+    assert fused["k3_per_step"] == 258 and fused["k1_per_step"] == 129, fused
+    assert fused["k3"] >= 258 * steps and fused["k2"] == 0, fused
+    assert fused["k1p"] == 0, fused
+    res = dict(serial=serial, chunked=chunked, fused_int8=fused,
+               decode={f"b{B}": x for B, x in timing.items()}, **warm)
+    log(f"arena (Engine(paged=False), bf16, un-fused): phase 7's 4 requests "
+        f"through run() in {serial['run_s']:.2f} s, {serial['decode_steps']}"
+        f" decode steps; exactness {serial['exact']:.1%} argmax, worst gap "
+        f"{serial['worst_gap']:.2e} <= {SPEC_TOL[False]:.0e}; launches "
+        f"K1-decode {serial['k1_decode']} ({serial['k1_per_step']} a step), "
+        f"K1-tile {serial['k1_tile']}, K2 {serial['k2']}, K3 {serial['k3']},"
+        f" K1' {serial['k1p']}")
+    log(f"arena warmup {warm['warmup_s']:.1f} s ({warm['graphs']} graphs, "
+        f"{warm['capture_s']:.1f} s building them, pool "
+        f"{warm['pool_mib']:.1f} MiB); run(chunked=True): the same greedy "
+        f"tokens in {chunked['run_s']:.2f} s; launches K1-decode "
+        f"{chunked['k1_decode']}, K1-tile {chunked['k1_tile']}, K2 "
+        f"{chunked['k2']}, K1' {chunked['k1p']}")
+    log(f"arena, QUIP_FUSED_RHT=1, int8: run() in {fused['run_s']:.2f} s; "
+        f"exactness {fused['exact']:.1%}, worst gap {fused['worst_gap']:.2e}"
+        f" <= {SPEC_TOL[True]:.0e} (planted faults: lengths unpushed "
+        f"{fused['faults']['unpushed']:.3f}, K/V rows one early "
+        f"{fused['faults']['row_early']:.2e}); launches K1-decode "
+        f"{fused['k1_decode']},"
+        f" K1-tile {fused['k1_tile']}, K2 {fused['k2']}, K3 {fused['k3']} "
+        f"({fused['k3_per_step']} a step)")
+    for B, x in timing.items():
+        paged = dec[(False, B)]["pump"]["ms_per_step"]
+        log(f"decode, {B} of 4 slots busy, un-fused, bf16: arena chunks "
+            f"{x['ms_per_step']:.2f} ms/step ({x['tok_s']:.1f} tok/s) "
+            f"[windows {', '.join(f'{v:.2f}' for v in x['ms_reps'])}; "
+            f"{x['steps_per_window']} steps each]; profiled: "
+            f"{x['device_ms']:.2f} ms of kernels a step, "
+            f"{x['kernel_launches']:.0f} launches (K1-decode "
+            f"{x['per_step']['dm_decode']:.0f}), {x['aten_ops']:.0f} aten "
+            f"ops, busy " + (f"{x['busy']:.1%}" if x["busy"] else
+                             "not measured")
+            + f"; the paged pump at b{B} (phase 8, this call) {paged:.2f} "
+            f"ms/step")
+        for key, kms, cnt in x["top"]:
+            log(f"    {key[:60]:60s} {kms:.3f} ms/step, {cnt:.0f} "
+                f"launches/step")
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 13: {res['phase_s']:.1f} s; card: {smi}")
+    RESULTS["arena"] = res
+    return res
+
+
+def _arena_faults(model, cfg, reqs, kw):
+    """Controls of the exactness check on the arena: the serial ``run()`` of
+    a fresh arena engine (``kw``) with a planted fault, read by
+    ``_spec_exactness``. "unpushed": every decode step reads the lengths
+    buffer as the engine made it (zeros), as if the host never pushed its
+    cursors. "row early": each slot's K/V row written one row before its
+    length (the previous token's row overwritten, its own left empty).
+    Each worst gap must exceed the arena's limit; returns both."""
+    from quip_tpu_torch.serve import arena as AR
+    from quip_tpu_torch.serve.engine import Engine
+
+    step, attn = AR.slot_attention_step, AR.attn_steps
+
+    def unpushed(params, cfg, tokens, lengths, kv):
+        return step(params, cfg, tokens, torch.zeros_like(lengths), kv)
+
+    def row_early(p, x, cfg, positions, mask, kv, layer, rows, rope_cs=None):
+        return attn(p, x, cfg, positions, mask, kv, layer,
+                    (rows[0], (rows[1] - 1).clamp(min=0)), rope_cs)
+
+    gaps = {}
+    for label, name, fault in (("unpushed", "slot_attention_step", unpushed),
+                               ("row_early", "attn_steps", row_early)):
+        setattr(AR, name, fault)
+        try:
+            eng = Engine(model, cfg, **kw)
+            out = eng.run([dict(r) for r in reqs])
+        finally:
+            AR.slot_attention_step, AR.attn_steps = step, attn
+        del eng
+        torch.cuda.empty_cache()
+        _, gaps[label] = _spec_exactness(model, cfg, reqs,
+                                         [r.generated for r in out], None)
+    tol = SPEC_TOL[bool(kw.get("kv_quant"))]
+    assert min(gaps.values()) > tol, (gaps, tol)
+    return gaps
+
+
+# Phase 14's depth: a full-width 3-bit Llama-2-7B cut to 8 of its 32
+# layers (two engines' serial runs and their teacher-forced forwards stay
+# within the script's time limit; every layer has the full-depth model's
+# shapes).
+W3_LAYERS = 8
+
+
+def phase_3bit(name: str, smi: str):
+    """Phase 14: a full-width 3-bit Llama-2-7B (packed lm_head, W3_LAYERS
+    layers) through the arena Engine with the 3-in-4 widening at load (the
+    default; its seconds a layer on the card)
+    and with QUIP_NO_WIDEN3=1 (two planes), phase 7's requests, serial;
+    each stream held to the teacher-forced check against the two-plane
+    model's forward (bf16 KV: SPEC_TOL), and the two streams compared."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.pack import format as PF
+    from quip_tpu_torch.serve.engine import Engine
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=W3_LAYERS)
+    model = packed_model(cfg, bits=3, seed=2, dtype=torch.bfloat16,
+                         head_bits=3, device="cuda")
+    rng = np.random.default_rng(14)
+    reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                 max_new_tokens=40) for n in (600, 128, 37, 5)]
+    t = time.time()
+    wide = PF.widen_3bit_tree(model)
+    torch.cuda.synchronize()
+    widen_s = time.time() - t
+    n_lin = 4 * cfg.n_layers + 1
+    assert sum(isinstance(q, PF.PackedLinear) and q.bits == 4
+               and q.code_bits == 3 for b in wide.blocks
+               for q in (b.attn.wqkv, b.attn.wo, b.mlp.wgu, b.mlp.wd)
+               ) + (wide.lm_head.bits == 4) == n_lin
+    del wide
+    res = dict(widen_s=widen_s, widen_s_per_layer=widen_s / cfg.n_layers,
+               layers=cfg.n_layers)
+    kw = dict(max_batch=4, max_seq=1024, cache_dtype=torch.bfloat16,
+              device="cuda")
+    for label, env in (("widened", "0"), ("two_planes", "1")):
+        with fused_rht(False), _env("QUIP_NO_WIDEN3", env):
+            eng = Engine(model, cfg, **kw)
+            bits = {q.bits for b in eng.params.blocks
+                    for q in (b.attn.wqkv, b.mlp.wd)}
+            assert bits == ({4} if env == "0" else {3}), bits
+            r = _run_arena(eng, reqs, cfg)
+            del eng
+            torch.cuda.empty_cache()
+        r["exact"], r["worst_gap"] = _spec_exactness(
+            model, cfg, reqs, r["tokens"], None, tol=SPEC_TOL[False])
+        assert r["k1_per_step"] == n_lin and r["k2"] == 0, r
+        res[label] = r
+    same = sum(a == b for x, y in zip(res["widened"]["tokens"],
+                                      res["two_planes"]["tokens"])
+               for a, b in zip(x, y))
+    total = sum(len(x) for x in res["widened"]["tokens"])
+    res["tokens_equal"] = same / total
+    log(f"3-bit Llama-2-7B ({cfg.n_layers} of 32 layers, full width): "
+        f"widened at load in {widen_s:.2f} s ({widen_s / cfg.n_layers:.3f} "
+        f"s a layer and the head's share); serial run "
+        f"widened {res['widened']['run_s']:.2f} s, two planes "
+        f"{res['two_planes']['run_s']:.2f} s; exactness against the "
+        f"two-plane forward: widened {res['widened']['exact']:.1%} "
+        f"(worst {res['widened']['worst_gap']:.2e}), two planes "
+        f"{res['two_planes']['exact']:.1%} (worst "
+        f"{res['two_planes']['worst_gap']:.2e}), <= {SPEC_TOL[False]:.0e};"
+        f" {res['tokens_equal']:.1%} of the tokens equal; K1-decode a step "
+        f"{res['widened']['k1_per_step']} / "
+        f"{res['two_planes']['k1_per_step']}")
+    del model
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 14: {res['phase_s']:.1f} s; card: {smi}")
+    RESULTS["w3"] = res
+    return res
+
+
+def _bench_run(bench, argv):
+    """``bench.main(argv)`` with each real step's frontier (the greedy
+    token of every slot) kept: one (B,) copy a step on the card, inside
+    the timed chain. Returns the JSON dict, the streams (B lists, one
+    token a step; the first step's input is token 0 at position 0) and
+    the stepper's model and config."""
+    sound = bench._Stepper.step
+    toks, seen = [], {}
+
+    def step(st):
+        nll = sound(st)
+        toks.append(st.tok[:, 0].clone())
+        seen.update(params=st.params, cfg=st.cfg)
+        return nll
+
+    bench._Stepper.step = step
+    try:
+        out = bench.main(argv)
+    finally:
+        bench._Stepper.step = sound
+    return out, torch.stack(toks, 1).tolist(), seen["params"], seen["cfg"]
+
+
+def _tie_gap(model, cfg, a, b):
+    """Where two greedy streams from token 0 first differ: (the step, the
+    gap between their two tokens' teacher-forced logits over the row's max
+    |logit|), or None where they agree."""
+    from quip_tpu_torch.models import model as M
+    k = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if k is None:
+        return None
+    dev = model.embed.tokens.device
+    with torch.inference_mode():
+        lg = M.forward(model, torch.tensor([0] + a[:k], device=dev)[None],
+                       cfg)[0, -1].float()
+    return k, ((lg[a[k]] - lg[b[k]]).abs() / lg.abs().max()).item()
+
+
+def phase_bench(name: str, smi: str, ckpt: str):
+    """Phase 15 (on phase 9's checkpoint): the decode-benchmark CLI
+    (``cli/bench.main``) at --batch 1 and 4, on the arena (its default)
+    and with --paged, with --check; each run's JSON line is printed. Every
+    slot's greedy stream (one CUDA graph replay a step, the paged flushes
+    and page-bucket graph builds between) is held to phase 11's
+    teacher-forced check against a full-depth forward (bf16 KV:
+    SPEC_TOL); where the b1 and b4 streams of a cache differ, the gap of
+    their first differing tokens is read (a near tie is far below the
+    limit)."""
+    from quip_tpu_torch.cli import bench
+
+    t_phase = time.time()
+    res, streams = {}, {}
+    for paged in (False, True):
+        for B in (1, 4):
+            key = f"{'paged' if paged else 'arena'}_b{B}"
+            argv = ["llama-2-7b", "--load", ckpt, "--batch", str(B),
+                    "--check"] + (["--paged"] if paged else [])
+            _zero_counts()
+            t = time.time()
+            out, gens, model, cfg = _bench_run(bench, argv)
+            counts = _read_counts()
+            out.update(counts, run_s=time.time() - t)
+            assert math.isfinite(out["continuation_nll"]), out
+            assert counts["k2"] == 0 and counts["k1p"] == 0, counts
+            assert counts["k1_decode"] >= 129 * (128 + 16), counts
+            assert all(len(g) == 4 + 128 + 16 for g in gens), len(gens[0])
+            out["exact"], out["worst_gap"] = _spec_exactness(
+                model, cfg, [dict(prompt=[0])] * B, gens, None,
+                tol=SPEC_TOL[False])
+            streams[key] = gens[0]
+            res[key] = out
+        key = "paged" if paged else "arena"
+        res[f"{key}_b1_vs_b4"] = _tie_gap(model, cfg, streams[f"{key}_b1"],
+                                          streams[f"{key}_b4"])
+        del model
+        torch.cuda.empty_cache()
+    for key, out in res.items():
+        if key.endswith("_vs_b4"):
+            log(f"bench CLI {key}: " + ("the same greedy stream" if out is
+                None else f"first differ at step {out[0]}, their tokens' "
+                f"teacher-forced logits {out[1]:.2e} of max |logit| apart"))
+            continue
+        log(f"bench CLI {key}: {out['s_per_token_chained'] * 1e3:.2f} ms a "
+            f"step chained ({out['tokens_per_sec']:.1f} tok/s), median "
+            f"{out['median_s_per_token_synced'] * 1e3:.2f} ms synced, "
+            f"continuation nll {out['continuation_nll']:.4f}; exactness "
+            f"{out['exact']:.1%}, worst gap {out['worst_gap']:.2e} <= "
+            f"{SPEC_TOL[False]:.0e}; K1-decode launches {out['k1_decode']}; "
+            f"{out['run_s']:.1f} s")
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 15: {res['phase_s']:.1f} s; card: {smi}")
+    RESULTS["bench_cli"] = res
+    return res
+
+
 # Phase 11: speculative serving. K tokens drafted an iteration.
 SPEC_K = 4
 # Greedy exactness at full width. The draft's steps run K1-decode at B rows,
@@ -1352,6 +1852,11 @@ SPEC_K = 4
 # Readings on an H100 (PERF.md, PR 9): sound runs at most 3.27e-2 (bf16)
 # and 4.40e-2 (int8), the planted faults of _spec_faults at least 0.706:
 # the limits sit 1.5 times above the one and 14 times below the other.
+# The slot arena (phase 13, PR 11) read 2.65e-2 (bf16) and 5.56e-2 (int8,
+# fused): 1.26 times below its limit; its planted faults (_arena_faults)
+# 0.585 and 1.59, 8 times above it. The bench CLI's graph-replayed streams
+# (phase 15's check on a random-code 2-bit checkpoint, bf16) read 2.94e-2
+# to 4.35e-2.
 SPEC_TOL = {False: 5e-2, True: 7e-2}          # by int8 KV
 SPEC_MODEL = "llama-2-7b"                     # the CLI's model argument
 # The hot ring by draft. The perfect draft's engines take a 16-row ring:
@@ -1424,7 +1929,8 @@ def _spec_faults(model, cfg, draft, prompts, reqs, gens, fused):
     q = dict(prompt=prompts[37], max_new_tokens=24)
     eng = Engine(model, cfg, max_batch=1, max_seq=320, hot=32, page=64,
                  cache_dtype=torch.bfloat16, kv_quant=fused, draft=draft,
-                 spec_k=SPEC_K, shared_prefix=prefix, device="cuda")
+                 spec_k=SPEC_K, shared_prefix=prefix, paged=True,
+                 device="cuda")
     sound = SP.spec_decode_step
     SP.spec_decode_step = _accept_all_step
     try:
@@ -1626,7 +2132,7 @@ def _cli_check(model, cfg, ckpt):
         tok.decode(r.generated) for r in reqs]
     ref = Engine(model, cfg, max_batch=2, max_seq=64, hot=32, page=64,
                  cache_dtype=torch.bfloat16, draft=make_self_draft(
-                     model, cfg, 4), spec_k=SPEC_K, device="cuda")
+                     model, cfg, 4), spec_k=SPEC_K, paged=True, device="cuda")
     want = [r.generated for r in ref.run(
         [dict(prompt=tok.encode(s), max_new_tokens=16) for s in texts],
         chunked=True)]
@@ -1657,7 +2163,7 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
                              cache_dtype=torch.bfloat16,
                              kv_quant=fused, draft=draft, spec_k=SPEC_K,
                              shared_prefix=prompts[200] if fused else None,
-                             device="cuda")
+                             paged=True, device="cuda")
                 t = time.time()
                 eng.warmup(page_buckets=[16])
                 torch.cuda.synchronize()
@@ -1719,7 +2225,7 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
         draft = drafts[dname]
         b1 = Engine(model, cfg, max_batch=1, max_seq=1024,
                     hot=SPEC_HOT[dname], page=64, cache_dtype=torch.bfloat16,
-                    draft=draft, spec_k=SPEC_K, device="cuda")
+                    draft=draft, spec_k=SPEC_K, paged=True, device="cuda")
         with fused_rht(False):
             dec[(dname, 1)] = _spec_decode(b1, rng, cfg)
             dec[(dname, 4)] = _spec_decode(keep[dname], rng, cfg)
@@ -1845,7 +2351,7 @@ def phase_families(name: str, smi: str, llama_dec=None):
               cache_dtype=torch.bfloat16, device="cuda")
     t_b = time.time()
     with fused_rht(False):
-        eng = Engine(model, cfg, **kw)
+        eng = Engine(model, cfg, paged=True, **kw)
         serial = _run_engine(eng, reqs, cfg)
         del eng
         # K1-decode: every decode step and the 5-token prompt
@@ -1857,15 +2363,16 @@ def phase_families(name: str, smi: str, llama_dec=None):
         # no warmup: the pump builds each chunk graph at its first use
         # (phase 8 times warmup; a build runs the chunk eagerly once, so
         # the tokens and counts stay exact)
-        eng = Engine(model, cfg, **kw)
+        eng = Engine(model, cfg, paged=True, **kw)
         pump = _run_pump(eng, reqs, cfg, serial["tokens"])
         pump.update(graphs=len(eng._graphs), capture_s=eng._graphs.capture_s)
         del eng
         assert pump["k1_tile"] == n_lin * tiled and pump["k2"] == 32, pump
         assert pump["k1_decode"] >= n_lin * 40, pump
         assert pump["k1_decode"] % n_lin == 0 and pump["k3"] == 0, pump
+        # b1 only: the b4 window was cut to pay for phases 13-15's time
         t = time.time()
-        dec = {B: _pump_decode(model, cfg, rng, B) for B in (1, 4)}
+        dec = {B: _pump_decode(model, cfg, rng, B) for B in (1,)}
         dec_s = time.time() - t
     torch.cuda.empty_cache()
     log(f"OPT-6.7B (32 layers, 2-bit, dense tied head): Engine.run 4 "
@@ -1916,10 +2423,10 @@ def phase_families(name: str, smi: str, llama_dec=None):
         dict(prompt=bp[600], max_new_tokens=40, use_prefix=False)]
     bkw = dict(kw, kv_quant=True, shared_prefix=bp[200])
     with fused_rht(True):
-        eng = Engine(model, cfg, **bkw)
+        eng = Engine(model, cfg, paged=True, **bkw)
         bserial = _run_engine(eng, breqs, cfg)
         del eng
-        eng = Engine(model, cfg, **bkw)
+        eng = Engine(model, cfg, paged=True, **bkw)
         bpump = _run_pump(eng, breqs, cfg, bserial["tokens"])
         bpump.update(graphs=len(eng._graphs),
                      capture_s=eng._graphs.capture_s)
@@ -2251,7 +2758,8 @@ def phase_quantize(name: str, smi: str, ckpt: str):
     PG.paged_prefill_slot = capture
     try:
         eng = Engine(loaded, cfg, max_batch=4, max_seq=1024, hot=32,
-                     page=64, cache_dtype=torch.bfloat16, device="cuda")
+                     page=64, cache_dtype=torch.bfloat16, paged=True,
+                     device="cuda")
         reqs = [dict(prompt=prompts[n], max_new_tokens=16)
                 for n in (600, 128, 37, 5)]
         with fused_rht(False):
@@ -2570,17 +3078,23 @@ def main():
     model, cfg, prompts, base, conf = phase_serve(name, smi)
     with watchdog(800, "the pump phase"):
         pump, dec = phase_pump(name, smi, model, cfg, prompts, base, conf)
+    with watchdog(600, "the arena phase"):
+        arena = phase_arena(name, smi, model, cfg, prompts, dec)
     with watchdog(900, "the speculative phase"):
         spec, _ = phase_spec(name, smi, model, cfg, prompts)
     del model
     torch.cuda.empty_cache()
     with watchdog(600, "the families phase"):
         fam = phase_families(name, smi, dec)
+    with watchdog(400, "the 3-bit phase"):
+        phase_3bit(name, smi)
     ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
     try:
         quant = phase_quantize(name, smi, ckpt)
         with watchdog(600, "the evaluation phase"):
             ev = phase_eval(name, smi, ckpt)
+        with watchdog(400, "the bench CLI phase"):
+            phase_bench(name, smi, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
@@ -2592,8 +3106,12 @@ def main():
     # the path must not run it); launches_opt from phase 12's full-depth
     # OPT-6.7B Engine.run (un-fused: K3's is 0), K3's
     # launches_opt_slice_fused from its fused 2-layer check,
-    # launches_bloom from its BLOOM-7b1 Engine.run (fused, int8, prefix)
+    # launches_bloom from its BLOOM-7b1 Engine.run (fused, int8, prefix);
+    # launches_arena from phase 13's serial run on the slot arena
+    # (un-fused, bf16; K3's fused, int8), read, K2's 0 included; K1's
+    # *_w3_* / *_3bit_* from phase 2's 3-bit layouts (widened, two planes)
     spec_u, spec_f = spec["unfused_self4"], spec["fused_int8_prefix_self4"]
+    ar_u, ar_f = arena["serial"], arena["fused_int8"]
     opt, bloom = fam["opt"]["serial"], fam["bloom"]["serial"]
     kernels = [
         dict(name="dequant_matmul_decode", route="cuda",
@@ -2609,6 +3127,7 @@ def main():
              launches_spec=spec_u["k1_decode"],
              launches_opt=opt["k1_decode"],
              launches_bloom=bloom["k1_decode"],
+             launches_arena=ar_u["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
@@ -2617,8 +3136,10 @@ def main():
              ms_opt_b1=k1["ms_opt_b1"], plain_ms_opt_b1=k1["plain_ms_opt_b1"],
              bound_ms_opt_b1=k1["bound_ms_opt_b1"],
              library_ms_opt_b1=k1["library_ms_opt_b1"],
+             **{k: v for k, v in k1.items() if "_w3_" in k or "_3bit_" in k},
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8); "
-                   "_opt: OPT-6.7B's wqkv, wo, fc1, fc2 at B=1"),
+                   "_opt: OPT-6.7B's wqkv, wo, fc1, fc2 at B=1; _w3: 3-bit "
+                   "codes widened to 4-bit fields, _3bit: as two planes"),
         dict(name="dequant_matmul_tile", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
@@ -2628,6 +3149,7 @@ def main():
              launches_eval=ev["launches"]["k1_tile"],
              launches_spec=spec_u["k1_tile"],
              launches_opt=opt["k1_tile"], launches_bloom=bloom["k1_tile"],
+             launches_arena=ar_u["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
@@ -2638,9 +3160,12 @@ def main():
              library_ms_b2048=k1t["library_ms_b2048"],
              **{f"{k}_opt_b{B}": k1t[f"{k}_opt_b{B}"] for B in (600, 2048)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             **{k: v for k, v in k1t.items()
+                if "_w3_" in k or "_3bit_" in k},
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=600 (and "
                    "B=2048, a perplexity window's rows); _opt: OPT-6.7B's "
-                   "wqkv, wo, fc1, fc2"),
+                   "wqkv, wo, fc1, fc2; _w3 / _3bit: phase 2's 3-bit "
+                   "layouts at B=600"),
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
@@ -2649,7 +3174,7 @@ def main():
              launches_quantized_serve=quant["serve"]["k2"],
              launches_eval=ev["launches"]["k2"],
              launches_spec=spec_u["k2"],
-             launches_opt=opt["k2"],
+             launches_opt=opt["k2"], launches_arena=ar_u["k2"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],
@@ -2661,7 +3186,7 @@ def main():
              launches_spec=spec_f["k3"],
              launches_opt=opt["k3"],
              launches_opt_slice_fused=fam["slice_opt-6.7b"]["counts"]["k3"],
-             launches_bloom=bloom["k3"],
+             launches_bloom=bloom["k3"], launches_arena=ar_f["k3"],
              launches_pump=pump["fused_int8_prefix"]["k3"],
              launches_per_token_pump=dec[(True, 1)]["pump"]["per_step"][
                  "rht_mma"],
@@ -2682,7 +3207,7 @@ def main():
              source="quip_tpu_torch/kernels/csrc/slabdot_matmul.cu",
              replaces="scripts/bench_kernel.py:69",
              launches=k1p["launches"], max_abs_err=k1p_err,
-             launches_spec=spec_u["k1p"],
+             launches_spec=spec_u["k1p"], launches_arena=ar_u["k1p"],
              ms=k1p["ms"], plain_ms=k1p["plain_ms"],
              bound_ms=k1p["bound_ms"], bound_by="bytes",
              library_ms=k1p["library_ms"], k1_ms=k1p["k1_ms"],

@@ -8,10 +8,11 @@ Examples (on the card; ``--device cpu`` runs the plain path):
   python -m quip_tpu_torch.cli.serve llama-2-7b --load DIR --http 8000
 
 quip_tpu's flags plus ``--device``. The cache is bf16 on the card and f32
-on the CPU. The port's Engine is paged only: ``--no_paged`` waits for the
-arena path and ``--tp`` / ``--dp`` for mesh sharding (ROADMAP queue 1
-items 3 and 9); both stop with an error. The tokenizer is the model's
-Hugging Face tokenizer from the local cache, else the byte tokenizer.
+on the CPU; paged unless ``--no_paged`` asks for the flat slot arena (a
+draft or a system prompt keeps it paged, as in quip_tpu). ``--tp`` /
+``--dp`` wait for mesh sharding (ROADMAP queue 1 item 9) and stop with an
+error. The tokenizer is the model's Hugging Face tokenizer from the local
+cache, else the byte tokenizer.
 """
 from __future__ import annotations
 
@@ -69,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv_quant", action="store_true",
                    help="int8 KV cache")
     p.add_argument("--no_paged", action="store_true",
-                   help="the flat arena cache (not ported yet)")
+                   help="the flat slot arena instead of the paged cache")
     p.add_argument("--hot", type=int, default=32,
                    help="hot-ring rows (the flush period)")
     p.add_argument("--page", type=int, default=64,
@@ -95,9 +96,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(p: argparse.ArgumentParser, args) -> None:
-    if args.no_paged:
-        p.error("--no_paged: the arena KV cache is not ported yet (ROADMAP "
-                "queue 1 item 3); the port serves paged")
     if args.tp > 1 or args.dp > 1:
         p.error("--tp/--dp: mesh sharding is not ported yet (ROADMAP queue "
                 "1 item 9)")
@@ -165,8 +163,9 @@ def main(argv=None):
             max_seq = room
     eng = Engine(params, cfg, max_batch=args.max_batch, max_seq=max_seq,
                  kv_quant=args.kv_quant, cache_dtype=cache_dtype,
-                 hot=args.hot, page=args.page, seed=args.seed, draft=draft,
-                 spec_k=args.spec_k, shared_prefix=prefix,
+                 paged=not args.no_paged, hot=args.hot, page=args.page,
+                 seed=args.seed, draft=draft, spec_k=args.spec_k,
+                 shared_prefix=prefix,
                  admit_limit=args.admit_limit,
                  pipeline_depth=args.pipeline_depth, device=dev)
     chunked = not args.no_chunked

@@ -238,7 +238,7 @@ class TorchLM:
         self._gen_engine_cached = None       # free the old cache first
         self._gen_engine_cached = Engine(
             self.params, self.cfg, max_batch=4, max_seq=max_seq,
-            cache_dtype=self.params.embed.tokens.dtype,
+            cache_dtype=self.params.embed.tokens.dtype, paged=True,
             kv_quant=self.kv_quant, device=self.device)
         return self._gen_engine_cached
 

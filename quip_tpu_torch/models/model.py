@@ -330,7 +330,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     paths. Returns (out (B, S, D), kv): the cache with its length advanced,
     or without one the window's (k, v) rows."""
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    H, hd = cfg.n_heads, cfg.hd
     if taps is not None:
         taps["attn_in"] = x
     q, k, v = qkv_project(p, x, cfg)
@@ -360,10 +360,27 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         # blockwise over the FRESH k/v (the cache rows are already stored)
         out = flash_prefill_bshd(q, k, v, plen, scale=scale)
         out = out.reshape(B, S, H * hd)
-        if taps is not None:
-            taps["o_in"] = out
-        return out_project(p, out), kv
+    else:
+        out = dense_attention(q, k_all, v_all, ks_all, vs_all, positions,
+                              mask, cfg, x.dtype)
+    if taps is not None:
+        taps["o_in"] = out
+    return out_project(p, out), kv
 
+
+def dense_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                    ks_all: Optional[torch.Tensor],
+                    vs_all: Optional[torch.Tensor], positions: torch.Tensor,
+                    mask: torch.Tensor, cfg: ModelConfig, dtype
+                    ) -> torch.Tensor:
+    """Softmax attention of q (B, S, H, hd) at ``positions`` (B, S) over
+    every key of k_all / v_all (B, L, KV, hd), key l at position l, under
+    ``mask`` (B, S, L); int8 keys and values fold their scales ks_all /
+    vs_all (B, L, KV) around the dots (``KVCache``). The probabilities are
+    cast to ``dtype`` before the V dot. Returns (B, S, H * hd)."""
+    B, S, H, hd = q.shape
+    KV = k_all.shape[2]
+    scale = 1.0 / math.sqrt(hd)
     if KV != H:
         rep = H // KV
         k_all = k_all.repeat_interleave(rep, dim=2)
@@ -386,15 +403,12 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         logits = logits.to(torch.float32) - slopes[None, :, None, None] * dist
     neg = torch.finfo(logits.dtype).min
     logits = logits.masked_fill(~mask[:, None], neg)
-    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).to(dtype)
     if vs_all is not None:
         # fold the V scales into the probabilities before the int8 dot
         probs = probs * vs_all.permute(0, 2, 1)[:, :, None, :].to(probs.dtype)
     out = torch.einsum("bhsl,blhd->bshd", probs, v_all.to(probs.dtype))
-    out = out.reshape(B, S, H * hd)
-    if taps is not None:
-        taps["o_in"] = out
-    return out_project(p, out), kv
+    return out.reshape(B, S, H * hd)
 
 
 def _biased(w: Linear, b: Optional[torch.Tensor], x: torch.Tensor):
@@ -555,6 +569,22 @@ def decode_step(params: Model, tokens: torch.Tensor, caches: KVCache,
                            cache=cache)
     logits = unembed(params, x, cfg)
     return logits[:, -1, :], caches._replace(length=caches.length + 1)
+
+
+def decode_scan(params: Model, tokens: torch.Tensor, caches: KVCache,
+                cfg: ModelConfig, n_steps: int
+                ) -> Tuple[torch.Tensor, KVCache]:
+    """Greedy-decode ``n_steps`` tokens from tokens (B, 1), the last
+    generated token, each step's argmax feeding the next (quip_tpu's
+    ``decode_scan``, one jitted scan there, a loop of ``decode_step`` here).
+    Returns (tokens (B, n_steps), caches)."""
+    out = []
+    tok = tokens
+    for _ in range(n_steps):
+        logits, caches = decode_step(params, tok, caches, cfg)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1), caches
 
 
 # ---------------------------------------------------------------------------

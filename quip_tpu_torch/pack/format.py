@@ -311,3 +311,80 @@ def pack_layer_result(res, bits: int,
         proj_mode=st.proj_mode, out_features=m, in_features=d,
         rot=None if st.U is None else rotation_buffers(
             st.U, st.V, st.proj_mode, st.scaleWH, device=codes.device))
+
+
+def _rot_of(q: PackedLinear):
+    """``q``'s rotation buffers back in quip_tpu's ``rot`` layout (None
+    without a rotation)."""
+    if not q.has_rot:
+        return None
+    slot = lambda t: () if t is None else t  # noqa: E731
+    rot = {side: tuple(slot(getattr(q, f"{side}_{nm}"))
+                       for nm in ("signs", "left", "right"))
+           for side in ("u", "v")}
+    if q.has_vin:
+        rot["vin"] = slot(q.vin)
+    return rot
+
+
+def widen_3bit(q: PackedLinear) -> PackedLinear:
+    """3-in-4 serving transcode (quip_tpu's ``widen_3bit``): the two-plane
+    3-bit format (a 2-bit plane and a 1-bit plane) repacked into ONE 4-bit
+    plane of the same 3-bit codes (``code_bits=3`` keeps maxq = 7, so the
+    grid and every dequantised weight are unchanged). Other widths come back
+    as they are. The transcode unpacks and repacks on the planes' own
+    device; everything but the planes is shared with ``q``.
+
+    quip_tpu widens because the TPU's 1-bit plane costs 16 thin matrix-unit
+    dots per word; on the H100 the 4-bit fields read a third more bytes
+    than the two planes (PERF.md weighs the two layouts)."""
+    if q.bits != 3:
+        return q
+    d = q.in_features
+    planes = pack_codes(unpack_codes(q.planes, 3, d), 4)
+    return PackedLinear(planes, q.scale, q.zero, q.scale_b, q.scaleWH,
+                        q.bias, bits=4, qfn=q.qfn, proj_mode=q.proj_mode,
+                        out_features=q.out_features, in_features=d,
+                        rot=_rot_of(q), code_bits=3)
+
+
+def widen_3bit_tree(params, memo: Optional[dict] = None):
+    """``params`` (a models/model.py ``Model``) with every 3-bit
+    PackedLinear widened (``widen_3bit``): a new Model whose blocks hold the
+    widened linears and share every other module and tensor with
+    ``params``, or ``params`` itself when nothing is 3-bit.
+    ``QUIP_NO_WIDEN3=1`` (read at call time, as in quip_tpu) keeps the
+    two-plane format. ``memo`` (id of a module -> its widened form),
+    passed to the calls for a target and its draft, widens the blocks and
+    linears they share once, and the results stay shared."""
+    if os.environ.get("QUIP_NO_WIDEN3") == "1":
+        return params
+    from quip_tpu_torch.models import model as M
+    memo = {} if memo is None else memo
+
+    def once(obj, make):
+        if id(obj) not in memo:
+            memo[id(obj)] = (obj, make(obj))  # keep obj: ids stay unique
+        return memo[id(obj)][1]
+
+    def widen(w):
+        if not (isinstance(w, PackedLinear) and w.bits == 3):
+            return w
+        return once(w, widen_3bit)
+
+    def widen_block(b):
+        specs = [M.LinearSpec(n, (grp, n), "")
+                 for grp, names in (("attn", M.Attention.NAMES),
+                                    ("mlp", M.MLP.NAMES))
+                 for n in names if widen(getattr(getattr(b, grp), n))
+                 is not getattr(getattr(b, grp), n)]
+        if not specs:
+            return b
+        return M.replace_linears(b, specs, lambda _, w: widen(w))
+
+    blocks = [once(b, widen_block) for b in params.blocks]
+    head = widen(params.lm_head)
+    if head is params.lm_head and all(
+            n is b for n, b in zip(blocks, params.blocks)):
+        return params
+    return M.Model(params.cfg, params.embed, blocks, params.final_ln, head)

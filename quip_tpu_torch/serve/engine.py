@@ -1,10 +1,16 @@
 """Serving engine: continuous-batching decode over packed models.
 
-Port of the paged path of ``quip_tpu/serve/engine.py``: requests claim
-slots of a fixed (max_batch, max_seq) paged KV cache (models/paged.py),
-each admission prefills its slot at the prompt's exact length (the JAX
-engine's power-of-two buckets only fed XLA's compile cache), and two
-loops decode, as in quip_tpu:
+Port of ``quip_tpu/serve/engine.py``: requests claim slots of a fixed
+(max_batch, max_seq) KV cache, each admission prefills its slot at the
+prompt's exact length (the JAX engine's power-of-two buckets only fed XLA's
+compile cache), and the loops decode, as in quip_tpu. The cache is
+quip_tpu's default, the flat slot arena (serve/arena.py: ``paged=False``;
+every step reads all max_seq rows of every slot), or with ``paged=True``
+the two-level paged cache (models/paged.py), whose steps read only the
+rows in use. A draft or a shared prefix forces the paged cache, as in
+quip_tpu. 3-bit linears are widened to single-plane 4-bit fields at load
+(``pack/format.py::widen_3bit_tree``; ``QUIP_NO_WIDEN3=1`` keeps the two
+planes). On the paged cache:
 
   * ``step`` decodes one token for all active slots eagerly, then retires
     finished requests and flushes the hot ring when it is full;
@@ -38,9 +44,14 @@ active mask, and replays each spec chunk shape as one CUDA graph.
 ``stream`` yields one request's tokens as they come; serve/server.py is
 the HTTP front end.
 
-Not ported yet (ROADMAP): the non-paged arena path (this Engine is paged
-only), mesh sharding, and the 3-bit 3-in-4 widening (a 3-bit model runs as
-two planes).
+On the arena, ``step`` decodes one token for every slot and ``step_chunk``
+up to 16 in one dispatch (``_decode_chunk_arena``: on the card one CUDA
+graph for each chunk shape, where quip_tpu runs one jitted scan, the
+lengths in a device buffer pushed from the host before each chunk);
+``pump`` runs one serial ``step_chunk`` a call, as quip_tpu's arena pump
+does (there is no overlapped arena loop).
+
+Not ported yet (ROADMAP queue 1 item 9): mesh sharding.
 """
 from __future__ import annotations
 
@@ -57,6 +68,8 @@ from quip_tpu_torch.models import paged as PG
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.models.model import Model
 from quip_tpu_torch.ops.qlinear import _fused_rht_enabled
+from quip_tpu_torch.pack.format import widen_3bit_tree
+from quip_tpu_torch.serve import arena as AR
 from quip_tpu_torch.serve import speculative as SP
 from quip_tpu_torch.serve.graphs import ChunkGraphs
 
@@ -159,17 +172,48 @@ def _decode_chunk_paged(params: Model, tokens: torch.Tensor,
     return torch.stack(out, dim=1), tok
 
 
+def _decode_chunk_arena(params: Model, tokens: torch.Tensor,
+                        lengths: torch.Tensor, kv: AR.BatchedKV,
+                        cfg: ModelConfig, *, gen: torch.Generator,
+                        temps: Optional[torch.Tensor],
+                        top_ps: Optional[torch.Tensor], n_steps: int,
+                        top_k: int):
+    """``n_steps`` arena decode steps for every slot, each step's token
+    feeding the next (quip_tpu's arena ``decode_chunk``): tokens (B, 1) and
+    lengths (B,) on the device, every slot's length advancing by one a step
+    (inactive slots too, on their own dead rows). Sampling as in
+    ``_decode_chunk_paged``. Returns (toks (B, n_steps), last (B, 1));
+    nothing is read back."""
+    tok, lens = tokens, lengths
+    out = []
+    for _ in range(n_steps):
+        logits = AR.slot_attention_step(params, cfg, tok, lens, kv)
+        lens = lens + 1
+        t = (torch.argmax(logits, dim=-1) if temps is None
+             else _sample_on(gen, logits, temps, top_k, top_ps))
+        out.append(t)
+        tok = t[:, None]
+    return torch.stack(out, dim=1), tok
+
+
 class Engine:
-    """Continuous-batching generation engine over the paged KV cache."""
+    """Continuous-batching generation engine over the slot arena or the
+    paged KV cache."""
 
     def __init__(self, params: Model, cfg: ModelConfig, *,
                  max_batch: int = 8, max_seq: int = 512,
                  cache_dtype=torch.float32, kv_quant: bool = False,
-                 hot: int = 32, page: int = 64, seed: int = 0,
-                 shared_prefix=None, admit_limit: Optional[int] = None,
-                 pipeline_depth: int = 2, draft=None, spec_k: int = 4,
-                 device="cuda"):
-        """``admit_limit`` caps the prefills per scheduling boundary while
+                 paged: bool = False, hot: int = 32, page: int = 64,
+                 seed: int = 0, shared_prefix=None,
+                 admit_limit: Optional[int] = None, pipeline_depth: int = 2,
+                 draft=None, spec_k: int = 4, device="cuda"):
+        """``paged=False`` (quip_tpu's default) serves from the flat slot
+        arena, ``paged=True`` from the two-level paged cache (hot ring of
+        ``hot`` rows, frozen pages of ``page``), whose per-step reads scale
+        with the context in use rather than max_seq. A draft or a
+        ``shared_prefix`` implies ``paged=True``.
+
+        ``admit_limit`` caps the prefills per scheduling boundary while
         decode is ongoing (None: fill every free slot); ``pipeline_depth``
         chunks stay in flight before the pump commits the oldest (both as
         in quip_tpu).
@@ -184,6 +228,13 @@ class Engine:
         # positions run to the prefix's length + max_seq
         M.check_positions(params, cfg, max_seq + (
             0 if shared_prefix is None else len(shared_prefix)))
+        # 3-in-4 serving transcode at load, the target's and the draft's
+        # (shared modules once)
+        memo: Dict[int, Any] = {}
+        params = widen_3bit_tree(params, memo)
+        if draft is not None:
+            draft = (widen_3bit_tree(draft[0], memo), draft[1])
+        self.paged = paged or draft is not None or shared_prefix is not None
         self.params = params.to(self.device)
         self.cfg = cfg
         self.max_batch = max_batch
@@ -201,13 +252,21 @@ class Engine:
         self.spec = draft is not None
         if self.spec and spec_k >= self.hot:
             raise ValueError(f"spec_k={spec_k} must be < hot={self.hot}")
-        # capacity = max_seq + hot so a flush always fits (base <= max_seq)
-        self.pkv = PG.init_paged(max_batch, max_seq + self.hot, cfg,
-                                 dtype=cache_dtype, quantized=kv_quant,
-                                 hot=self.hot, page=page, device=self.device)
-        # host-authoritative per-slot cursors (pushed in each call)
+        if self.paged:
+            # capacity = max_seq + hot so a flush always fits (base <=
+            # max_seq)
+            self.pkv = PG.init_paged(max_batch, max_seq + self.hot, cfg,
+                                     dtype=cache_dtype, quantized=kv_quant,
+                                     hot=self.hot, page=page,
+                                     device=self.device)
+        else:
+            self.kv = AR.init_arena(cfg, max_batch, max_seq, cache_dtype,
+                                    quantize=kv_quant, device=self.device)
+        # host-authoritative per-slot cursors (pushed in each call): the
+        # paged cache's base and hot_len, the arena's lengths
         self._base = np.zeros(max_batch, np.int32)
         self._hotlen = np.zeros(max_batch, np.int32)
+        self._len = np.zeros(max_batch, np.int32)
         # shared-prefix (system prompt) KV: computed once here, read by
         # every opted-in slot (models/paged.Prefix)
         self.prefix = None
@@ -243,6 +302,7 @@ class Engine:
         self._base_d = torch.zeros(B, **i32)
         self._hot_d = torch.zeros(B, **i32)
         self._pre_d = torch.zeros(B, **i32)
+        self._len_d = torch.zeros(B, **i32)
         self._temps_d = torch.zeros(B, dtype=torch.float32, device=dev)
         self._top_p_d = torch.ones(B, dtype=torch.float32, device=dev)
         self._ovr_d = torch.zeros((2, B), dtype=torch.int64, device=dev)
@@ -366,6 +426,18 @@ class Engine:
         self._base[i] = 0
         self._hotlen[i] = 0
         self._prefix_on[i] = 0
+        self._len[i] = 0
+
+    def _lengths(self) -> np.ndarray:
+        """Per-slot sequence lengths (a host copy)."""
+        return self._base + self._hotlen if self.paged else self._len.copy()
+
+    def _advance(self, i: int, n: int) -> None:
+        """Move slot i's host cursor by n rows."""
+        if self.paged:
+            self._hotlen[i] += n
+        else:
+            self._len[i] += n
 
     def stats(self) -> Dict[str, Any]:
         """Host-side serving metrics: completed/queued counts, mean TTFT
@@ -528,12 +600,16 @@ class Engine:
                 self._cursors_dirty = True
                 req = self._queue.pop(0)
                 self._slots[i] = req
+                plen = len(req.prompt)
+                tokens = (None if req.use_prefix else torch.from_numpy(
+                    req.prompt.astype(np.int64))[None].to(self.device))
                 if req.use_prefix:
                     logits = self._admit_with_prefix(i, req)
+                elif not self.paged:
+                    logits = AR.arena_prefill(self.params, tokens, self.kv,
+                                              i, self.cfg)
+                    self._len[i] = plen
                 else:
-                    plen = len(req.prompt)
-                    tokens = torch.from_numpy(
-                        req.prompt.astype(np.int64))[None].to(self.device)
                     logits, self.pkv = PG.paged_prefill_slot(
                         self.params, tokens, plen, self._sync_pkv(), i,
                         self.cfg)
@@ -552,7 +628,7 @@ class Engine:
                         self._pre_d[i] = 0
                         self._base_ub[i] = plen
                         self._ub_hot[i] = 0
-                if async_first and not req.use_prefix:
+                if async_first and self.paged and not req.use_prefix:
                     self._first_buf[i] = self._first_token(logits, req)
                     self._front_mask[i] = True
                     self._first_pending.append((i, req))
@@ -633,12 +709,18 @@ class Engine:
         last = np.zeros((self.max_batch, 1), np.int64)
         for i in active:
             last[i, 0] = self._slots[i].generated[-1]
-        caches = self._sync_pkv()
-        logits, hot = PG.paged_decode_step(
-            self.params, torch.from_numpy(last).to(self.device), caches,
-            self.cfg, page=self.page, **self._prefix_args())
-        self.pkv = PG.advance(caches, hot)
-        self._cursors_dirty = True      # the host advanced active slots only
+        tokens = torch.from_numpy(last).to(self.device)
+        if self.paged:
+            caches = self._sync_pkv()
+            logits, hot = PG.paged_decode_step(
+                self.params, tokens, caches, self.cfg, page=self.page,
+                **self._prefix_args())
+            self.pkv = PG.advance(caches, hot)
+            self._cursors_dirty = True  # the host advanced active slots only
+        else:
+            logits = AR.slot_attention_step(
+                self.params, self.cfg, tokens,
+                torch.from_numpy(self._len.copy()).to(self.device), self.kv)
         temps, _, tops = self._sampling_arrays(active)
         # per-slot top_k: sample per distinct k over the full (B, V)
         toks = np.zeros((self.max_batch,), np.int64)
@@ -652,13 +734,13 @@ class Engine:
         for i in active:
             req = self._slots[i]
             req.generated.append(int(toks[i]))
-            self._hotlen[i] += 1
-            length = self._base[i] + self._hotlen[i]
+            self._advance(i, 1)
             if (len(req.generated) >= req.max_new_tokens + 1
-                    or length >= self.max_seq - 1
+                    or self._lengths()[i] >= self.max_seq - 1
                     or (req.stop and int(toks[i]) in req.stop)):
                 self._retire_slot(i)
-        self._maybe_flush()
+        if self.paged:
+            self._maybe_flush()
 
     # -- chunked decode -------------------------------------------------------
 
@@ -692,9 +774,12 @@ class Engine:
         return fn
 
     def _push_cursors(self, temps: np.ndarray, tops: np.ndarray) -> None:
-        self._push(self._base_d, self._base)
-        self._push(self._hot_d, self._hotlen)
-        self._push(self._pre_d, self._prefix_on)
+        if not self.paged:
+            self._push(self._len_d, self._len)
+        else:
+            self._push(self._base_d, self._base)
+            self._push(self._hot_d, self._hotlen)
+            self._push(self._pre_d, self._prefix_on)
         self._push(self._temps_d, temps)
         self._push(self._top_p_d, tops)
         self._cursors_dirty = False
@@ -721,6 +806,45 @@ class Engine:
         self._t_pump["dispatch"] += time.perf_counter() - _t0
         for i in active:
             self._hotlen[i] += T
+        return toks
+
+    def _arena_key(self, T: int, greedy: bool, top_k: int,
+                   top_p_on: bool) -> tuple:
+        """An arena chunk graph's key: its length, greedy or sampled,
+        top_k, top-p and the fused RHT switch (the arena has one shape, so
+        no page bucket)."""
+        return ("arena", T, greedy, top_k, top_p_on, _fused_rht_enabled())
+
+    def _arena_chunk_fn(self, T: int, greedy: bool, top_k: int,
+                        top_p_on: bool):
+        """The arena chunk as a function of the engine's fixed buffers: it
+        reads the frontier and the lengths there, leaves the next frontier
+        and lengths + T in them, and returns the (B, T) tokens."""
+        def fn():
+            toks, last = _decode_chunk_arena(
+                self.params, self._tok, self._len_d, self.kv, self.cfg,
+                gen=self.gen_dev, temps=None if greedy else self._temps_d,
+                top_ps=self._top_p_d if top_p_on else None, n_steps=T,
+                top_k=top_k)
+            self._tok.copy_(last)
+            self._len_d.add_(T)
+            return toks
+        return fn
+
+    def _launch_arena(self, active: List[int], T: int,
+                      top_k: int) -> torch.Tensor:
+        """Run one T-token arena chunk for every slot from the device
+        frontier on its key's graph, the host's lengths pushed first (the
+        host checked that every active slot stays below max_seq - 1);
+        returns its (B, T) tokens on the device. The host lengths of the
+        active slots advance by T, as ``_launch``'s cursors do."""
+        temps, _, tops = self._sampling_arrays(active)
+        self._push_cursors(temps, tops)
+        args = (T, not (temps > 0).any(), top_k, bool((tops < 1.0).any()))
+        toks = self._graphs.run(self._arena_key(*args),
+                                self._arena_chunk_fn(*args))
+        for i in active:
+            self._len[i] += T
         return toks
 
     def _frontier_from_host(self, active: List[int]) -> None:
@@ -890,18 +1014,19 @@ class Engine:
         active = [i for i, r in enumerate(self._slots) if r is not None]
         if not active:
             return 0
-        lens = self._base + self._hotlen
+        lens = self._lengths()
         remaining = min(
             min(self._slots[i].max_new_tokens + 1
                 - len(self._slots[i].generated) for i in active),
             min(self.max_seq - 1 - int(lens[i]) for i in active))
-        # a chunk cannot flush mid-way: cap T by the hot ring's room (its
-        # last row goes to step(), which flushes the full ring)
-        room = self.hot - int(self._hotlen.max())
-        if room < 1:
-            self._flush_now()
-            room = self.hot
-        remaining = min(remaining, room)
+        if self.paged:
+            # a chunk cannot flush mid-way: cap T by the hot ring's room
+            # (its last row goes to step(), which flushes the full ring)
+            room = self.hot - int(self._hotlen.max())
+            if room < 1:
+                self._flush_now()
+                room = self.hot
+            remaining = min(remaining, room)
         ks = {self._slots[i].top_k for i in active}
         if remaining < 2 or max_chunk < 2 or len(ks) > 1:
             self.step()
@@ -910,7 +1035,8 @@ class Engine:
         while T * 2 <= min(remaining, max_chunk):
             T *= 2
         self._frontier_from_host(active)
-        host, ready = self._copy_out(self._launch(active, T, ks.pop()))
+        launch = self._launch if self.paged else self._launch_arena
+        host, ready = self._copy_out(launch(active, T, ks.pop()))
         if ready is not None:
             ready.synchronize()
         toks = host.numpy()
@@ -920,11 +1046,12 @@ class Engine:
             row = [int(t) for t in toks[i]]
             take, stopped = self._take_tokens(req, row)
             req.generated.extend(row[:take])
-            self._hotlen[i] += take - T
+            self._advance(i, take - T)
             if (stopped or len(req.generated) >= req.max_new_tokens + 1
-                    or self._base[i] + self._hotlen[i] >= self.max_seq - 1):
+                    or self._lengths()[i] >= self.max_seq - 1):
                 self._retire_slot(i)
-        self._maybe_flush()
+        if self.paged:
+            self._maybe_flush()
         return T
 
     # -- the overlapped loop --------------------------------------------------
@@ -1306,6 +1433,12 @@ class Engine:
         by ``step()``."""
         if max_chunk is None:
             max_chunk = self._default_max_chunk()
+        if not self.paged:
+            # the arena has no overlapped loop: one serial chunk a call
+            if any(s is not None for s in self._slots) or self._queue:
+                self.step_chunk(max_chunk)
+                return True
+            return False
         if self.spec:
             return self._pump_spec(max_chunk)
         # with a queue waiting, no slot free and a retire in flight, commit
@@ -1361,9 +1494,11 @@ class Engine:
         card) at each of ``page_buckets``, by default every page bucket the
         engine can reach (``_page_buckets``; the dummy requests reach only
         the first). A spec engine builds its spec chunk graphs instead: S =
-        1, 2, 4, ... up to the default chunk's iterations. On the CPU the same
-        chunks run eagerly. The engine is left idle, its stats as they
-        were."""
+        1, 2, 4, ... up to the default chunk's iterations. The arena has no
+        page buckets: its rungs T = 2, 4, 8, 16 (a chunk's last token
+        never needs T = 1 there) are built by the walk and replayed once.
+        On the CPU the same chunks run eagerly. The engine is left idle,
+        its stats as they were."""
         kept = (self._done_reqs, self._done_tokens, self._ttft_sum,
                 self._req_time_sum, dict(self._t_pump),
                 list(self.accept_hist))
@@ -1383,7 +1518,9 @@ class Engine:
             self.run([dict(prompt=[1], max_new_tokens=3, temperature=0.5,
                            top_p=0.9)], chunked=False)
             idle = np.zeros((self.max_batch,), np.float32)
-            if page_buckets is None:
+            if not self.paged:
+                page_buckets = [None]       # the arena has one shape
+            elif page_buckets is None:
                 page_buckets = self._page_buckets()
             for n_pages in page_buckets:
                 for greedy, top_p_on in ((True, False), (False, True)):
@@ -1406,7 +1543,13 @@ class Engine:
         """(key, function) of every chunk graph ``warmup`` builds at one
         page bucket: each rung of the chunk ladder that fits the ring (T =
         1 fills its last row), or each spec chunk S = 1, 2, 4, ... up to the
-        default chunk's iterations."""
+        default chunk's iterations; on the arena (``n_pages`` None) each
+        rung from 2 to the default chunk."""
+        if not self.paged:
+            for T in (t for t in (2, 4, 8, 16) if t <= self.max_seq):
+                args = (T, greedy, 0, top_p_on)
+                yield self._arena_key(*args), self._arena_chunk_fn(*args)
+            return
         if self.spec:
             top = min(self._default_max_chunk(), self.hot) // self.spec_k
             for S in (2 ** e for e in range(top.bit_length())):

@@ -14,13 +14,16 @@ then ``--reps`` windows, each from just after a fresh batch's admission
 and first chunk to its end (48 steps, which cross one flush of the ring);
 the median ms a step is kept. It uses only what ``Engine`` has had since
 the pump was ported (``run``, ``submit``, ``pump``, ``_pending_q``), so
-older checkouts run too.
+older checkouts run too; it asks for the paged cache where ``Engine``
+takes ``paged`` (the arena became its default), and older ones are paged
+only.
 Prints the card's name and power limit, one JSON line a run, and a
 summary line (the median over each label's runs).
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -53,9 +56,11 @@ def worker(tree: str, batches, n_new: int, reps: int) -> dict:
                          head_bits=2, device="cuda")
     rng = np.random.default_rng(8)
     out = dict(build_s=build_s)
+    paged = ({"paged": True} if "paged" in inspect.signature(
+        Engine).parameters else {})
     for B in batches:
         e = Engine(model, cfg, max_batch=B, max_seq=1024, hot=32, page=64,
-                   cache_dtype=torch.bfloat16, device="cuda")
+                   cache_dtype=torch.bfloat16, device="cuda", **paged)
         prompts = [rng.integers(0, cfg.vocab_size, 37).tolist()
                    for _ in range(B)]
         t = time.time()

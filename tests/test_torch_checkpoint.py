@@ -110,7 +110,7 @@ def test_port_serves_quip_tpu_checkpoint_same_tokens(jax_ckpt):
                    max_seq=64, paged=True, hot=8, page=8)
     want = [r.generated for r in je.run(reqs)]
     te = TE.Engine(model, cfg, max_batch=2, max_seq=64, hot=8, page=8,
-                   device="cpu")
+                   paged=True, device="cpu")
     assert [r.generated for r in te.run(reqs)] == want
 
 
@@ -173,7 +173,7 @@ def test_opt_checkpoint_serves_same_tokens(jax_opt_ckpt):
     kw = dict(max_batch=2, max_seq=64, hot=8, page=8)
     want = [r.generated for r in JE.Engine(
         jpacked, jget_config("opt-tiny"), paged=True, **kw).run(reqs)]
-    te = TE.Engine(model, cfg, device="cpu", **kw)
+    te = TE.Engine(model, cfg, paged=True, device="cpu", **kw)
     assert [r.generated for r in te.run(reqs)] == want
 
 

@@ -330,7 +330,7 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 def _engine(cuda, cfg, model, **kw):
     from quip_tpu_torch.serve.engine import Engine
-    return Engine(model, cfg, device=cuda, **kw)
+    return Engine(model, cfg, paged=True, device=cuda, **kw)
 
 
 def test_chunk_graph_replay_matches_eager(cuda):

@@ -25,7 +25,7 @@ def test_engine_greedy_tokens_equal():
                    hot=8, page=8)
     want = [r.generated for r in je.run(reqs)]
     te = TE.Engine(tparams, tcfg, max_batch=2, max_seq=64, hot=8, page=8,
-                   device="cpu")
+                   paged=True, device="cpu")
     got = [r.generated for r in te.run(reqs)]
     assert [len(g) for g in got] == [13, 44, 10]
     assert got == want

@@ -221,7 +221,7 @@ def test_engine_greedy_equal(fam, chunked):
               shared_prefix=rng.integers(0, V, 6).tolist())
     want = JE.Engine(jparams, jcfg, paged=True, **kw).run(
         [dict(r) for r in reqs], chunked=chunked)
-    got = TE.Engine(tparams, tcfg, device="cpu", **kw).run(
+    got = TE.Engine(tparams, tcfg, paged=True, device="cpu", **kw).run(
         [dict(r) for r in reqs], chunked=chunked)
     assert [r.generated for r in got] == [r.generated for r in want]
     assert [len(r.generated) for r in got] == [13, 10, 15]
@@ -245,11 +245,11 @@ def test_learned_positions_bound(fam):
     learned = tcfg.positions == "learned"
     with raises if learned else contextlib.nullcontext():
         TE.Engine(tparams, tcfg, max_batch=1, max_seq=rows + 1, hot=8,
-                  page=8, device="cpu")
+                  page=8, paged=True, device="cpu")
     with raises if learned else contextlib.nullcontext():
         tparams(torch.zeros((1, rows + 1), dtype=torch.int64))
     TE.Engine(tparams, tcfg, max_batch=1, max_seq=rows, hot=8, page=8,
-              device="cpu")
+              paged=True, device="cpu")
 
 
 def test_self_draft_spec_engine(fam):
@@ -260,7 +260,8 @@ def test_self_draft_spec_engine(fam):
     rng = np.random.default_rng(6)
     reqs = [dict(prompt=rng.integers(0, tcfg.vocab_size, n).tolist(),
                  max_new_tokens=10) for n in (4, 9)]
-    kw = dict(max_batch=2, max_seq=64, hot=8, page=8, device="cpu")
+    kw = dict(max_batch=2, max_seq=64, hot=8, page=8, paged=True,
+              device="cpu")
     want = [r.generated for r in TE.Engine(tparams, tcfg, **kw).run(
         [dict(r) for r in reqs])]
     draft = make_self_draft(tparams, tcfg, 1)

@@ -216,14 +216,15 @@ def test_engine_prefix_tokens_equal(gqa, kv_quant):
     kw = dict(max_batch=2, max_seq=64, hot=8, page=8, kv_quant=kv_quant)
     je = JE.Engine(jparams, jcfg, paged=True, shared_prefix=_PRE, **kw)
     want = [r.generated for r in je.run(reqs)]
-    te = TE.Engine(tparams, tcfg, shared_prefix=_PRE, device="cpu", **kw)
+    te = TE.Engine(tparams, tcfg, shared_prefix=_PRE, paged=True,
+                   device="cpu", **kw)
     got = [r.generated for r in te.run(reqs)]
     assert [len(g) for g in got] == [9, 9, 7, 7, 13]
     assert got == want
     assert te._prefix_on.tolist() == [0, 0]        # retired slots opt out
     assert te.pkv.quantized == kv_quant
     # a prefix request equals the plain engine on prefix + prompt
-    plain = TE.Engine(tparams, tcfg, device="cpu", **kw)
+    plain = TE.Engine(tparams, tcfg, paged=True, device="cpu", **kw)
     [r] = plain.run([dict(prompt=_PRE + [7, 2], max_new_tokens=6)])
     assert r.generated == got[2]
 
@@ -241,7 +242,8 @@ def test_engine_prefix_prompt_filling_the_ring(gqa, plen):
     kw = dict(max_batch=2, max_seq=64, hot=8, page=8)
     je = JE.Engine(jparams, jcfg, paged=True, **kw)
     [want] = je.run([dict(prompt=_PRE + prompt, max_new_tokens=6)])
-    te = TE.Engine(tparams, tcfg, shared_prefix=_PRE, device="cpu", **kw)
+    te = TE.Engine(tparams, tcfg, shared_prefix=_PRE, paged=True,
+                   device="cpu", **kw)
     [got] = te.run([dict(prompt=prompt, max_new_tokens=6)])
     assert got.generated == want.generated
 
@@ -249,7 +251,7 @@ def test_engine_prefix_prompt_filling_the_ring(gqa, plen):
 def test_engine_prefix_validation(gqa):
     _, _, tcfg, tparams = gqa
     eng = TE.Engine(tparams, tcfg, max_batch=1, max_seq=32, hot=8, page=8,
-                    device="cpu")
+                    paged=True, device="cpu")
     with pytest.raises(ValueError, match="use_prefix"):
         eng.submit([1, 2], use_prefix=True)
     assert eng.prefix is None and eng._prefix_args() == {}

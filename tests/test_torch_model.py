@@ -31,6 +31,27 @@ def _jax_packed_llama(cfg, bits=2, seed=0):
                          head_bits=bits)
 
 
+def _llama_via_checkpoint(bits=2, seed=0):
+    """A random-code packed llama-tiny (packed head, real RHT rotations,
+    f32) built by the port, and quip_tpu's tree of the same weights read
+    back from a checkpoint the port wrote: (jcfg, jparams, tcfg,
+    tparams). No JAX program is compiled, where ``_jax_packed_llama``
+    compiles about a hundred."""
+    import tempfile
+
+    from quip_tpu.pack import model as JPM
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.pack import model as TPM
+    tcfg = get_config("llama-tiny")
+    tparams = packed_model(tcfg, bits=bits, seed=seed, dtype=torch.float32,
+                           head_bits=bits, device="cpu")
+    with tempfile.TemporaryDirectory() as path:
+        TPM.save_checkpoint(path, tparams, {"model": "llama-tiny",
+                                            "wbits": bits})
+        jparams, _ = JPM.load_checkpoint(path)
+    return jget_config("llama-tiny"), jparams, tcfg, tparams
+
+
 def _both(name="llama-tiny", kv_heads=None, seed=0):
     jcfg = jget_config(name)
     tcfg = get_config(name)

@@ -50,6 +50,6 @@ def test_every_preset_runs(preset):
     lg, c = TM.decode_step(own, torch.from_numpy(toks[:, :1]), c, tcfg)
     assert lg.shape == (2, 128) and c.length.tolist() == [1]
     [r] = TE.Engine(own, tcfg, max_batch=1, max_seq=32, hot=8, page=8,
-                    device="cpu").run([dict(prompt=[1, 2, 3],
+                    paged=True, device="cpu").run([dict(prompt=[1, 2, 3],
                                             max_new_tokens=4)])
     assert len(r.generated) == 5

@@ -27,7 +27,8 @@ def tiny():
 
 
 def _run(tparams, tcfg, reqs, chunked, eng_kw=None, **run_kw):
-    eng = TE.Engine(tparams, tcfg, device="cpu", **{**_KW, **(eng_kw or {})})
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu",
+                    **{**_KW, **(eng_kw or {})})
     return eng, eng.run([dict(r) for r in reqs], chunked=chunked, **run_kw)
 
 
@@ -127,7 +128,7 @@ def test_admit_limit_token_equality(tiny):
 def test_pump_arrivals_between_pumps(tiny):
     """Requests submitted between pumps complete with the serial tokens."""
     _, _, tcfg, tparams = tiny
-    eng = TE.Engine(tparams, tcfg, device="cpu", **_KW)
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu", **_KW)
     first = [dict(prompt=[1, 2], max_new_tokens=15),
              dict(prompt=[3, 4, 5], max_new_tokens=15)]
     late = [dict(prompt=[6, 7], max_new_tokens=9),
@@ -161,7 +162,8 @@ def test_overbudget_clamp_walks_the_ladder(tiny):
     """A budget past the sequence cap is clamped at submit; the pump then
     reaches the cap with at most one serial step."""
     _, _, tcfg, tparams = tiny
-    eng = TE.Engine(tparams, tcfg, device="cpu", **dict(_KW, max_seq=40))
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu",
+                    **dict(_KW, max_seq=40))
     uid = eng.submit(prompt=[1, 2, 3], max_new_tokens=500)
     req = next(r for r in eng._queue if r.uid == uid)
     assert req.max_new_tokens == 40 - 1 - 3
@@ -270,7 +272,7 @@ def test_warmup_leaves_engine_idle(tiny):
     bucket; afterwards the engine is idle, its stats untouched, and it
     serves the tokens a fresh engine serves."""
     _, _, tcfg, tparams = tiny
-    eng = TE.Engine(tparams, tcfg, device="cpu", **_KW)
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu", **_KW)
     before = eng.stats()
     assert eng.warmup() is eng
     assert eng.stats() == before

@@ -5,7 +5,7 @@ The loopback cases of tests/test_server.py, on a spec engine (a one-layer
 self-draft): greedy tokens over HTTP must equal ``Engine.run``'s of the
 same requests on the same engine. The CLI reads a quip_tpu checkpoint and
 must print quip_tpu's CLI's completions (greedy, with and without
-``--self_draft 1``)."""
+``--self_draft 1``, and on the slot arena with ``--no_paged``)."""
 import json
 import threading
 import urllib.error
@@ -28,13 +28,13 @@ def http_server():
     _, _, tcfg, tparams = _both(seed=3)
     eng = Engine(tparams, tcfg, max_batch=2, max_seq=64, hot=16, page=8,
                  draft=make_self_draft(tparams, tcfg, 1), spec_k=2,
-                 device="cpu")
+                 paged=True, device="cpu")
     httpd, loop = serve_http(eng, port=0)          # port 0: any free port
     t = threading.Thread(target=httpd.serve_forever, daemon=True)
     t.start()
     ref = Engine(tparams, tcfg, max_batch=2, max_seq=64, hot=16, page=8,
                  draft=make_self_draft(tparams, tcfg, 1), spec_k=2,
-                 device="cpu")
+                 paged=True, device="cpu")
     yield eng, ref, httpd.server_address[1]
     httpd.shutdown()
     loop.shutdown()
@@ -208,8 +208,23 @@ def test_serve_cli_default_max_seq(model, capsys):
     assert ("capped at 128" in err) == (model == "opt-tiny"), err
 
 
-@pytest.mark.parametrize("flags", [["--no_paged"], ["--tp", "2"],
-                                   ["--dp", "2"],
+def test_serve_cli_no_paged_matches_quip_tpu(ckpt, capsys, monkeypatch):
+    """``--no_paged`` serves from the slot arena: the completions of
+    quip_tpu's CLI with the same flags (its arena, token by token), through
+    the port's chunked arena loop."""
+    monkeypatch.setenv("QUIP_TPU_HF_ONLINE", "0")
+    args = ["llama-tiny", "--load", ckpt, "--max_batch", "2", "--max_seq",
+            "64", "--max_new_tokens", "12", "--prompt", "Hi", "--prompt",
+            "quip", "--prompt", "a longer prompt", "--no_paged"]
+    jcli.main(args + ["--no_chunked", "--no_compile_cache"])
+    want = _completions(capsys.readouterr().out)
+    reqs = tcli.main(args + ["--device", "cpu"])
+    got = _completions(capsys.readouterr().out)
+    assert got == want and len(got) == 3
+    assert [len(r.generated) for r in reqs] == [13] * 3
+
+
+@pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
                                    ["--self_draft", "1", "--spec_draft", "x"]])
 def test_serve_cli_refuses_unported_flags(flags, capsys):
     with pytest.raises(SystemExit):

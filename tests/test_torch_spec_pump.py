@@ -34,8 +34,8 @@ def tiny():
 
 
 def _spec(tcfg, tparams, tdraft, **kw):
-    return TE.Engine(tparams, tcfg, device="cpu", draft=(tdraft, tcfg),
-                     spec_k=2, **{**_KW, **kw})
+    return TE.Engine(tparams, tcfg, paged=True, device="cpu",
+                     draft=(tdraft, tcfg), spec_k=2, **{**_KW, **kw})
 
 
 def _gen(outs):
@@ -46,7 +46,7 @@ def _plain(tcfg, tparams, reqs, **kw):
     """The port's non-spec greedy tokens, request by request (the serial
     loop, held to quip_tpu's by tests/test_torch_pump.py)."""
     kw = {**_KW, **kw}
-    eng = TE.Engine(tparams, tcfg, device="cpu", **kw)
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu", **kw)
     return _gen(eng.run([dict(r) for r in reqs]))
 
 
@@ -197,7 +197,7 @@ def test_spec_self_draft_warmup_and_stream(tiny):
     were, then the pump and ``stream`` give the plain greedy tokens; the
     warmed spec graphs are S = 1, 2 and 4 at every page bucket."""
     _, _, _, tcfg, tparams, _ = tiny
-    eng = TE.Engine(tparams, tcfg, device="cpu",
+    eng = TE.Engine(tparams, tcfg, paged=True, device="cpu",
                     draft=make_self_draft(tparams, tcfg, 1), spec_k=2, **_KW)
     eng.warmup()
     assert eng.stats()["completed"] == 0 and not eng.accept_hist
@@ -209,7 +209,7 @@ def test_spec_self_draft_warmup_and_stream(tiny):
     want = _plain(tcfg, tparams, reqs)
     assert _gen(eng.run([dict(r) for r in reqs], chunked=True)) == want
     assert list(eng.stream([5, 6, 7], max_new_tokens=14)) == want[0]
-    plain = TE.Engine(tparams, tcfg, device="cpu", **_KW)
+    plain = TE.Engine(tparams, tcfg, paged=True, device="cpu", **_KW)
     assert list(plain.stream([2], max_new_tokens=9)) == want[1]
 
 

@@ -40,7 +40,7 @@ def _plain_greedy(tparams, tcfg, prompt, n):
     """The port's non-spec greedy tokens (held to quip_tpu's by
     tests/test_torch_engine.py)."""
     eng = Engine(tparams, tcfg, max_batch=1, max_seq=64, hot=8, page=8,
-                 device="cpu")
+                 paged=True, device="cpu")
     [r] = eng.run([dict(prompt=list(prompt), max_new_tokens=n)])
     return r.generated
 
@@ -308,7 +308,7 @@ def test_engine_spec_sampling(tiny):
         def run(seed):
             eng = Engine(tparams, tcfg, max_batch=2, max_seq=64, hot=16,
                          page=8, draft=(tdraft, tcfg), spec_k=2, seed=seed,
-                         device="cpu")
+                         paged=True, device="cpu")
             return [r.generated for r in eng.run([dict(r) for r in reqs],
                                                  chunked=chunked)]
         a, b, c = run(11), run(11), run(12)
@@ -322,4 +322,4 @@ def test_engine_spec_rejects_k_at_least_hot(tiny):
     _, _, _, tcfg, tparams, tdraft = tiny
     with pytest.raises(ValueError, match="spec_k"):
         Engine(tparams, tcfg, max_seq=64, hot=8, page=8,
-               draft=(tdraft, tcfg), spec_k=8, device="cpu")
+               draft=(tdraft, tcfg), spec_k=8, paged=True, device="cpu")
