@@ -56,7 +56,8 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      QUIP_FUSED_RHT=1: ms a step on the host clock (the pump's the median
      of 3 windows of 48 tokens a slot), kernel ms and launches a step by
      the profiler, and the device's busy share;
- 11. (run right after phase 8, on phase 7's model) speculative serving:
+ 11. (run right after phase 8, on the first SPEC_LAYERS of phase 7's
+     blocks, a depth cut for the script's limit) speculative serving:
      phase 7's 4 greedy requests through ``warmup()`` and
      ``run(chunked=True)`` of a spec engine (K = 4) with a 4-layer
      self-draft and with a perfect draft (the target itself), un-fused with
@@ -81,7 +82,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      pump, K2 never launched; a 2-layer full-width OPT-6.7B quantized (32
      synthetic windows, LDLQ), LDLQ / nearest below 1 on every linear, a
      bit-exact checkpoint and its prefill against the f32 W_hat forward;
-  9. QuIP's quantization path on a full-width random Llama-2-7B through
+  9. (QUANT_LAYERS of 32 layers, a depth cut for the script's limit,
+     which phases 10 and 15 read back) QuIP's quantization path on a
+     full-width random Llama-2-7B through
      the quantize CLI's calls (synthetic calibration, 32 windows of 2048
      tokens, cut from the reference's 128 for the script's time limit;
      LDLQ with incoherence processing, the lm_head too): layer 0's
@@ -115,6 +118,19 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      ``cli/bench.main`` at --batch 1 and 4, arena and --paged, --check;
      its JSON lines printed, every slot's greedy stream held to phase
      11's teacher-forced check.
+ 16. (last) the quantizer's options on Llama-2-7B at its published widths,
+     BF_LAYERS layers: ``cli/quantize.main`` with --pre_proj and no
+     --proj_mode ('noblock' butterflies), ldlqRG, the head, --resume_dir
+     and --trace on BF_NSAMPLES windows of 2048 tokens, then the same
+     command resumed (blocks and the head's planes bit for bit); the
+     butterfly checkpoint served by ``Engine.run`` (arena, then paged),
+     each token held to the teacher-forced check, a planted fault (U's
+     butterfly un-transposed) above it; 8-bit ActQuant wrappers around
+     it, calibrated and served; random-code 'rht', 'noblock' and 'block'
+     models: rotation bytes a layer, b1 / b4 pump decode; ``cli/tools``
+     save-hessians, hsummary and proxy on layer 0's wo and wd for every
+     rounder against nearest (each ratio below 1); host offload against
+     the same quantization on the card (codes equal, lower peak memory).
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -1804,7 +1820,8 @@ def phase_bench(name: str, smi: str, ckpt: str):
             out.update(counts, run_s=time.time() - t)
             assert math.isfinite(out["continuation_nll"]), out
             assert counts["k2"] == 0 and counts["k1p"] == 0, counts
-            assert counts["k1_decode"] >= 129 * (128 + 16), counts
+            assert counts["k1_decode"] >= (4 * cfg.n_layers + 1) * (
+                128 + 16), counts
             assert all(len(g) == 4 + 128 + 16 for g in gens), len(gens[0])
             out["exact"], out["worst_gap"] = _spec_exactness(
                 model, cfg, [dict(prompt=[0])] * B, gens, None,
@@ -1837,6 +1854,9 @@ def phase_bench(name: str, smi: str, ckpt: str):
 
 # Phase 11: speculative serving. K tokens drafted an iteration.
 SPEC_K = 4
+# phase 11's target depth: the first SPEC_LAYERS of phase 7's 32 blocks (a
+# cut for the script's limit)
+SPEC_LAYERS = 16
 # Greedy exactness at full width. The draft's steps run K1-decode at B rows,
 # the verify K1-tile at B*K rows (K1-decode up to 8), the teacher-forced
 # forward K1-tile and K2 over the whole sequence: three bf16 paths whose sums
@@ -2195,8 +2215,8 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
             if fused:
                 assert r["k3"] > 0, r
             else:
-                assert r["k3"] == 0 and r["k2"] == 32 + drafts[dname][
-                    1].n_layers, r
+                assert r["k3"] == 0 and r["k2"] == cfg.n_layers + drafts[
+                    dname][1].n_layers, r
             log(f"spec, {what}: warmup {warm_s:.1f} s ({graphs} graphs); "
                 f"phase 7's 4 requests in {r['run_s']:.2f} s, {r['chunks']} "
                 f"chunks, {r['serial_steps']} serial steps, "
@@ -2275,7 +2295,8 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
         t = time.time()
         save_checkpoint(ckpt, model, {"model": SPEC_MODEL, "wbits": 2})
         save_s = time.time() - t
-        cli = _cli_check(model, cfg, ckpt)
+        with _cut_depth(cfg.n_layers):
+            cli = _cli_check(model, cfg, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -2554,6 +2575,9 @@ def _quantize_family(smi: str) -> dict:
 # it the samples are cut first (to 32), then the depth, never the width.
 # Cut to 32 since phase 12 joined the script: the 1200 s limit.
 QUANT_NSAMPLES = 32
+# phase 9's depth (of 32), which phases 10 and 15 read back: cut from 32
+# (with phase 11's SPEC_LAYERS) to pay for phase 16 within the script's limit
+QUANT_LAYERS = 16
 QUANT_BUDGET_S = 300.0
 
 
@@ -2945,7 +2969,8 @@ def phase_eval(name: str, smi: str, ckpt: str):
     flash_d = abs(dense["window"]["nll"] - nll_dense_attn) / (seqlen - 1)
     del model
     torch.cuda.empty_cache()
-    assert dense["counts"] == dict(k1_tile=0, k1_decode=0, k2=32 * nwin,
+    L = cfg.n_layers
+    assert dense["counts"] == dict(k1_tile=0, k1_decode=0, k2=L * nwin,
                                    k3=0, k1p=0), dense["counts"]
 
     packed = _eval_cli(base + ["--load", ckpt])
@@ -2953,8 +2978,8 @@ def phase_eval(name: str, smi: str, ckpt: str):
     for k in ("cfg", "stream", "seqlen"):
         packed.pop(k)
     packed["window"] = _window(model, cfg, tk)
-    assert packed["counts"] == dict(k1_tile=129 * nwin, k1_decode=0,
-                                    k2=32 * nwin, k3=0, k1p=0), (
+    assert packed["counts"] == dict(k1_tile=(4 * L + 1) * nwin, k1_decode=0,
+                                    k2=L * nwin, k3=0, k1p=0), (
         packed["counts"])
     ref = unpack_model(model, torch.float32)
     del model
@@ -3031,7 +3056,8 @@ def phase_eval(name: str, smi: str, ckpt: str):
     zs.update(greedy_s=time.time() - t, greedy_counts=_read_counts(),
               greedy=gen)
     assert len(gen) == 4 and all(isinstance(g, str) for g in gen), gen
-    assert zs["greedy_counts"]["k1_decode"] >= 129 * 15, zs["greedy_counts"]
+    assert zs["greedy_counts"]["k1_decode"] >= (4 * L + 1) * 15, zs[
+        "greedy_counts"]
     log(f"zero-shot (cli/zeroshot, {EVAL_TASKS}, synthetic docs, limit 8, "
         f"batch 4, byte tokenizer): {zs['requests']} loglikelihood requests "
         f"scored in {zs['score_s']:.2f} s ({zs['req_s']:.1f} requests/s; "
@@ -3062,6 +3088,345 @@ def phase_eval(name: str, smi: str, ckpt: str):
     return RESULTS["eval"]
 
 
+# Phase 16: the quantizer's options at full width. Llama-2-7B's published
+# widths, cut to BF_LAYERS of 32 layers and BF_NSAMPLES calibration windows
+# of 2048 tokens (the reference's 128) for the script's time limit.
+BF_LAYERS = 2
+BF_NSAMPLES = 8
+BF_BUDGET_S = 200.0
+# 16d's proxy methods: (name, CLI flags, its nearest baseline's flags)
+BF_INCOH = ["--pre_gptqH", "--pre_rescale", "--pre_proj", "--qfn", "b"]
+BF_METHODS = (
+    ("ldlq", ["--quant", "ldlq"] + BF_INCOH),
+    ("ldlqRG", ["--quant", "ldlqRG"] + BF_INCOH),
+    ("allbal", ["--quant", "allbal", "--npasses", "1"] + BF_INCOH),
+    ("ldlbal_admm", ["--quant", "ldlbal_admm"] + BF_INCOH),
+    ("gptq_g128", ["--quant", "gptq", "--groupsize", "128", "--qfn", "a",
+                   "--pre_gptqH", "--pre_rescale", "--pre_proj"]),
+    ("trueobs", ["--quant", "trueobs"] + BF_INCOH),
+)
+
+
+@contextlib.contextmanager
+def _cut_depth(n_layers: int):
+    """The CLIs' presets cut to ``n_layers`` inside the block (the widths
+    stay the published ones)."""
+    from quip_tpu_torch.cli import common
+    orig = common.get_config
+    common.get_config = lambda name: dataclasses.replace(orig(name),
+                                                         n_layers=n_layers)
+    try:
+        yield
+    finally:
+        common.get_config = orig
+
+
+def _quiet_call(fn, *a, **kw):
+    """fn(*a, **kw) with its stdout kept (and echoed): (result, text)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    text = buf.getvalue()
+    return out, text
+
+
+def _rot_bytes(block) -> int:
+    """Bytes of a block's rotation buffers (RHT signs / factors / vin,
+    butterfly blocks and permutations with their derived inverses)."""
+    keys = ("_signs", "_left", "_right", "vin", "_block", "_perm_", "_inv_")
+    return sum(b.numel() * b.element_size()
+               for n, b in block.named_buffers()
+               if any(k in n.rsplit(".", 1)[-1] for k in keys)
+               and not n.endswith("scaleWH"))
+
+
+def phase_butterfly(name: str, smi: str):
+    """Phase 16: the quantizer's options on Llama-2-7B at its published
+    widths (BF_LAYERS layers, bf16, random dense weights, fused).
+    16a: cli/quantize.main with --pre_proj and no --proj_mode ('noblock'
+    butterflies, as quip_tpu's CLI), ldlqRG, the head, --packed,
+    --resume_dir and --trace, BF_NSAMPLES windows of 2048 tokens (K2 in
+    the Hessian pass); the same command again resumes every layer and
+    gives the same model. 16b: the checkpoint served by Engine.run
+    (arena, then paged) on 4 greedy requests, each token held to a
+    teacher-forced forward; a planted fault (U's butterfly un-transposed)
+    reads above the limit. 16c: random-code models in 'rht', 'noblock'
+    and 'block': rotation bytes a layer, b1 / b4 pump decode (ms, kernel
+    ms, launches a step), the engine's tokens held as in 16b. 16d:
+    cli/tools save-hessians, hsummary and proxy on layer 0's wo and wd
+    for every rounder, each proxy loss below nearest's. 16e:
+    quantize_model with host_offload against the same run on the card
+    (codes equal, lower peak memory); 8-bit ActQuant wrappers around 16b's
+    packed model, calibrated, through Engine.run, tokens held to the
+    wrapped model's forward."""
+    from quip_tpu_torch import analysis
+    from quip_tpu_torch.cli import quantize as QCLI
+    from quip_tpu_torch.cli import tools as TCLI
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.core import incoherence as INC
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models import model as TM
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.ops import actquant as AQ
+    from quip_tpu_torch.ops import qlinear as QL
+    from quip_tpu_torch.pack.model import load_checkpoint
+    from quip_tpu_torch.quantize.config import QuantConfig
+    from quip_tpu_torch.quantize.driver import quantize_model
+    from quip_tpu_torch.serve.engine import Engine
+
+    t_phase = time.time()
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=BF_LAYERS,
+                              max_seq=2048, dtype="bfloat16")
+    res: dict = dict(layers=BF_LAYERS, nsamples=BF_NSAMPLES)
+    tmp = tempfile.mkdtemp(prefix="quip_bf_")
+    D, R, T = (os.path.join(tmp, k) for k in ("ckpt", "resume", "trace"))
+    try:
+        # ---- 16a: quantize through the CLI, then resume ----------------
+        argv = ["llama-2-7b", "synthetic", "--weights", "random", "--wbits",
+                "2", "--quant", "ldlqRG", "--pre_gptqH", "--pre_rescale",
+                "--pre_proj", "--qfn", "b", "--fuse", "--quant_head",
+                "--packed", "--resume_dir", R, "--nsamples",
+                str(BF_NSAMPLES), "--seqlen", "2048", "--chunk", "4",
+                "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t = time.time()
+        with _cut_depth(BF_LAYERS):
+            (newp, art), _ = _quiet_call(
+                QCLI.main, argv + ["--save", D, "--trace", T])
+        torch.cuda.synchronize()
+        quant_s = time.time() - t
+        k2_calib = FA.launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        traces = [f for f in os.listdir(T) if f.endswith(".json")]
+        trace_mib = sum(os.path.getsize(os.path.join(T, f))
+                        for f in traces) / 2 ** 20
+        assert traces, "no trace file written"
+        assert k2_calib > 0, "the Hessian pass did not run K2"
+        st = art.results["layers.0.self_attn.qkv_proj"].preproc
+        assert st.proj_mode == "noblock" and isinstance(st.U, INC.Butterfly)
+        layer_s = [art.times[f"layers.{i}"] for i in range(BF_LAYERS)]
+        t = time.time()
+        with _cut_depth(BF_LAYERS):
+            (again, art2), text2 = _quiet_call(
+                QCLI.main, argv + ["--save", D + "2"])
+        resume_s = time.time() - t
+        assert text2.count("(resumed)") == BF_LAYERS, text2
+        for a, b in zip(newp.blocks, again.blocks):
+            sa, sb = a.state_dict(), b.state_dict()
+            assert all(torch.equal(sa[k], sb[k]) for k in sa)
+        # quip_tpu's resume keeps no codes: the resumed layers are saved
+        # dense, the head (quantized again) packed; its planes bit for bit
+        t1, _ = load_checkpoint(D)
+        t2, _ = load_checkpoint(D + "2")
+        assert all(torch.equal(a, b) for a, b in zip(t1["lm_head"].planes,
+                                                      t2["lm_head"].planes))
+        del again, art2, newp, art, t1, t2
+        shutil.rmtree(D + "2", ignore_errors=True)
+        torch.cuda.empty_cache()
+        res.update(quant_s=quant_s, layer_s=layer_s, resume_s=resume_s,
+                   peak_gib=peak_gib, k2_calibration=k2_calib,
+                   trace_files=len(traces), trace_mib=trace_mib)
+        log(f"16a quantize (cli/quantize, --pre_proj -> noblock, ldlqRG, "
+            f"{BF_LAYERS} of 32 layers, {BF_NSAMPLES} x 2048 windows): "
+            f"{quant_s:.1f} s traced, a layer "
+            + ", ".join(f"{s:.2f}" for s in layer_s)
+            + f" s, peak {peak_gib:.1f} GiB, K2 {k2_calib} in calibration; "
+            f"trace {len(traces)} file(s), {trace_mib:.0f} MiB; the same "
+            f"command again: {resume_s:.1f} s, every layer resumed, blocks "
+            f"and the head's planes equal bit for bit")
+        tree, _ = load_checkpoint(D)
+        packed = params_from_numpy(tree, cfg, device="cuda")
+        del tree
+        assert packed.blocks[0].mlp.wd.butterfly
+        ratio = {}
+
+        # ---- 16b: serve the butterfly checkpoint ----------------------
+        rng = np.random.default_rng(16)
+        reqs = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                     max_new_tokens=16) for n in (600, 128, 37, 5)]
+        kw = dict(max_batch=4, max_seq=1024, cache_dtype=torch.bfloat16,
+                  device="cuda")
+        with fused_rht(False):
+            ar = _run_arena(Engine(packed, cfg, **kw), reqs, cfg)
+            pg = _run_engine(Engine(packed, cfg, hot=32, page=64,
+                                    paged=True, **kw), reqs, cfg)
+        ex_ar = _spec_exactness(packed, cfg, reqs, ar["tokens"], None,
+                                tol=SPEC_TOL[False])
+        ex_pg = _spec_exactness(packed, cfg, reqs, pg["tokens"], None,
+                                tol=SPEC_TOL[False])
+        assert ar["k1_decode"] > 0 and ar["k1_tile"] > 0, ar
+        assert pg["k1_decode"] > 0 and pg["k1_tile"] > 0 and pg["k2"] > 0
+        orig = INC.apply_butterfly
+        INC.apply_butterfly = lambda bf, x, axis=0, transpose=False: orig(
+            bf, x, axis, False)               # U's side un-transposed
+        try:
+            with fused_rht(False):
+                bad = _run_arena(Engine(packed, cfg, **kw), reqs, cfg)
+        finally:
+            INC.apply_butterfly = orig
+        _, bad_gap = _spec_exactness(packed, cfg, reqs, bad["tokens"], None)
+        assert bad_gap > SPEC_TOL[False], bad_gap
+        res["serve"] = dict(arena=ar, paged=pg, exact_arena=ex_ar,
+                            exact_paged=ex_pg, fault_gap=bad_gap)
+        log(f"16b served the butterfly checkpoint: arena K1-decode "
+            f"{ar['k1_decode']}, K1-tile {ar['k1_tile']}, K2 {ar['k2']}; "
+            f"paged K1-decode {pg['k1_decode']}, K1-tile {pg['k1_tile']}, "
+            f"K2 {pg['k2']}; teacher-forced: arena {ex_ar[0]:.1%} exact "
+            f"(worst {ex_ar[1]:.2e}), paged {ex_pg[0]:.1%} (worst "
+            f"{ex_pg[1]:.2e}) <= {SPEC_TOL[False]:.0e}; planted fault (U "
+            f"un-transposed) reads {bad_gap:.2e}")
+
+        # ---- 16e (ActQuant on 16b's model) ---------------------------
+        calib_tok = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (2, 256))).cuda()
+        wrapped = AQ.calibrate_actquant(AQ.add_actquant(packed, cfg, 8), cfg,
+                                        calib_tok)
+        assert all(isinstance(b.mlp.wd, AQ.ActQuant)
+                   and bool((b.mlp.wd.scale != 0).all())
+                   for b in wrapped.blocks)
+        with fused_rht(False):
+            aq = _run_arena(Engine(wrapped, cfg, **kw), reqs, cfg)
+        ex_aq = _spec_exactness(wrapped, cfg, reqs, aq["tokens"], None,
+                                tol=SPEC_TOL[False])
+        same = sum(a == b for x, y in zip(aq["tokens"], ar["tokens"])
+                   for a, b in zip(x, y)) / sum(len(x) for x in ar["tokens"])
+        res["actquant"] = dict(run=aq, exact=ex_aq, tokens_equal=same)
+        log(f"16e ActQuant (8-bit, calibrated on 2 x 256 tokens) around "
+            f"every packed linear: Engine.run {aq['run_s']:.2f} s, K1-decode "
+            f"{aq['k1_decode']}, K1-tile {aq['k1_tile']}; teacher-forced "
+            f"against the wrapped forward {ex_aq[0]:.1%} exact (worst "
+            f"{ex_aq[1]:.2e}); {same:.1%} of the tokens as unwrapped")
+        del wrapped, packed
+        torch.cuda.empty_cache()
+
+        # ---- 16c: rht / noblock / block at decode --------------------
+        modes = {}
+        for mode in ("rht", "noblock", "block"):
+            model = packed_model(cfg, bits=2, seed=16, dtype=torch.bfloat16,
+                                 head_bits=2, device="cuda", proj=mode)
+            rb = _rot_bytes(model.blocks[0])
+            with fused_rht(False):
+                run = _run_arena(Engine(model, cfg, **kw), reqs, cfg)
+                ex = _spec_exactness(model, cfg, reqs, run["tokens"], None,
+                                     tol=SPEC_TOL[False])
+                dec = {B: _pump_decode(model, cfg, rng, B=B, n_new=32,
+                                       reps=1) for B in (1, 4)}
+            modes[mode] = dict(rot_bytes_layer=rb, exact=ex, run=run,
+                               decode={B: {k: d[k] for k in (
+                                   "ms_per_step", "device_ms",
+                                   "kernel_launches", "busy", "per_step")}
+                                   for B, d in dec.items()})
+            log(f"16c {mode}: rotation {rb / 1e6:.1f} MB a layer; b1 "
+                f"{dec[1]['ms_per_step']:.2f} ms a step ({dec[1]['device_ms']:.2f}"
+                f" ms kernels, {dec[1]['kernel_launches']:.0f} launches), b4 "
+                f"{dec[4]['ms_per_step']:.2f} ms ({dec[4]['device_ms']:.2f} ms, "
+                f"{dec[4]['kernel_launches']:.0f}); K1-decode a step "
+                f"{dec[1]['per_step']['dm_decode']:.0f}; tokens "
+                f"{ex[0]:.1%} exact (worst {ex[1]:.2e})")
+            del model
+            torch.cuda.empty_cache()
+        res["modes"] = modes
+
+        # ---- 16d: the tools and every rounder on layer 0 --------------
+        Hp = os.path.join(tmp, "H.npz")
+        t = time.time()
+        with _cut_depth(BF_LAYERS):
+            Hs, _ = _quiet_call(TCLI.main, [
+                "save-hessians", "llama-2-7b", "synthetic", "--weights",
+                "random", "--nsamples", str(BF_NSAMPLES), "--seqlen", "2048",
+                "--chunk", "4", "--out", Hp, "--device", "cuda"])
+        save_s = time.time() - t
+        assert len(Hs) == 7 * BF_LAYERS
+        H0 = os.path.join(tmp, "H0.npz")
+        lin = ("layers.0.self_attn.o_proj", "layers.0.mlp.down_proj")
+        analysis.save_hessians_npz(H0, {k: Hs[k] for k in lin})
+        del Hs
+        t = time.time()
+        rows, _ = _quiet_call(TCLI.main, ["hsummary", "--hessians", H0,
+                                          "--device", "cuda"])
+        hsum_s = time.time() - t
+        proxy = {}
+        base = ["proxy", "llama-2-7b", "--weights", "random", "--hessians",
+                H0, "--wbits", "2", "--layers", "0", "--device", "cuda"]
+        with _cut_depth(BF_LAYERS):
+            for label, flags in (("nearest", ["--quant", "nearest"]
+                                  + BF_INCOH),
+                                 ("nearest_a", ["--quant", "nearest",
+                                                "--qfn", "a", "--pre_gptqH",
+                                                "--pre_rescale",
+                                                "--pre_proj"])) + BF_METHODS:
+                names = ("self_attn.o_proj" if label == "ldlbal_admm" else
+                         "self_attn.o_proj,mlp.down_proj")
+                t = time.time()
+                with watchdog(120, f"proxy {label}"):
+                    out, _ = _quiet_call(TCLI.main, base + flags +
+                                         ["--names", names])
+                proxy[label] = dict(per_layer=out["per_layer"],
+                                    s=time.time() - t)
+        for label, _ in BF_METHODS:
+            near = proxy["nearest_a" if label == "gptq_g128" else "nearest"]
+            ratio[label] = {k: v / near["per_layer"][k]
+                            for k, v in proxy[label]["per_layer"].items()}
+        log("16d tools: save-hessians " + f"{save_s:.1f} s, hsummary "
+            f"{hsum_s:.1f} s (" + "; ".join(
+                f"{r[0].split('.', 2)[2]} tr(D)/tr(H) {r[1]:.3f} mu "
+                f"{r[4]:.1f}" for r in rows) + "); proxy / nearest on layer "
+            "0: " + "; ".join(
+                f"{m} " + ", ".join(f"{k.split('.')[-1]} {v:.3f}"
+                                    for k, v in r.items())
+                + f" ({proxy[m]['s']:.1f} s)" for m, r in ratio.items()))
+        assert all(v < 1 for r in ratio.values() for v in r.values()), ratio
+        res.update(tools=dict(save_s=save_s, hsummary_s=hsum_s,
+                              hsummary=rows, proxy=proxy, ratio=ratio))
+
+        # ---- 16e: host offload ---------------------------------------
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        host = TM.fuse_params(TM.init_params(gen, cfg, device="cuda"),
+                              cfg).to("cpu")
+        calib = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2048)))
+        qc = QuantConfig.incoherence(2, "ldlq", proj_mode="noblock")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t = time.time()
+        _, art_off = quantize_model(host, cfg, calib, qc, seed=3,
+                                    host_offload=True, device="cuda",
+                                    quant_head=True)
+        off_s = time.time() - t
+        peak_off = torch.cuda.max_memory_allocated() - base_mem
+        ondev = copy.deepcopy(host).to("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        _, art_on = quantize_model(ondev, cfg, calib.cuda(), qc, seed=3,
+                                   quant_head=True)
+        on_s = time.time() - t
+        peak_on = torch.cuda.max_memory_allocated() - base_mem
+        for k, r in art_on.results.items():
+            assert torch.equal(r.codes.cpu(), art_off.results[k].codes), k
+            assert art_off.results[k].codes.device.type == "cpu"
+        assert peak_off < peak_on, (peak_off, peak_on)
+        res["offload"] = dict(peak_gib_offload=peak_off / 2 ** 30,
+                              peak_gib_on_card=peak_on / 2 ** 30,
+                              s_offload=off_s, s_on_card=on_s)
+        log(f"16e host offload: codes of {len(art_on.results)} linears equal "
+            f"bit for bit; peak device memory {peak_off / 2 ** 30:.2f} GiB "
+            f"offloaded vs {peak_on / 2 ** 30:.2f} GiB on the card; "
+            f"{off_s:.1f} s vs {on_s:.1f} s")
+        del host, ondev, art_on, art_off
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 16: {res['phase_s']:.1f} s (budget {BF_BUDGET_S:.0f} s"
+        + (", OVER" if res["phase_s"] > BF_BUDGET_S else "") + f"); card: "
+        f"{smi}")
+    RESULTS["butterfly"] = res
+    return res
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3080,8 +3445,15 @@ def main():
         pump, dec = phase_pump(name, smi, model, cfg, prompts, base, conf)
     with watchdog(600, "the arena phase"):
         arena = phase_arena(name, smi, model, cfg, prompts, dec)
+    # phase 11 serves the first SPEC_LAYERS of phase 7's blocks (a depth
+    # cut for the script's limit; the widths are the model's)
+    spec_cfg = dataclasses.replace(cfg, n_layers=SPEC_LAYERS)
+    from quip_tpu_torch.models.model import Model
+    spec_model = Model(spec_cfg, model.embed, list(model.blocks)[
+        :SPEC_LAYERS], model.final_ln, model.lm_head)
     with watchdog(900, "the speculative phase"):
-        spec, _ = phase_spec(name, smi, model, cfg, prompts)
+        spec, _ = phase_spec(name, smi, spec_model, spec_cfg, prompts)
+    del spec_model
     del model
     torch.cuda.empty_cache()
     with watchdog(600, "the families phase"):
@@ -3090,13 +3462,21 @@ def main():
         phase_3bit(name, smi)
     ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
     try:
-        quant = phase_quantize(name, smi, ckpt)
-        with watchdog(600, "the evaluation phase"):
-            ev = phase_eval(name, smi, ckpt)
-        with watchdog(400, "the bench CLI phase"):
-            phase_bench(name, smi, ckpt)
+        # phases 9, 10 and 15 on QUANT_LAYERS of Llama-2-7B's 32 layers
+        with _cut_depth(QUANT_LAYERS):
+            quant = phase_quantize(name, smi, ckpt)
+            with watchdog(600, "the evaluation phase"):
+                ev = phase_eval(name, smi, ckpt)
+            with watchdog(400, "the bench CLI phase"):
+                phase_bench(name, smi, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+    with watchdog(BF_BUDGET_S + 100, "the butterfly phase"):
+        bf = phase_butterfly(name, smi)
+    # launches_butterfly: phase 16b's Engine.run of the butterfly
+    # checkpoint, arena then paged (K2 from the paged run's prefill and
+    # 16a's calibration: the arena never runs K2)
+    bf_ar, bf_pg = bf["serve"]["arena"], bf["serve"]["paged"]
     # launches: K1-decode, K1-tile and K2 from the first slice's Engine.run, K3
     # from the fused / int8 / prefix Engine.run, K1' from the
     # microbenchmark's path; launches_eval from phase 10's runs (both
@@ -3128,6 +3508,7 @@ def main():
              launches_opt=opt["k1_decode"],
              launches_bloom=bloom["k1_decode"],
              launches_arena=ar_u["k1_decode"],
+             launches_butterfly=bf_ar["k1_decode"] + bf_pg["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
@@ -3150,6 +3531,7 @@ def main():
              launches_spec=spec_u["k1_tile"],
              launches_opt=opt["k1_tile"], launches_bloom=bloom["k1_tile"],
              launches_arena=ar_u["k1_tile"],
+             launches_butterfly=bf_ar["k1_tile"] + bf_pg["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
@@ -3175,6 +3557,8 @@ def main():
              launches_eval=ev["launches"]["k2"],
              launches_spec=spec_u["k2"],
              launches_opt=opt["k2"], launches_arena=ar_u["k2"],
+             launches_butterfly=bf_pg["k2"],
+             launches_butterfly_calibration=bf["k2_calibration"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],

@@ -16,8 +16,8 @@ Everything is wired against synthetic data (`synthetic --tasks synthetic
 --weights random` runs the full matrix with zero egress, smoke-tested in
 tests/test_torch_zeroshot.py); once real weights and datasets are in the
 repository the same command produces the parity report (``--weights``
-takes a local Hugging Face directory). ``--host_offload`` is not ported
-yet and raises.
+takes a local Hugging Face directory). ``--host_offload`` keeps the model
+in host memory while it is quantized (one block at a time on the device).
 
 Baseline schema (BASELINE.json "published" — empty until the reference
 numbers are regenerated, BASELINE.md):
@@ -40,6 +40,7 @@ Checks (per quantized width b, fp16 always measured in-run):
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 
@@ -96,10 +97,7 @@ def run_matrix(args) -> dict:
     from quip_tpu_torch.quantize.config import QuantConfig
     from quip_tpu_torch.quantize.driver import quantize_model
 
-    if getattr(args, "host_offload", False):
-        raise NotImplementedError(
-            "--host_offload: not ported yet (ROADMAP queue 1 item 8)")
-
+    offload = bool(getattr(args, "host_offload", False))
     bits_list = [int(b) for b in str(args.bits).split(",") if b]
     task_names = [t for t in args.tasks.split(",") if t]
 
@@ -107,7 +105,9 @@ def run_matrix(args) -> dict:
         published = json.load(f).get("published", {}) or {}
     pub = published.get(args.model, {})
 
-    params0, cfg = common.load_model(args)
+    # --host_offload: the model lives in host memory; the quantizer moves
+    # one block at a time to --device, and each evaluation gets a copy there
+    params0, cfg = common.load_model(args, on_host=offload)
     (calib, test_stream), seqlen = common.get_data(args, cfg)
 
     results: dict = {"model": args.model, "dataset": args.dataset,
@@ -122,7 +122,10 @@ def run_matrix(args) -> dict:
                   flush=True)
             params, _ = quantize_model(
                 params0, cfg, torch.from_numpy(calib), qcfg, seed=args.seed,
-                progress=True, quant_head=args.quant_head)
+                progress=True, host_offload=offload,
+                quant_head=args.quant_head, device=args.device)
+        if offload:
+            params = copy.deepcopy(params).to(args.device)
         key = str(b)
         results["ppl"][key] = _eval_ppl(params, cfg, test_stream, seqlen,
                                         args.batch)
@@ -186,7 +189,7 @@ def main(argv=None):
     p.add_argument("--npasses", type=int, default=0)
     p.add_argument("--quant_head", action="store_true")
     p.add_argument("--host_offload", action="store_true",
-                   help="(not ported yet)")
+                   help="keep the model in host memory while quantizing")
     p.add_argument("--tasks", type=str,
                    default="arc_easy,lambada,piqa,storycloze",
                    help="zero-shot suite ('' skips zero-shot)")

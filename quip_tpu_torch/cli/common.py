@@ -102,7 +102,9 @@ def quant_config_from_args(args) -> QuantConfig:
             rescale=args.pre_rescale, proj=args.pre_proj,
             proj_mode=mode, gptqH=args.pre_gptqH,
             percdamp=args.percdamp),
-        seed=args.seed)
+        # the tools' proxy parser has no --seed (quip_tpu reads args.seed
+        # here and fails on it)
+        seed=getattr(args, "seed", 0))
 
 
 def model_config(args):
@@ -118,12 +120,15 @@ def model_config(args):
     return replace(cfg, dtype=args.dtype), dev
 
 
-def load_model(args):
+def load_model(args, on_host: bool = False):
     """(Model, cfg) from the CLI's model flags, on ``--device``: the
     Hugging Face checkpoint in the local directory ``--weights`` (cast to
     the model dtype), else a random model drawn from a generator on that
-    device seeded with ``--seed``."""
+    device seeded with ``--seed``. ``on_host`` (``--host_offload``) builds
+    it in host memory instead, the dtype still chosen for ``--device``."""
     cfg, dev = model_config(args)
+    if on_host:
+        dev = torch.device("cpu")
     if args.weights and args.weights != "random":
         from quip_tpu_torch.models.hf_import import load_hf_params
         return load_hf_params(args.weights, cfg, dtype=cfg.dtype,

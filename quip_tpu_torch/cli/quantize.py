@@ -8,8 +8,11 @@ Example (a full-width random Llama-2-7B on the card):
 
 The checkpoint is quip_tpu's format (pack/model.py); either package reads
 it. ``--eval`` scores the dense quantized model's perplexity on the test
-stream afterwards. ``--dp``, ``--trace``, ``--host_offload`` and
-``--resume_dir`` are not ported yet and raise.
+stream afterwards. ``--resume_dir`` resumes per layer (quip_tpu's
+``layer_{i}.npz`` files), ``--host_offload`` builds the model in host
+memory and moves one block at a time to ``--device``, ``--trace DIR``
+writes a torch.profiler trace of the quantization. ``--dp`` waits for the
+parallelism slice (ROADMAP queue 1 item 9) and raises.
 """
 from __future__ import annotations
 
@@ -40,31 +43,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fuse qkv (and gate+up) before quantizing: one "
                         "rotation + one packed matmul per group")
     p.add_argument("--host_offload", action="store_true",
-                   help="(not ported yet)")
-    p.add_argument("--dp", type=int, default=1, help="(not ported yet)")
+                   help="keep the blocks in host memory, one block on the "
+                        "device at a time (the reference's CPU<->GPU block "
+                        "streaming, opt.py:94-181)")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel calibration (not ported yet)")
     p.add_argument("--trace", type=str, default=None,
-                   help="(not ported yet)")
+                   help="write a torch.profiler trace of the quantization "
+                        "run to this directory (utils/profiling.trace)")
     p.add_argument("--resume_dir", type=str, default=None,
-                   help="(not ported yet)")
+                   help="per-layer resume directory")
     return p
 
 
 def check_args(p: argparse.ArgumentParser, args) -> None:
-    """Refuse flag combinations without a packed form, and the flags
+    """Refuse flag combinations without a packed form, and ``--dp``,
     whose code is not ported yet."""
     if args.packed and args.groupsize > 0:
         p.error("--packed requires per-row grids; --groupsize produces "
                 "per-group scales with no packed representation. Drop one "
                 "of the two flags.")
-    waiting = {"--dp": args.dp > 1, "--trace": args.trace,
-               "--host_offload": args.host_offload,
-               "--resume_dir": args.resume_dir}
-    asked = [flag for flag, on in waiting.items() if on]
-    if asked:
+    if args.dp > 1:
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported yet (ROADMAP queue 1 item 8 "
-            f"for --host_offload/--resume_dir, item 9 for --dp and "
-            f"--trace)")
+            "--dp: not ported yet (ROADMAP queue 1 item 9, parallelism)")
 
 
 def main(argv=None):
@@ -74,7 +75,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     check_args(p, args)
 
-    params, cfg = common.load_model(args)
+    # --host_offload: the model is built in host memory; the driver moves
+    # one block at a time to --device
+    params, cfg = common.load_model(args, on_host=args.host_offload)
     if args.fuse:
         from quip_tpu_torch.models import model as M
         params = M.fuse_params(params, cfg)
@@ -82,10 +85,14 @@ def main(argv=None):
     qcfg = common.quant_config_from_args(args)
 
     from quip_tpu_torch.quantize.driver import quantize_model
+    from quip_tpu_torch.utils.profiling import trace
     t0 = time.time()
-    newp, art = quantize_model(params, cfg, torch.from_numpy(calib), qcfg,
-                               seed=args.seed, chunk=args.chunk,
-                               progress=True, quant_head=args.quant_head)
+    with trace(args.trace):
+        newp, art = quantize_model(
+            params, cfg, torch.from_numpy(calib), qcfg, seed=args.seed,
+            chunk=args.chunk, progress=True, resume_dir=args.resume_dir,
+            host_offload=args.host_offload, quant_head=args.quant_head,
+            device=args.device)
     print(f"Total quant time: {time.time() - t0:.2f}s")
     print(f"Total proxy error: {art.total_error:.4f}")
 

@@ -7,8 +7,11 @@ disk (CPU tensors, ``PackedLeaf`` nodes). Packed leaves are recognised by
 their fields (``planes``, ``bits``, ``qfn``, ``code_bits``, ``rot``, ...),
 never by importing quip_tpu. Layer-stacked leaves (the (L, ...)
 ``blocks`` subtree, including a packed leaf's (L,) ``scale_b`` and stacked
-``rot`` arrays) are split per layer. Rotations must be materialised in the tree (``rot``): the
-port does not regenerate JAX keys (core/incoherence.py).
+``rot`` arrays) are split per layer. Rotations must be materialised in the
+tree (``rot``): the port does not regenerate JAX keys
+(core/incoherence.py). An RHT ``rot`` is cast to float32; a butterfly
+``rot`` nests a tuple of blocks (float32) and two int32 permutations (or
+None), each kept in its kind.
 
 quip_tpu's cache containers (``KVCache``, ``PagedKV`` with or without int8
 scales, ``Prefix``), likewise as numpy, become the port's by their field
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from quip_tpu_torch import resolve_device
+from quip_tpu_torch.core import incoherence as inc
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.models.model import (MLP, Attention, Block, Embed,
                                          KVCache, Model, Norm)
@@ -66,7 +70,12 @@ def packed_from_numpy(obj, layer: Optional[int] = None,
         raise ValueError("packed leaf carries a proj_key but no materialised "
                          "rot; the port cannot regenerate JAX keys")
     rot = None
-    if obj.rot is not None:
+    if obj.rot is not None and inc.is_butterfly(obj.proj_mode):
+        # each side (blocks, perm_in, perm_out): f32 blocks, int32 perms
+        rot = {side: (tuple(tens(b, torch.float32) for b in blocks),
+                      tens(pin, torch.int32), tens(pout, torch.int32))
+               for side, (blocks, pin, pout) in obj.rot.items()}
+    elif obj.rot is not None:
         rot = {}
         for side, val in obj.rot.items():
             rot[side] = (tuple(tens(t, torch.float32) for t in val)

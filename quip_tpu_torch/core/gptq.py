@@ -5,15 +5,16 @@ quantize with error feedback through the upper Cholesky factor of H⁻¹,
 128-column blocks with lazy tail updates (one matmul a block). LDLQ with
 flipped order is the same algorithm (core/ldlq.round_ldl_gptqequiv).
 
-Per-row grids only: the grouped variant (``groupsize != -1``) and
-TrueOBS's full-precision outlier escape (``sparse_outlier > 0``) are not
-ported yet (ROADMAP queue 1 item 8) and raise.
+Also the grouped variant (``groupsize != -1``: the qfn-a grid re-derived
+from the live, error-fed weights of each column's group, gptq.py:70-74)
+and TrueOBS's full-precision outlier escape (``sparse_outlier > 0``,
+zeroShot/models/fast_trueobs.py:108, 134-139).
 """
 from __future__ import annotations
 
 import torch
 
-from quip_tpu_torch.core.grid import GridParams, qfnb_scale
+from quip_tpu_torch.core.grid import GridParams, find_params_qfna, qfnb_scale
 from quip_tpu_torch.core.ldlq import _cholesky
 
 
@@ -52,15 +53,16 @@ def gptq_round(W: torch.Tensor, H: torch.Tensor, grid: GridParams,
                qfn: str = "a", blocksize: int = 128, groupsize: int = -1,
                sparse_outlier: float = 0.0) -> torch.Tensor:
     """OPTQ rounding. W (m, d) in the original weight domain; returns the
-    quantized (still dense) weights."""
+    quantized (still dense) weights.
+
+    ``groupsize != -1`` re-derives the grid from the current weights of
+    each column's group (``_gptq_round_grouped``; as in quip_tpu, the
+    outlier escape does not apply there). ``sparse_outlier > 0`` keeps at
+    full precision the entries whose squared rounding error exceeds
+    ``sparse_outlier * scale²`` (a mixed sparse + quantized layer; the
+    reference uses 0.25)."""
     if groupsize != -1:
-        raise NotImplementedError(
-            "gptq_round: grouped grids (groupsize != -1) are not ported yet "
-            "(ROADMAP queue 1 item 8)")
-    if sparse_outlier > 0:
-        raise NotImplementedError(
-            "gptq_round: TrueOBS's outlier escape (sparse_outlier > 0) is "
-            "not ported yet (ROADMAP queue 1 item 8)")
+        return _gptq_round_grouped(W, H, grid, qfn, groupsize)
     m, d = W.shape
     B = blocksize
     dp = -(-d // B) * B
@@ -82,6 +84,11 @@ def gptq_round(W: torch.Tensor, H: torch.Tensor, grid: GridParams,
         for i in range(B):
             w = W1[:, i].clone()
             q = _quantize_col(w, grid, qfn)
+            if sparse_outlier > 0:
+                # TrueOBS escape: keep fp weights with large rounding error
+                keep = torch.square(w - q) > \
+                    sparse_outlier * torch.square(grid.scale[:, 0])
+                q = torch.where(keep, w, q)
             err = (w - q) / Ublk[i, i]
             W1[:, i:] -= err[:, None] * Ublk[i, i:][None, :]
             W1[:, i] = q
@@ -90,3 +97,24 @@ def gptq_round(W: torch.Tensor, H: torch.Tensor, grid: GridParams,
         Wc[:, en:] -= Err1 @ U[st:en, en:]
         Wc[:, st:en] = W1
     return Wc[:, :d]
+
+
+def _gptq_round_grouped(W, H, grid, qfn, groupsize):
+    """Grouped OPTQ, column by column: before each column the qfn-a grid
+    is found again over the live weights of its group (already quantized
+    columns included, as quip_tpu's scan does; gptq.py:70-74)."""
+    m, d = W.shape
+    if d % groupsize:
+        raise ValueError(f"groupsize {groupsize} must divide d={d}")
+    U = cholesky_inv_upper(H)
+    Wc = W.to(H.dtype).clone()
+    for i in range(d):
+        g0 = (i // groupsize) * groupsize
+        g = find_params_qfna(Wc[:, g0:g0 + groupsize], grid.bits,
+                             perchannel=True, sym=False)
+        w = Wc[:, i].clone()
+        q = _quantize_col(w, g, qfn)
+        err = (w - q) / U[i, i]
+        Wc[:, i + 1:] -= err[:, None] * U[i, i + 1:][None, :]
+        Wc[:, i] = q
+    return Wc

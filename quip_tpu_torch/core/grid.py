@@ -10,8 +10,8 @@ Port of ``quip_tpu/core/grid.py`` (reference quant.py:6-163):
     LDLQ ≡ OPTQ equivalence check.
 
 Grid parameters are a :class:`GridParams` tuple; ``maxq`` is a Python
-float (2**bits - 1). The activation grid (``find_params_qfna_act``) belongs
-to ActQuant and is not ported yet (ROADMAP queue 1 item 8).
+float (2**bits - 1). ``find_params_qfna_act`` is the activation-tensor
+grid ActQuant calibrates with (ops/actquant.py).
 """
 from __future__ import annotations
 
@@ -95,6 +95,41 @@ def find_params_qfna(x: torch.Tensor, bits: int, perchannel: bool = True,
         scale = scale.repeat(x.shape[0])
         zero = zero.repeat(x.shape[0])
     return GridParams(scale=scale[:, None], zero=zero[:, None], maxq=maxq)
+
+
+def find_params_qfna_act(x: torch.Tensor, bits: int,
+                         perchannel: bool = True, sym: bool = False,
+                         mse: bool = False, norm: float = 2.4,
+                         grid: int = 100,
+                         maxshrink: float = 0.8) -> GridParams:
+    """qfn-a grid for ACTIVATION tensors (the weight=False cases of
+    reference find_params_qfna, quant.py:66-77, 117-136).
+
+    Channel axis by rank: 4-D (N, C, H, W) -> axis 1; 3-D (B, S, C) and
+    2-D (B, C) -> the last axis. scale/zero come shaped to broadcast
+    against x: (1, C, 1, 1) / (1, 1, C) / (1, C); a 1-D input gets one
+    whole-tensor grid of shape (1,)."""
+    maxq = maxq_for_bits(bits)
+    shape = x.shape
+    if perchannel and x.dim() >= 2:
+        if x.dim() == 4:
+            xr = torch.movedim(x, 1, 0).reshape(shape[1], -1)
+        elif x.dim() == 3:
+            xr = x.reshape(-1, shape[-1]).t()
+        else:
+            xr = x.t()
+    else:
+        xr = x.reshape(1, -1)
+    scale, zero = _rowwise_qfna(xr, maxq, sym, mse, norm, grid, maxshrink)
+    if not perchannel and x.dim() >= 2:
+        # the whole-tensor grid broadcast over the channels (quant.py:117-121)
+        nch = shape[1] if x.dim() != 3 else shape[2]
+        scale = scale.repeat(nch)
+        zero = zero.repeat(nch)
+    bshape = {4: (1, -1, 1, 1), 3: (1, 1, -1), 2: (1, -1)}.get(x.dim(),
+                                                               (-1,))
+    return GridParams(scale=scale.reshape(bshape),
+                      zero=zero.reshape(bshape), maxq=maxq)
 
 
 def quantize_qfna(x, scale, zero, maxq):

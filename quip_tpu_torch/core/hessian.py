@@ -13,12 +13,12 @@ functions over (W, H):
 
 Where quip_tpu's inverse state holds a PRNG key that regenerates U and V,
 the port's ``PreprocState`` holds the drawn transforms themselves (the RNG
-decision in core/incoherence.py). Butterfly modes are not ported yet
-(ROADMAP queue 1 item 6) and raise.
+decision in core/incoherence.py): an RHT pair for the 'rht*' modes, a
+butterfly pair for 'block' / 'noblock' / 'nopermute'.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -74,13 +74,16 @@ def accumulate_hessian(x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+Transform = Union[inc.RHT, inc.Butterfly]
+
+
 class PreprocState(NamedTuple):
     """Everything needed to invert preprocessing: the diagonal rescale and
     the drawn rotation pair (U, V), or None for each step not taken."""
 
     scaleWH: Optional[torch.Tensor]   # (d,) diagonal rescale
-    U: Optional[inc.RHT]              # (rows) side transform
-    V: Optional[inc.RHT]              # (cols) side transform
+    U: Optional[Transform]            # (rows) side transform
+    V: Optional[Transform]            # (cols) side transform
     proj_mode: str
     rows: int
     cols: int
@@ -101,18 +104,20 @@ def preproc_rescale(W: torch.Tensor, H: torch.Tensor):
     return W, H, scaleWH
 
 
-def preproc_proj(W: torch.Tensor, H: torch.Tensor, U: inc.RHT, V: inc.RHT,
-                 mode: str = "rht"):
+def preproc_proj(W: torch.Tensor, H: torch.Tensor, U: Transform,
+                 V: Transform, mode: str = "rht"):
     """Random orthogonal rotation (method.py:157-180) by the given (U, V).
 
     H is trace-normalized and regularized first (method.py:173):
         H <- H * (d / (tr(H)+1e-8)) + 1e-2 I
-    then W -> U W Vᵀ, H -> V H Vᵀ ('rht'), with the signs outer
-    ('rht_sf') or outer on the U side only ('rht_uf')."""
-    inc.check_rht_mode(mode)
+    then W -> U W Vᵀ, H -> V H Vᵀ (butterflies and 'rht'), with the signs
+    outer ('rht_sf') or outer on the U side only ('rht_uf')."""
+    butterfly = inc.is_butterfly(mode)
     d = H.shape[0]
     H = H * (d / (torch.trace(H) + 1e-8)) \
         + 1e-2 * torch.eye(d, dtype=H.dtype, device=H.device)
+    if butterfly:
+        return inc.rotate_weight(U, V, W), inc.rotate_hessian(V, H)
     if mode == "rht_sf":
         return (inc.rht_rotate_weight_outer(U, V, W),
                 inc.rht_rotate_hessian_outer(V, H))
@@ -135,7 +140,7 @@ def preproc_gptqH(W: torch.Tensor, H: torch.Tensor, percdamp: float = 0.01):
 
 def preproc(W: torch.Tensor, H: torch.Tensor, *, rescale: bool = False,
             proj: bool = False,
-            rot: Optional[Tuple[inc.RHT, inc.RHT]] = None,
+            rot: Optional[Tuple[Transform, Transform]] = None,
             proj_mode: str = "rht", gptqH: bool = False,
             percdamp: float = 0.01
             ) -> Tuple[torch.Tensor, torch.Tensor, PreprocState]:
@@ -164,7 +169,10 @@ def postproc(W: torch.Tensor, H: Optional[torch.Tensor],
     the Hessian's inverse (returned as None)."""
     if state.U is not None:
         U, V = state.U, state.V
-        if state.proj_mode == "rht_sf":
+        if inc.is_butterfly(state.proj_mode):
+            W = inc.unrotate_weight(U, V, W)
+            H = None if H is None else inc.unrotate_hessian(V, H)
+        elif state.proj_mode == "rht_sf":
             W = inc.rht_unrotate_weight_outer(U, V, W)
             H = None if H is None else inc.rht_unrotate_hessian_outer(V, H)
         elif state.proj_mode == "rht_uf":

@@ -1,10 +1,18 @@
-"""Randomized Hadamard/Kronecker transform (RHT) for incoherence processing.
+"""Incoherence processing: random orthogonal butterflies and the
+randomized Hadamard/Kronecker transform (RHT).
 
-Port of the RHT half of ``quip_tpu.core.incoherence``:
-T = (H_{2^k} ⊗ O_r) · diag(s), with H a normalized Hadamard, O_r a random
-orthogonal for the odd part r of n = 2^k · r, and s random ±1 signs.
-Application is one elementwise multiply plus two small dense matmuls on a
-(a, b) reshape.
+Port of ``quip_tpu.core.incoherence`` (reference method.py:16-78):
+
+  * Butterflies (modes 'block', 'noblock', 'nopermute'; reference
+    ``preproc_proj_extra`` 0/1/2): x -> P_out B_k ... B_0 P_in x, with n
+    split into alternating prime factors and each stage a batched product
+    of random SO(p) blocks on a reshape (per-block blocks, or one shared
+    block a stage for 'noblock'); P_in / P_out random permutations (none
+    for 'nopermute'). Never a dense n² product unless materialised.
+  * RHT (modes 'rht', 'rht_sf', 'rht_uf'): T = (H_{2^k} ⊗ O_r) · diag(s),
+    with H a normalized Hadamard, O_r a random orthogonal for the odd part
+    r of n = 2^k · r, and s random ±1 signs. Application is one elementwise
+    multiply plus two small dense matmuls on an (a, b) reshape.
 
 RNG decision: threefry is NOT ported. ``jax.random`` and ``torch.Generator``
 give different numbers from the same seed, so models made by the JAX
@@ -16,9 +24,9 @@ from an explicit
 port's quantizer draws each linear's (U, V) from a generator seeded with
 the run's seed and the linear's ``name_salt`` (quantize/driver.py), and
 the drawn transforms travel with the result (core/hessian.PreprocState).
-
-The butterfly modes (``apply_butterfly`` / ``gen_butterfly``) wait for a
-later slice.
+Butterflies follow the same rule: their SO(p) blocks and permutations are
+drawn from the generator (``gen_butterfly``), or handed across as quip_tpu
+materialised them.
 """
 from __future__ import annotations
 
@@ -28,16 +36,17 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 
-# the proj_modes whose rotation pair is an RHT (the port's only ones)
+# the proj_modes whose rotation pair is an RHT, and the butterfly ones
 RHT_MODES = ("rht", "rht_sf", "rht_uf")
+BUTTERFLY_MODES = ("block", "noblock", "nopermute")
 
 
-def check_rht_mode(mode: str) -> None:
-    """Raise for the butterfly modes, which are not ported yet."""
-    if mode not in RHT_MODES:
-        raise NotImplementedError(
-            f"proj_mode {mode!r}: butterfly modes are a later slice of the "
-            f"port (ROADMAP queue 1 item 6)")
+def is_butterfly(mode: str) -> bool:
+    """Whether ``mode`` rotates by butterflies (else by RHTs); ValueError
+    for a proj_mode that is none of the six known."""
+    if mode not in RHT_MODES + BUTTERFLY_MODES:
+        raise ValueError(f"unknown proj_mode: {mode}")
+    return mode in BUTTERFLY_MODES
 
 
 class RHT(NamedTuple):
@@ -240,3 +249,177 @@ def rht_unrotate_hessian_outer(v: RHT, H: torch.Tensor) -> torch.Tensor:
     H = (H * s[:, None]) * s[None, :]
     H = apply_rht(_nosign(v), H, axis=0, transpose=True)
     return apply_rht(_nosign(v), H, axis=1, transpose=True)
+
+
+# ---------------------------------------------------------------------------
+# Random orthogonal butterflies (reference method.py:16-78)
+# ---------------------------------------------------------------------------
+
+
+def prime_factors(n: int) -> list:
+    """Prime factorization by trial division."""
+    fs = []
+    x = n
+    p = 2
+    while p * p <= x:
+        while x % p == 0:
+            fs.append(p)
+            x //= p
+        p += 1 if p == 2 else 2
+    if x > 1:
+        fs.append(x)
+    return fs
+
+
+def butterfly_factors(n: int) -> Tuple[int, int]:
+    """Split n = p * q by alternating prime factors (method.py:16-18)."""
+    pf = prime_factors(n)
+    return math.prod(pf[0::2]), math.prod(pf[1::2])
+
+
+class Butterfly(NamedTuple):
+    """A random orthogonal butterfly of dimension n.
+
+    blocks[i] is (n_blocks_i, p_i, p_i) with n_blocks_i 1 ('noblock': one
+    block shared by the stage) or n // p_i. perm_in / perm_out are int
+    index vectors of length n, or None ('nopermute'). inv_in / inv_out are
+    their inverses (argsort), given where the caller keeps them (a packed
+    layer derives them once at construction) so the transposed application
+    runs no argsort; None derives them at the call."""
+
+    blocks: Tuple[torch.Tensor, ...]
+    perm_in: Optional[torch.Tensor]
+    perm_out: Optional[torch.Tensor]
+    n: int
+    inv_in: Optional[torch.Tensor] = None
+    inv_out: Optional[torch.Tensor] = None
+
+    @property
+    def factors(self) -> Tuple[int, ...]:
+        return tuple(b.shape[-1] for b in self.blocks)
+
+
+def gen_butterfly(gen: torch.Generator, n: int, mode: str = "noblock",
+                  dtype=torch.float32, device=None) -> Butterfly:
+    """A random butterfly of dimension n drawn from ``gen``
+    (method.py:33-43): one SO(p) draw a factor (f32, then cast), then the
+    two permutations (int32; torch.randperm) unless 'nopermute'."""
+    if mode not in BUTTERFLY_MODES:
+        raise ValueError(f"unknown butterfly mode: {mode}")
+    facs = tuple(f for f in butterfly_factors(n) if f > 1) or (1,)
+    blocks = tuple(
+        random_orthogonal(gen, p, 1 if mode == "noblock" else n // p,
+                          dtype, device) for p in facs)
+    if mode == "nopermute":
+        return Butterfly(blocks, None, None, n)
+    perm = lambda: torch.randperm(  # noqa: E731
+        n, generator=gen, device=gen.device).to(torch.int32).to(device)
+    return Butterfly(blocks, perm(), perm(), n)
+
+
+def inverse_perm(perm: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The index vector that undoes x -> x[perm], as a gather index."""
+    return None if perm is None else torch.argsort(perm)
+
+
+def _apply_factor(x: torch.Tensor, Bi: torch.Tensor, mpfx: int, p: int,
+                  msfx: int, transpose: bool) -> torch.Tensor:
+    """One butterfly stage on the leading axis of (n, q) x
+    (method.py:57-63). The stage's blocks are cast to x's dtype here, as
+    quip_tpu casts them per call (no second copy is kept)."""
+    n, q = x.shape
+    x = x.reshape(mpfx, p, msfx, q).transpose(1, 2).reshape(
+        mpfx * msfx, p, q)
+    B = Bi.to(x.dtype)
+    if transpose:
+        B = B.transpose(-1, -2)
+    x = torch.matmul(B[0], x) if B.shape[0] == 1 else torch.bmm(B, x)
+    return x.reshape(mpfx, msfx, p, q).transpose(1, 2).reshape(n, q)
+
+
+def _inv_permute(x: torch.Tensor, perm: torch.Tensor,
+                 inv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The inverse of x -> x[perm] as a gather by the inverse index."""
+    return x.index_select(0, inverse_perm(perm) if inv is None else inv)
+
+
+def apply_butterfly(bf: Butterfly, x: torch.Tensor, axis: int = 0,
+                    transpose: bool = False) -> torch.Tensor:
+    """y = B x along ``axis``, or Bᵀ x (the exact inverse) with
+    ``transpose``: x -> P_out B_k ... B_0 P_in x (mul_ortho_butterfly,
+    method.py:46-67)."""
+    x = torch.movedim(x, axis, 0)
+    lead = x.shape[0]
+    if lead != bf.n:
+        raise ValueError(f"butterfly dim {bf.n} != axis size {lead}")
+    tail = x.shape[1:]
+    x = x.reshape(lead, -1)
+    facs = bf.factors
+    sizes = [(math.prod(facs[:i]), facs[i], math.prod(facs[i + 1:]))
+             for i in range(len(facs))]
+    if not transpose:
+        if bf.perm_in is not None:
+            x = x.index_select(0, bf.perm_in)
+        for Bi, (mpfx, p, msfx) in zip(bf.blocks, sizes):
+            x = _apply_factor(x, Bi, mpfx, p, msfx, False)
+        if bf.perm_out is not None:
+            x = x.index_select(0, bf.perm_out)
+    else:
+        # (P_out B_k .. B_0 P_in)ᵀ = P_inᵀ B_0ᵀ .. B_kᵀ P_outᵀ
+        if bf.perm_out is not None:
+            x = _inv_permute(x, bf.perm_out, bf.inv_out)
+        for Bi, (mpfx, p, msfx) in zip(reversed(bf.blocks),
+                                       reversed(sizes)):
+            x = _apply_factor(x, Bi, mpfx, p, msfx, True)
+        if bf.perm_in is not None:
+            x = _inv_permute(x, bf.perm_in, bf.inv_in)
+    return torch.movedim(x.reshape((lead,) + tail), 0, axis)
+
+
+def materialize(bf: Butterfly, dtype=torch.float32) -> torch.Tensor:
+    """The dense n x n matrix (method.py:71-78), for tests / small dims."""
+    eye = torch.eye(bf.n, dtype=dtype, device=bf.blocks[0].device)
+    return apply_butterfly(bf, eye, axis=0)
+
+
+def rotate_weight(u: Butterfly, v: Butterfly, w: torch.Tensor
+                  ) -> torch.Tensor:
+    """w -> U w Vᵀ (a butterfly along axis 1 computes w @ Bᵀ)."""
+    return apply_butterfly(v, apply_butterfly(u, w, axis=0), axis=1)
+
+
+def rotate_hessian(v: Butterfly, H: torch.Tensor) -> torch.Tensor:
+    """H -> V H Vᵀ."""
+    return apply_butterfly(v, apply_butterfly(v, H, axis=0), axis=1)
+
+
+def unrotate_weight(u: Butterfly, v: Butterfly, w: torch.Tensor
+                    ) -> torch.Tensor:
+    """w -> Uᵀ w V (the exact inverse of rotate_weight; method.py:202)."""
+    w = apply_butterfly(u, w, axis=0, transpose=True)
+    return apply_butterfly(v, w, axis=1, transpose=True)
+
+
+def unrotate_hessian(v: Butterfly, H: torch.Tensor) -> torch.Tensor:
+    """H -> Vᵀ H V (method.py:203)."""
+    H = apply_butterfly(v, H, axis=0, transpose=True)
+    return apply_butterfly(v, H, axis=1, transpose=True)
+
+
+def transform_to(t, device):
+    """An RHT or a butterfly with every tensor moved to ``device``."""
+    mv = lambda x: None if x is None else x.to(device)  # noqa: E731
+    if isinstance(t, Butterfly):
+        return Butterfly(tuple(mv(b) for b in t.blocks), mv(t.perm_in),
+                         mv(t.perm_out), t.n, mv(t.inv_in), mv(t.inv_out))
+    return RHT(mv(t.signs), mv(t.left), mv(t.right), t.n)
+
+
+def gen_pair(gen: torch.Generator, m: int, d: int, mode: str = "rht",
+             dtype=torch.float32, device=None):
+    """A rotation pair (U over m, V over d) of ``mode`` drawn from
+    ``gen``: RHTs, or butterflies for the butterfly modes."""
+    if is_butterfly(mode):
+        return (gen_butterfly(gen, m, mode, dtype, device),
+                gen_butterfly(gen, d, mode, dtype, device))
+    return gen_rht(gen, m, dtype, device), gen_rht(gen, d, dtype, device)

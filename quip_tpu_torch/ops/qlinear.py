@@ -5,14 +5,19 @@ Port of ``quip_tpu/ops/qlinear.py``. y = x @ Ŵᵀ with
 
     y = ((x / s) @ Vᵀ) @ Ŵ₂ᵀ @ U
 
-Steps: V-side RHT (with the un-scale and V signs folded into one vector,
-``rot['vin']``) -> packed dequant-matmul (kernels/dequant_matmul.py: the
-CUDA kernel for CUDA tensors, its plain version on the CPU) -> U-side RHT.
-The dense rotated weight is never built.
+Steps: V-side rotation -> packed dequant-matmul (kernels/dequant_matmul.py:
+the CUDA kernel for CUDA tensors, its plain version on the CPU) -> U-side
+rotation. The dense rotated weight is never built. RHT modes ('rht',
+'rht_sf', 'rht_uf') fold the un-scale and the V signs into one vector
+(``rot['vin']``); butterfly modes ('block', 'noblock', 'nopermute') divide
+by scaleWH, then apply V's butterfly (gathers by the permutations and a
+batched product a stage), and U's transposed after the kernel, gathering
+by the inverse permutations the layer derived at construction: no host
+sync and no argsort a call, so the branch is captured in the serving
+graphs like the others.
 
-Modes 'rht', 'rht_sf' and 'rht_uf'. Rotations must be materialised
-(``PackedLinear.rot``): the port does not regenerate JAX keys (see
-core/incoherence.py).
+Rotations must be materialised (``PackedLinear.rot``): the port does not
+regenerate JAX keys (see core/incoherence.py).
 
 ``QUIP_FUSED_RHT=1`` (read at call time, default off, the same variable as
 in quip_tpu) sends 'rht'-mode layers at decode-size batches (at most 32
@@ -28,6 +33,7 @@ import torch
 from quip_tpu_torch.core import incoherence as inc
 from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from quip_tpu_torch.kernels.rht import rht_apply_fused
+from quip_tpu_torch.ops.actquant import ActQuant
 from quip_tpu_torch.pack.format import PackedLinear, rot_to_butterflies
 
 
@@ -73,6 +79,13 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
         x2 = rht_apply_fused(x2, vec_v, V.left, V.right)
         t = _packed_matmul(q, x2)
         y = rht_apply_fused(t, U.signs, U.left, U.right, transpose=True)
+    elif q.butterfly:
+        if q.scaleWH is not None:
+            x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
+        U, V = rot_to_butterflies(q)
+        x2 = inc.apply_butterfly(V, x2, axis=-1)         # x @ Vᵀ
+        t = _packed_matmul(q, x2)
+        y = inc.apply_butterfly(U, t, axis=-1, transpose=True)  # @ U
     elif not q.has_rot:
         if q.scaleWH is not None:
             x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
@@ -95,11 +108,13 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
 
 def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
     """Dense-or-packed dispatch: a dense weight is stored (in, out) as in
-    quip_tpu, so y = x @ w. ActQuant wrappers are a later slice."""
+    quip_tpu, so y = x @ w. An ActQuant wrapper (ops/actquant.py)
+    quantizes the activations first, then dispatches its inner linear."""
+    if isinstance(w, ActQuant):
+        return linear_apply(w.inner, w.quantize(x))
     if isinstance(w, PackedLinear):
         return qlinear_apply(w, x)
     if isinstance(w, torch.Tensor):
         return x @ w
-    raise NotImplementedError(
-        f"linear_apply: {type(w).__name__} leaves (ActQuant) are a later "
-        f"slice of the port (ROADMAP queue 1)")
+    raise TypeError(f"linear_apply: no dispatch for a "
+                    f"{type(w).__name__} leaf")

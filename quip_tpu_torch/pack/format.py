@@ -130,15 +130,23 @@ def _slot(t):
 class PackedLinear(nn.Module):
     """One packed quantized linear: y = x @ Ŵᵀ reconstructed from codes.
 
-    qfn 'b': Ŵ_rot = ((codes/maxq)*2 - 1) * scale_b, with the RHT pair
+    qfn 'b': Ŵ_rot = ((codes/maxq)*2 - 1) * scale_b, with the rotation pair
     (U, V) and the diagonal rescale around it; qfn 'a': Ŵ = scale_row *
     (codes - zero_row), no rotation. Planes, grid parameters, bias and the
     rotation components are buffers, so ``.to(device)`` moves them all.
 
-    ``rot`` has quip_tpu's layout: {'u': (signs|(), left, right|()),
-    'v': (...), 'vin': vector|()}. A model made by the JAX package brings
-    its materialised arrays; models/build.py draws them from a
-    torch.Generator (materialize_rotation). None = no rotation.
+    ``rot`` has quip_tpu's layout. RHT modes: {'u': (signs|(), left,
+    right|()), 'v': (...), 'vin': vector|()}, buffers ``u_signs``,
+    ``u_left``, ``u_right`` (and v) and ``vin``. Butterfly modes: {'u':
+    (blocks, perm_in, perm_out), 'v': (...)} with one or two blocks a side
+    ((n/p or 1, p, p), buffers ``u_block0`` / ``u_block1``) and int32 perms
+    or None ('nopermute'), buffers ``u_perm_in`` / ``u_perm_out``; their
+    inverses ``u_inv_in`` / ``u_inv_out`` are derived here, once, so the
+    transposed application gathers without an argsort, and are never
+    written to a checkpoint. ``scaleWH`` stays its own buffer (no vin). A
+    model made by the JAX package brings its materialised arrays;
+    models/build.py draws them from a torch.Generator
+    (materialize_rotation). None = no rotation.
     """
 
     def __init__(self, planes, scale=None, zero=None, scale_b=None,
@@ -158,11 +166,23 @@ class PackedLinear(nn.Module):
         self.register_buffer("scaleWH", scaleWH)    # (d,)
         self.register_buffer("bias", bias)          # (m,)
         self.has_rot = rot is not None
-        self.has_vin = rot is not None and "vin" in rot
-        names = ("signs", "left", "right")
+        self.butterfly = self.has_rot and inc.is_butterfly(proj_mode)
+        self.has_vin = self.has_rot and "vin" in rot
+        self.nblocks = {}
         for side in ("u", "v"):
-            parts = rot[side] if rot is not None else (None,) * 3
-            for nm, t in zip(names, parts):
+            rht = (None,) * 3
+            if self.butterfly:
+                blocks, pin, pout = rot[side]
+                self.nblocks[side] = len(blocks)
+                for i, b in enumerate(blocks):
+                    self.register_buffer(f"{side}_block{i}", b)
+                for nm, t in (("in", _slot(pin)), ("out", _slot(pout))):
+                    self.register_buffer(f"{side}_perm_{nm}", t)
+                    self.register_buffer(f"{side}_inv_{nm}",
+                                         inc.inverse_perm(t))
+            elif self.has_rot:
+                rht = rot[side]
+            for nm, t in zip(("signs", "left", "right"), rht):
                 self.register_buffer(f"{side}_{nm}", _slot(t))
         self.register_buffer(
             "vin", _slot(rot["vin"]) if self.has_vin else None)
@@ -201,7 +221,9 @@ class PackedLinear(nn.Module):
         else:
             W = self.scale.to(dtype)[:, None] * (
                 codes - self.zero.to(dtype)[:, None])
-        if self.has_rot:
+        if self.butterfly:
+            W = inc.unrotate_weight(*rot_to_butterflies(self), W)
+        elif self.has_rot:
             U, V = rot_to_butterflies(self)
             W = inc.rht_unrotate_weight(U, V, W)
         if self.scaleWH is not None:
@@ -209,7 +231,7 @@ class PackedLinear(nn.Module):
         return W
 
 
-def rotation_buffers(U: inc.RHT, V: inc.RHT, mode: str,
+def rotation_buffers(U, V, mode: str,
                      scaleWH: Optional[torch.Tensor] = None,
                      dtype=torch.float32, device=None):
     """The runtime rotation components of the given pair (U, V) in
@@ -217,9 +239,15 @@ def rotation_buffers(U: inc.RHT, V: inc.RHT, mode: str,
     vectors, plus vin = signs_V/scaleWH (the diagonal un-scale and the
     V-side sign flip in one vector); 'rht_sf': no sign slots (the signs
     live in the codes), vin = 1/scaleWH or nothing; 'rht_uf': the U-side
-    signs in the code rows, the V side as 'rht'."""
-    inc.check_rht_mode(mode)
+    signs in the code rows, the V side as 'rht'. Butterfly modes: each
+    side's (blocks, perm_in, perm_out), perms int32 or None, no vin."""
     put = lambda t: t.to(dtype=dtype, device=device)  # noqa: E731
+    if inc.is_butterfly(mode):
+        perm = lambda t: (None if t is None  # noqa: E731
+                          else t.to(dtype=torch.int32, device=device))
+        return {side: (tuple(put(b) for b in t.blocks), perm(t.perm_in),
+                       perm(t.perm_out))
+                for side, t in (("u", U), ("v", V))}
     right = lambda t: () if t.right is None else put(t.right)  # noqa: E731
     sWH = None if scaleWH is None else put(scaleWH)
     if mode == "rht_sf":
@@ -242,16 +270,23 @@ def materialize_rotation(gen: Optional[torch.Generator], m: int, d: int,
     the pair it was quantized against (``pack_layer_result``)."""
     if gen is None:
         return None
-    inc.check_rht_mode(mode)
-    U = inc.gen_rht(gen, m, dtype, device)
-    V = inc.gen_rht(gen, d, dtype, device)
+    U, V = inc.gen_pair(gen, m, d, mode, dtype, device)
     return rotation_buffers(U, V, mode, scaleWH, dtype, device)
 
 
-def rot_to_butterflies(q: PackedLinear) -> Tuple[inc.RHT, inc.RHT]:
-    """(U, V) transform views over the stored rotation buffers (RHT modes;
-    absent sign slots stay None)."""
-    inc.check_rht_mode(q.proj_mode)
+def rot_to_butterflies(q: PackedLinear):
+    """(U, V) transform views over the stored rotation buffers: RHTs
+    (absent sign slots stay None), or butterflies carrying their derived
+    inverse permutations."""
+    if q.butterfly:
+        def bf(side, n):
+            return inc.Butterfly(
+                tuple(getattr(q, f"{side}_block{i}")
+                      for i in range(q.nblocks[side])),
+                getattr(q, f"{side}_perm_in"), getattr(q, f"{side}_perm_out"),
+                n, getattr(q, f"{side}_inv_in"),
+                getattr(q, f"{side}_inv_out"))
+        return bf("u", q.out_features), bf("v", q.in_features)
     return (inc.RHT(q.u_signs, q.u_left, q.u_right, q.out_features),
             inc.RHT(q.v_signs, q.v_left, q.v_right, q.in_features))
 
@@ -279,8 +314,9 @@ def pack_layer_result(res, bits: int,
     (U, V), the pair the codes were quantized against."""
     if res.codes is None:
         raise ValueError(
-            "the method produced no integer codes to pack (gptq with qfn "
-            "'b' keeps a per-column scale; use a per-row grid)")
+            "method produced no integer codes to pack (grouped grids "
+            "(groupsize>0) quantize per-group and cannot be packed; use "
+            "per-row grids)")
     codes = res.codes.to(torch.int32)
     m, d = codes.shape
     st = res.preproc
@@ -315,9 +351,13 @@ def pack_layer_result(res, bits: int,
 
 def _rot_of(q: PackedLinear):
     """``q``'s rotation buffers back in quip_tpu's ``rot`` layout (None
-    without a rotation)."""
+    without a rotation; a 'nopermute' butterfly's perms None, an absent RHT
+    slot ``()``, as quip_tpu's trees hold them)."""
     if not q.has_rot:
         return None
+    if q.butterfly:
+        return {side: (t.blocks, t.perm_in, t.perm_out)
+                for side, t in zip(("u", "v"), rot_to_butterflies(q))}
     slot = lambda t: () if t is None else t  # noqa: E731
     rot = {side: tuple(slot(getattr(q, f"{side}_{nm}"))
                        for nm in ("signs", "left", "right"))

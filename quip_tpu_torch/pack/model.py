@@ -30,7 +30,7 @@ import torch
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.pack.format import (PACK_FORMAT_VERSION, PackedLinear,
-                                        pack_layer_result)
+                                        _rot_of, pack_layer_result)
 
 # numpy's npz cannot hold these: stored as unsigned integer views, named
 # in tree.json's leaf_dtypes (quip_tpu's _EXOTIC_VIEWS); the middle entry
@@ -141,19 +141,11 @@ def unpack_model(params: M.Model, dtype=torch.float32) -> M.Model:
 
 def _packed_leaf(q: PackedLinear) -> PackedLeaf:
     """The port's module as quip_tpu's node (one layer)."""
-    rot = None
-    if q.has_rot:
-        slot = lambda t: () if t is None else t  # noqa: E731
-        rot = {side: tuple(slot(getattr(q, f"{side}_{nm}"))
-                           for nm in ("signs", "left", "right"))
-               for side in ("u", "v")}
-        if q.has_vin:
-            rot["vin"] = slot(q.vin)
     col = lambda t: None if t is None else t[:, None]  # noqa: E731
     return PackedLeaf(
         q.planes, col(q.scale), col(q.zero), q.scale_b, q.scaleWH,
         _KEY_MARKER if q.has_rot else None, q.bias,
-        rot, q.bits, q.qfn, q.proj_mode, q.out_features, q.in_features,
+        _rot_of(q), q.bits, q.qfn, q.proj_mode, q.out_features, q.in_features,
         q.code_bits)
 
 
@@ -189,17 +181,25 @@ def _norm_tree(n: Optional[M.Norm]):
                                                        "bias": n.bias}
 
 
+def _present(mod, keys) -> Dict[str, Any]:
+    return {k: _node(getattr(mod, k)) for k in keys
+            if getattr(mod, k) is not None}
+
+
+def block_tree(b: M.Block) -> Dict[str, Any]:
+    """One Block as quip_tpu's per-layer tree: ln1 / ln2 / attn / mlp,
+    absent weights left out."""
+    return {"ln1": _norm_tree(b.ln1), "ln2": _norm_tree(b.ln2),
+            "attn": _present(b.attn, M.Attention.NAMES),
+            "mlp": _present(b.mlp, M.MLP.NAMES)}
+
+
 def model_tree(params: M.Model) -> Dict[str, Any]:
     """The port's Model as quip_tpu's param tree: embed / blocks (stacked)
     / final_ln / lm_head, packed linears as PackedLeaf nodes, absent parts
     left out as quip_tpu leaves them out."""
-    names = lambda mod, keys: {k: _node(getattr(mod, k))  # noqa: E731
-                               for k in keys if getattr(mod, k) is not None}
-    layers = [{"ln1": _norm_tree(b.ln1), "ln2": _norm_tree(b.ln2),
-               "attn": names(b.attn, M.Attention.NAMES),
-               "mlp": names(b.mlp, M.MLP.NAMES)}
-              for b in params.blocks]
-    embed = names(params.embed, M.Embed.TABLES)
+    layers = [block_tree(b) for b in params.blocks]
+    embed = _present(params.embed, M.Embed.TABLES)
     if params.embed.ln is not None:
         embed["ln"] = _norm_tree(params.embed.ln)
     tree = {"embed": embed, "blocks": _stack(layers),
@@ -207,6 +207,20 @@ def model_tree(params: M.Model) -> Dict[str, Any]:
     if params.lm_head is not None:
         tree["lm_head"] = _node(params.lm_head)
     return tree
+
+
+def leaf_from_np(a: np.ndarray, name: Optional[str]):
+    """A stored leaf back as a tensor: ``name`` the exotic dtype its
+    integer view stands for (bf16, fp8), None for a plain array. A uint32
+    leaf (a JAX key) stays numpy."""
+    if name:
+        if name not in _EXOTIC:
+            raise ValueError(f"dtype {name} has no torch counterpart")
+        _, t_view, t_dtype = _EXOTIC[name]
+        return torch.from_numpy(a).view(t_view).view(t_dtype)
+    if a.dtype == np.uint32:
+        return a
+    return torch.from_numpy(a)
 
 
 def _leaf_to_np(t) -> Tuple[np.ndarray, Optional[str]]:
@@ -294,17 +308,7 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     leaves = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for i in range(spec["n_leaves"]):
-            a = data[f"leaf_{i}"]
-            name = exotic.get(str(i))
-            if name is not None:
-                if name not in _EXOTIC:
-                    raise ValueError(f"leaf {i}: dtype {name} has no torch "
-                                     f"counterpart")
-                _, t_view, t_dtype = _EXOTIC[name]
-                leaves.append(torch.from_numpy(a).view(t_view).view(t_dtype))
-            elif a.dtype == np.uint32:
-                leaves.append(a)
-            else:
-                leaves.append(torch.from_numpy(a))
+            leaves.append(leaf_from_np(data[f"leaf_{i}"],
+                                       exotic.get(str(i))))
     return _from_json(spec["treedef"], iter(leaves)), spec["meta"]
 

@@ -23,9 +23,9 @@ class PreprocConfig:
     """Incoherence preprocessing flags (reference method.py:125-193).
 
     proj_mode: 'block'/'noblock'/'nopermute' are the reference's butterfly
-    variants (--pre_proj_extra 0/1/2; not ported yet: ROADMAP queue 1
-    item 6); 'rht' is the permutation-free randomized Hadamard/Kronecker
-    transform with the same incoherence guarantees. 'rht_sf' / 'rht_uf'
+    variants (--pre_proj_extra 0/1/2); 'rht' is the permutation-free
+    randomized Hadamard/Kronecker transform with the same incoherence
+    guarantees. 'rht_sf' / 'rht_uf'
     are the sign-folded variants: the outer signs are absorbed into the
     packed qfn-b codes at pack time (fold_rht_signs / fold_rht_sign_rows).
     On structured inputs (flat-top-eigenvector Hessians, mean-structured

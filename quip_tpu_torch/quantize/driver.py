@@ -21,25 +21,33 @@ from a ``torch.Generator`` seeded with ``seed`` and the linear's
 callable ``(name, m, d) -> (U, V)`` can supply the pairs instead (the
 parity tests replay quip_tpu's own).
 
-Not ported yet (ROADMAP queue 1 item 8): ``resume_dir``, ``host_offload``
-and ``save_hessians``; asking for the first two raises.
+``resume_dir`` writes each finished block to ``resume_dir/layer_{i}.npz``
+in quip_tpu's format (its leaves in quip_tpu's flatten order), so a run
+resumes a directory that either package wrote. ``host_offload`` keeps the
+blocks and the per-layer artifacts in host memory (pinned where a card
+is the compute device) and moves one block at a time to the device.
+``save_hessians`` runs the calibration alone.
 """
 from __future__ import annotations
 
+import copy
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Collection, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
-from quip_tpu_torch.core import incoherence as inc
+from quip_tpu_torch.core.hessian import Transform
+from quip_tpu_torch.core.incoherence import transform_to
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.quantize.config import QuantConfig
 from quip_tpu_torch.quantize.pipeline import LayerQuantResult, quantize_layer
 from quip_tpu_torch.utils import f32_matmuls, name_salt
 
-Rotations = Callable[[str, int, int], Tuple[inc.RHT, inc.RHT]]
+Rotations = Callable[[str, int, int], Tuple[Transform, Transform]]
 
 
 @dataclass
@@ -130,6 +138,44 @@ def _quantize_one(W, H, qcfg, name, seed, rotations):
         raise torch.linalg.LinAlgError(f"{name}: {e}") from e
 
 
+def _moved(t, dev, pin: bool = False):
+    """A tensor (or a module, copied) on ``dev``; CPU copies pinned with
+    ``pin`` where there is a card to copy them to. None stays None."""
+    if t is None:
+        return None
+    if isinstance(t, torch.nn.Module):
+        return copy.deepcopy(t).to(dev)
+    t = t.to(dev)
+    if pin and dev.type == "cpu" and torch.cuda.is_available():
+        t = t.pin_memory()
+    return t
+
+
+def _block_to(b: M.Block, dev: torch.device, pin: bool = False) -> M.Block:
+    """A new Block holding ``b``'s weights on ``dev`` (``b`` unchanged)."""
+    mv = lambda t: _moved(t, dev, pin)  # noqa: E731
+    kids = lambda mod, names: {k: mv(getattr(mod, k))  # noqa: E731
+                               for k in names if getattr(mod, k) is not None}
+    return M.Block(b.ln1.mapped(mv), b.ln2.mapped(mv),
+                   M.Attention(**kids(b.attn, M.Attention.NAMES)),
+                   M.MLP(**kids(b.mlp, M.MLP.NAMES)))
+
+
+def _result_to(res: LayerQuantResult, dev: torch.device) -> LayerQuantResult:
+    """A LayerQuantResult with every tensor on ``dev``."""
+    mv = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    st = res.preproc
+    st = st._replace(scaleWH=mv(st.scaleWH),
+                     U=None if st.U is None else transform_to(st.U, dev),
+                     V=None if st.V is None else transform_to(st.V, dev))
+    g = res.grid
+    if g is not None:
+        g = g._replace(scale=mv(g.scale), zero=mv(g.zero))
+    return res._replace(W_hat=mv(res.W_hat), codes=mv(res.codes), grid=g,
+                        qfnb_scale=mv(res.qfnb_scale), preproc=st,
+                        error=mv(res.error), Hmag=mv(res.Hmag))
+
+
 def quantize_model(
     params: M.Model,
     cfg: ModelConfig,
@@ -145,21 +191,26 @@ def quantize_model(
     resume_dir: Optional[str] = None,
     host_offload: bool = False,
     quant_head: bool = False,
+    device=None,
 ) -> Tuple[M.Model, QuantizedModelArtifacts]:
-    """Quantize every linear of every block, layer-streaming, on the
-    model's device. Returns (a new Model holding the dequantized weights,
-    artifacts); ``params`` is left as it was.
+    """Quantize every linear of every block, layer-streaming, on
+    ``device`` (default: the model's). Returns (a new Model holding the
+    dequantized weights, artifacts); ``params`` is left as it was.
 
     ``layer_filter``: linear names (spec names) to quantize, the others
     stay. ``keep_hessians``: True keeps every linear's H in the artifacts,
     a collection of full names ('layers.0.mlp.down_proj', 'lm_head') keeps
     those. ``quant_head``: also quantize the (untied) lm_head against the
     Hessian of its true input (the final norm of the quantized model's
-    last-block outputs)."""
-    if resume_dir or host_offload:
-        raise NotImplementedError(
-            "resume_dir / host_offload are not ported yet (ROADMAP queue 1 "
-            "item 8)")
+    last-block outputs).
+
+    ``resume_dir``: each finished block is written to
+    ``resume_dir/layer_{i}.npz``; a later run skips the finished layers
+    (the block is read back and only replayed to rebuild the activations;
+    their results are not in the artifacts, as in quip_tpu).
+    ``host_offload``: the blocks stay in host memory (the model may be
+    built there) and one at a time moves to ``device``; the quantized
+    blocks, the artifacts and the returned model are on the host."""
     if quant_head and (cfg.tie_word_embeddings or params.lm_head is None):
         raise ValueError(
             "quant_head requires an untied lm_head: tied families reuse the "
@@ -170,7 +221,9 @@ def quantize_model(
     N, S = calib_tokens.shape
     if N % chunk:
         raise ValueError(f"nsamples {N} must be divisible by chunk {chunk}")
-    dev = params.embed.tokens.device
+    home = params.embed.tokens.device
+    dev = torch.device(device) if device is not None else home
+    host = torch.device("cpu")
     fused = params.blocks[0].attn.fused
     specs = M.linear_specs(cfg, fused=fused)
     art = QuantizedModelArtifacts()
@@ -182,17 +235,43 @@ def quantize_model(
     def record(name, res, H):
         art.errors[name] = float(res.error)
         art.Hmags[name] = float(res.Hmag)
-        art.results[name] = res
+        art.results[name] = _result_to(res, host) if host_offload else res
         if keep(name):
-            art.hessians[name] = H
+            art.hessians[name] = H.to(host) if host_offload else H
 
     calib_tokens = calib_tokens.to(dev)
-    inps = _block_inputs(params, cfg, calib_tokens, chunk)
+    embed = params.embed
+    if embed.tokens.device != dev:
+        embed = embed.mapped(lambda t: t.to(dev))
+    inps = _block_inputs(M.Model(cfg, embed, [], None, None), cfg,
+                         calib_tokens, chunk)
     accumulate, replay = _make_block_fns(cfg, S, chunk, dev)
     new_blocks = []
     n_layers = cfg.n_layers
+    if resume_dir:
+        os.makedirs(resume_dir, exist_ok=True)
+
+    def replay_all(block):
+        out = torch.empty_like(inps)
+        for i in range(0, N, chunk):
+            out[i:i + chunk] = replay(block, inps[i:i + chunk])
+        return out
 
     for li, block in enumerate(params.blocks):
+        resumed = _load_resume_layer(resume_dir, li, block) \
+            if resume_dir else None
+        if resumed is not None:
+            new_block, saved_err = resumed
+            art.errors.update(saved_err)
+            inps = replay_all(_block_to(new_block, dev))
+            new_blocks.append(_block_to(new_block, host, True)
+                              if host_offload else _block_to(new_block, home))
+            if progress:
+                print(f"[quantize] layer {li + 1}/{n_layers} (resumed)",
+                      flush=True)
+            continue
+        if block.ln1.scale.device != dev:
+            block = _block_to(block, dev)
         t0 = _clock(dev)
         # --- pass 1: accumulate tap Hessians (opt.py:131-148) ---
         H: Dict[str, torch.Tensor] = {}
@@ -217,18 +296,23 @@ def quantize_model(
             block, [sp for sp in specs
                     if layer_filter is None or sp.name in layer_filter],
             quantize)
-        new_blocks.append(new_block)
         del H, quantize
         t2 = _clock(dev)
         art.times[f"layers.{li}"] = t2 - t0
 
         # --- pass 2: replay with quantized weights (opt.py:172-174) ---
-        out = torch.empty_like(inps)
-        for i in range(0, N, chunk):
-            out[i:i + chunk] = replay(new_block, inps[i:i + chunk])
-        inps = out
+        inps = replay_all(new_block)
         t3 = _clock(dev)
         art.phase_times[f"layers.{li}"] = (t1 - t0, t2 - t1, t3 - t2)
+        if host_offload:
+            new_block = _block_to(new_block, host, True)
+        elif dev != home:
+            new_block = _block_to(new_block, home)
+        new_blocks.append(new_block)
+        if resume_dir:
+            _save_resume_layer(resume_dir, li, new_block, {
+                k: v for k, v in art.errors.items()
+                if k.startswith(f"layers.{li}.")})
         if progress:
             err = sum(v for k, v in art.errors.items()
                       if k.startswith(f"layers.{li}."))
@@ -242,16 +326,20 @@ def quantize_model(
     head = params.lm_head
     if quant_head:
         t0 = _clock(dev)
+        hp = M.Model(cfg, embed, [], None if params.final_ln is None
+                     else params.final_ln.mapped(lambda t: t.to(dev)), None)
         Hh = None
         with f32_matmuls():
             for i in range(0, N, chunk):
-                z = M.head_input(params, inps[i:i + chunk], cfg)
+                z = M.head_input(hp, inps[i:i + chunk], cfg)
                 zt = z.reshape(-1, z.shape[-1]).to(torch.float32)
                 up = zt.t() @ zt
                 Hh = up if Hh is None else Hh + up
         Hh = Hh / N
-        res = _quantize_one(head.t(), Hh, qcfg, "lm_head", seed, rotations)
+        res = _quantize_one(head.to(dev).t(), Hh, qcfg, "lm_head", seed,
+                            rotations)
         head = res.W_hat.t().to(getattr(torch, cfg.dtype))
+        head = _moved(head, host, True) if host_offload else head.to(home)
         record("lm_head", res, Hh)
         art.times["lm_head"] = art.linear_times["lm_head"] = \
             _clock(dev) - t0
@@ -261,3 +349,122 @@ def quantize_model(
 
     return (M.Model(cfg, params.embed, new_blocks, params.final_ln, head),
             art)
+
+
+# ---------------------------------------------------------------------------
+# Resume files: quip_tpu's layer_{i}.npz
+# ---------------------------------------------------------------------------
+
+
+def _resume_path(resume_dir: str, li: int) -> str:
+    return os.path.join(resume_dir, f"layer_{li}.npz")
+
+
+def _layer_leaves(block: M.Block):
+    """[(path, tensor)] of a dense Block in quip_tpu's flatten order of its
+    layer tree (dict keys sorted at every level)."""
+    from quip_tpu_torch.pack.model import block_tree
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+        elif isinstance(t, torch.Tensor):
+            out.append((path, t))
+        else:
+            raise ValueError(f"resume files hold dense layers only; "
+                             f"{'.'.join(path)} is a {type(t).__name__}")
+
+    walk(block_tree(block), ())
+    return out
+
+
+def _save_resume_layer(resume_dir: str, li: int, block: M.Block,
+                       errors: Dict[str, float]) -> None:
+    from quip_tpu_torch.pack.format import PACK_FORMAT_VERSION
+    from quip_tpu_torch.pack.model import _leaf_to_np
+    arrays, dtypes = {}, []
+    for i, (_, t) in enumerate(_layer_leaves(block)):
+        # npz has no bf16: integer views + the dtype's name
+        a, name = _leaf_to_np(t)
+        arrays[f"leaf_{i}"] = a
+        dtypes.append(name or "")
+    np.savez(
+        _resume_path(resume_dir, li),
+        __format_version__=np.asarray(PACK_FORMAT_VERSION, np.int64),
+        __errors__=np.asarray(list(errors.values()), np.float64),
+        __error_names__=np.asarray(list(errors.keys())),
+        __leaf_dtypes__=np.asarray(dtypes),
+        **arrays)
+
+
+def _load_resume_layer(resume_dir: str, li: int, template: M.Block):
+    """(the finished Block, its errors) read against the live block's
+    structure, or None when the layer has no file yet."""
+    from quip_tpu_torch.pack.format import PACK_FORMAT_VERSION
+    from quip_tpu_torch.pack.model import leaf_from_np
+    path = _resume_path(resume_dir, li)
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as data:
+        ver = int(data["__format_version__"]) \
+            if "__format_version__" in data.files else 1
+        if ver != PACK_FORMAT_VERSION:
+            raise ValueError(
+                f"resume file {path} uses packed-plane layout v{ver}; this "
+                f"build writes v{PACK_FORMAT_VERSION}. Delete the resume dir "
+                f"and re-run the quantization.")
+        n = len([k for k in data.files if k.startswith("leaf_")])
+        dtypes = [str(x) for x in data["__leaf_dtypes__"]] \
+            if "__leaf_dtypes__" in data.files else [""] * n
+        leaves = [leaf_from_np(data[f"leaf_{i}"], dtypes[i] or None)
+                  for i in range(n)]
+        errors = dict(zip([str(x) for x in data["__error_names__"]],
+                          [float(x) for x in data["__errors__"]]))
+    want = _layer_leaves(template)
+    if len(leaves) != len(want):
+        raise ValueError(f"resume file {path} holds {len(leaves)} leaves, "
+                         f"the live tree expects {len(want)} — stale "
+                         f"resume dir?")
+    for i, (got, (_, w)) in enumerate(zip(leaves, want)):
+        if tuple(got.shape) != tuple(w.shape):
+            raise ValueError(
+                f"resume file {path} leaf {i} has shape "
+                f"{tuple(got.shape)}, the live tree expects "
+                f"{tuple(w.shape)} — stale resume dir?")
+    by_path = {p: t for (p, _), t in zip(want, leaves)}
+    get = lambda *p: by_path.get(p)  # noqa: E731
+    block = M.Block(
+        M.Norm(get("ln1", "scale"), get("ln1", "bias")),
+        M.Norm(get("ln2", "scale"), get("ln2", "bias")),
+        M.Attention(**{k: v for k in M.Attention.NAMES
+                       if (v := get("attn", k)) is not None}),
+        M.MLP(**{k: v for k in M.MLP.NAMES
+                 if (v := get("mlp", k)) is not None}))
+    return block, errors
+
+
+def save_hessians(params: M.Model, cfg: ModelConfig,
+                  calib_tokens: torch.Tensor, *,
+                  chunk: int = 4) -> Dict[str, torch.Tensor]:
+    """Calibration only (opt_saveH.py:165-166), on the model's device:
+    {linear name: H} for every linear of every block, under the un-fused
+    names as quip_tpu keys them (q/k/v share one H), without quantizing."""
+    N, S = calib_tokens.shape
+    dev = params.embed.tokens.device
+    specs = M.linear_specs(cfg)
+    inps = _block_inputs(params, cfg, calib_tokens.to(dev), chunk)
+    accumulate, replay = _make_block_fns(cfg, S, chunk, dev)
+    out: Dict[str, torch.Tensor] = {}
+    for li, block in enumerate(params.blocks):
+        H: Dict[str, torch.Tensor] = {}
+        for i in range(0, N, chunk):
+            accumulate(block, inps[i:i + chunk], H)
+        for spec in specs:
+            out[f"layers.{li}.{spec.name}"] = H[spec.tap] / N
+        nxt = torch.empty_like(inps)
+        for i in range(0, N, chunk):
+            nxt[i:i + chunk] = replay(block, inps[i:i + chunk])
+        inps = nxt
+    return out

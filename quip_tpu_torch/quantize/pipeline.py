@@ -44,27 +44,31 @@ def _round_on_grid(gen, Wg, H, cfg: QuantConfig):
     if m == "ldlq":
         return ldlq.round_ldl(Wg, H, cfg.wbits, cfg.npasses, cfg.unbiased,
                               gen, cfg.blocksize)
+    if m == "ldlqRG":
+        return ldlq.round_ldlqRG(Wg, H, cfg.wbits, cfg.npasses, cfg.unbiased,
+                                 gen, cfg.blocksize)
+    if m == "allbal":
+        return ldlq.round_allbal_sorted(Wg, H, cfg.wbits, cfg.npasses,
+                                        cfg.unbiased, gen, cfg.blocksize)
+    if m == "ldlbal_admm":
+        return ldlq.round_ldl_admm_sorted(Wg, H, cfg.wbits, cfg.npasses,
+                                          cfg.unbiased, gen)
     if m == "ldl_gptqequiv":
         return ldlq.round_ldl_gptqequiv(Wg, H, cfg.wbits, cfg.unbiased, gen,
                                         cfg.blocksize)
     if m == "nearest":
         return ldlq.round_nearest(Wg, cfg.wbits)
-    if m in ("ldlqRG", "allbal", "ldlbal_admm"):
-        raise NotImplementedError(
-            f"method {m!r} is not ported yet (ROADMAP queue 1 item 8: "
-            f"round_allbal*, round_ldlqRG and the LDL-ADMM solvers)")
     raise ValueError(f"method {cfg.method!r} is not a grid solver")
 
 
-def draw_rotation(gen: torch.Generator, m: int, d: int
-                  ) -> Tuple[inc.RHT, inc.RHT]:
-    """(U, V) of an (m, d) weight drawn from ``gen`` (RHT modes; f32 on the
-    generator's device)."""
-    return inc.gen_rht(gen, m), inc.gen_rht(gen, d)
+# (U, V) of an (m, d) weight drawn from a generator: RHTs, or butterflies
+# for the butterfly modes (f32 on the generator's device)
+draw_rotation = inc.gen_pair
 
 
 def quantize_layer(W: torch.Tensor, H: torch.Tensor, cfg: QuantConfig,
-                   rot: Optional[Tuple[inc.RHT, inc.RHT]] = None,
+                   rot: Optional[Tuple[hess.Transform,
+                                       hess.Transform]] = None,
                    gen: Optional[torch.Generator] = None
                    ) -> LayerQuantResult:
     """Quantize one (m, d) weight matrix against its (d, d) proxy Hessian.
@@ -81,10 +85,9 @@ def quantize_layer(W: torch.Tensor, H: torch.Tensor, cfg: QuantConfig,
         if gen is None:
             raise ValueError("incoherence processing needs the rotation "
                              "pair or a torch.Generator to draw it")
-        rot = draw_rotation(gen, *W.shape)
+        rot = draw_rotation(gen, *W.shape, cfg.preproc.proj_mode)
     if rot is not None:
-        rot = tuple(inc.RHT(*(None if t is None else t.to(W.device)
-                              for t in r[:3]), r.n) for r in rot)
+        rot = tuple(inc.transform_to(r, W.device) for r in rot)
     with f32_matmuls():
         return _quantize_layer_inner(W, H, cfg, rot, gen)
 
@@ -105,10 +108,14 @@ def _quantize_layer_inner(W, H, cfg, rot, gen):
     scale_b = None
 
     if cfg.method in ("gptq", "trueobs"):
-        if cfg.method == "trueobs":
-            raise NotImplementedError(
-                "method 'trueobs' (OPTQ with the fp-outlier escape) is not "
-                "ported yet (ROADMAP queue 1 item 8)")
+        # "trueobs" (zeroShot/models/fast_trueobs.py:59-165) is the blocked
+        # OPTQ recursion with the fp-outlier escape on by default
+        # (threshold 0.25·scale², fast_trueobs.py:108, 134-139); its
+        # running-average Hessian differs from the summed one by a scale,
+        # which the recursion is invariant to
+        sparse = cfg.sparse_outlier
+        if cfg.method == "trueobs" and sparse == 0.0:
+            sparse = 0.25
         if cfg.qfn in ("a", "c"):
             gp = grid_mod.find_params_qfna(Wp, cfg.wbits, perchannel=True,
                                            sym=False)
@@ -118,10 +125,11 @@ def _quantize_layer_inner(W, H, cfg, rot, gen):
             gp = GridParams(scale=ones, zero=torch.zeros_like(ones),
                             maxq=maxq)
         What_p = gptq_round(Wp, Hp, gp, cfg.qfn, cfg.blocksize,
-                            cfg.groupsize, cfg.sparse_outlier)
-        if cfg.qfn in ("a", "c"):
+                            cfg.groupsize, sparse)
+        if cfg.qfn in ("a", "c") and cfg.groupsize == -1 and sparse == 0.0:
             # integer codes for packing, recovered from the grid
-            # (quant.py:190-191)
+            # (quant.py:190-191); none where per-group grids or kept fp
+            # outliers make the layer unpackable
             codes = torch.clamp(torch.round(What_p / gp.scale + gp.zero),
                                 0, maxq)
     elif cfg.qfn == "a":

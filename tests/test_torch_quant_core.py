@@ -158,13 +158,6 @@ def test_materialize_rht_matches():
                JI.materialize_rht(r, jnp.float64))
 
 
-def test_butterfly_modes_raise():
-    W, H = _wh(5, 8, 16)
-    rot = TP.draw_rotation(torch.Generator().manual_seed(0), 8, 16)
-    with pytest.raises(NotImplementedError, match="butterfly"):
-        TH.preproc(t(W), t(H), proj=True, rot=rot, proj_mode="noblock")
-
-
 # ---------------------------------------------------------------------------
 # solvers
 # ---------------------------------------------------------------------------
@@ -237,8 +230,11 @@ def test_gptq_round_matches(m, d, bs, qfn):
         np.testing.assert_array_equal(
             np.round(got.numpy() / np.asarray(g.scale) + np.asarray(g.zero)),
             np.round(np.asarray(want) / g.scale + g.zero))
-    with pytest.raises(NotImplementedError, match="grouped"):
-        TG.gptq_round(t(W), t(H), tg, qfn, bs, groupsize=8)
+    # grouped grids (every 8 columns re-derived from the live weights)
+    want_g = JG.gptq_round(jnp.asarray(W), jnp.asarray(H), g, qfn, bs,
+                           groupsize=8)
+    _close(TG.gptq_round(t(W), t(H), tg, qfn, bs, groupsize=8).numpy(),
+           want_g)
 
 
 # ---------------------------------------------------------------------------
@@ -287,12 +283,3 @@ def test_quantize_layer_sign_folded_modes_match(mode):
     got = TP.quantize_layer(t(W), t(H), t_cfg(jc), rot=jax_rot(key, m, d))
     np.testing.assert_array_equal(got.codes.numpy(), np.asarray(want.codes))
     _close(got.W_hat.numpy(), want.W_hat)
-
-
-@pytest.mark.parametrize("method", ["allbal", "ldlqRG", "ldlbal_admm",
-                                    "trueobs"])
-def test_unported_methods_raise(method):
-    W, H = _wh(13, 8, 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.quantize_layer(t(W), t(H), TQC(wbits=2, method=method,
-                                          blocksize=16))

@@ -16,6 +16,7 @@ linear, rotations, write-back, the head's tap) is held bit for bit:
 every linear's codes equal quip_tpu's quantize_layer on the Hessian the
 port's driver kept."""
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -194,7 +195,7 @@ def _jax_weight(jp, jcfg, name, fused):
     return w[li]
 
 
-def test_quantize_model_filter_keep_and_raises():
+def test_quantize_model_filter_keep_and_raises(tmp_path):
     cfg = get_config("llama-tiny")
     p = TM.init_params(torch.Generator().manual_seed(2), cfg, device="cpu")
     calib = torch.from_numpy(TC.get_synthetic(2, 0, 16, cfg.vocab_size)[0])
@@ -212,9 +213,13 @@ def test_quantize_model_filter_keep_and_raises():
                                 layer_filter=["mlp.down_proj"])
     assert torch.equal(art2.results["layers.1.mlp.down_proj"].codes,
                        art.results["layers.1.mlp.down_proj"].codes)
-    for kw in (dict(resume_dir="x"), dict(host_offload=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TD.quantize_model(p, cfg, calib, qc, **kw)
+    # resume_dir and host_offload give the same codes again
+    for kw in (dict(resume_dir=str(tmp_path / "resume")),
+               dict(host_offload=True)):
+        _, art3 = TD.quantize_model(p, cfg, calib, qc, chunk=2,
+                                    layer_filter=["mlp.down_proj"], **kw)
+        assert torch.equal(art3.results["layers.1.mlp.down_proj"].codes,
+                           art.results["layers.1.mlp.down_proj"].codes)
     with pytest.raises(ValueError, match="divisible"):
         TD.quantize_model(p, cfg, calib, qc, chunk=3)
 
@@ -239,10 +244,19 @@ def test_cli_quantize_packed(tmp_path):
                                    atol=1e-5)
     x = torch.randint(0, cfg.vocab_size, (1, 12))
     torch.testing.assert_close(model(x), newp(x), rtol=1e-4, atol=1e-4)
-    for flag in (["--dp", "2"], ["--resume_dir", "x"], ["--host_offload"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            CLI.main(["llama-tiny", "synthetic", "--wbits", "2",
-                      "--device", "cpu", *flag])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CLI.main(["llama-tiny", "synthetic", "--wbits", "2", "--device",
+                  "cpu", "--dp", "2"])
+    # --resume_dir and --host_offload run (tests/test_torch_driver_options
+    # holds their results)
+    resume = str(tmp_path / "resume")
+    for flag in (["--resume_dir", resume], ["--host_offload"]):
+        _, art_f = CLI.main([
+            "llama-tiny", "synthetic", "--weights", "random", "--wbits",
+            "2", "--quant", "ldlq", "--incoh_processing", "--nsamples", "4",
+            "--seqlen", "32", "--device", "cpu", *flag])
+        assert len(art_f.results) == 2 * 7
+    assert sorted(os.listdir(resume)) == ["layer_0.npz", "layer_1.npz"]
     # Hugging Face weights load from a local directory only
     with pytest.raises(FileNotFoundError, match="must be local"):
         CLI.main(["llama-tiny", "synthetic", "--wbits", "2", "--device",

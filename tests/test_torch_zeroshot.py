@@ -402,5 +402,10 @@ def test_accept_baseline_gate(tmp_path):
         checks = {c["check"]: c for c in json.load(f)["checks"]}
     assert checks["ppl_delta_w2"]["status"] == "vs_baseline"
     assert checks["ppl_delta_w2"]["pass"] is False
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        acli.main(ARGS_TINY + ["--bits", "2", "--host_offload"])
+    # --host_offload quantizes with the model in host memory: the same
+    # failing gate
+    with pytest.raises(SystemExit) as e:
+        acli.main(ARGS_TINY + [
+            "--bits", "16,2", "--tasks", "", "--baseline", bpath,
+            "--tol_ppl", "0.0", "--host_offload"])
+    assert e.value.code == 1
