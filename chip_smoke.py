@@ -73,8 +73,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      on the model saved as a checkpoint, its tokens an Engine's;
  12. (run after phase 11) the OPT and BLOOM families: 2-layer full-width
      OPT-6.7B and BLOOM-7b1 (nonzero biases, dense tied head) held against
-     the CPU f32 plain path as in phase 6; full-depth 2-bit OPT-6.7B
-     serving phase 7's requests through the serial ``Engine.run`` and the
+     the CPU f32 plain path as in phase 6; 2-bit OPT-6.7B at OPT_LAYERS
+     of its 32 layers (a cut that pays for phase 17) serving phase 7's
+     requests through the serial ``Engine.run`` and the
      pump, whose chunk graphs are built at first use, not warmed (greedy
      tokens equal, launches counted exactly), b1 pump decode (the b4
      window cut for phases 13-15) beside phase 8's Llama-2-7B; BLOOM-7b1 at 4 layers (ALiBi,
@@ -90,7 +91,7 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      LDLQ with incoherence processing, the lm_head too): layer 0's
      tap Hessians with K2 against dense attention, seconds a layer by part,
      K2's calibration launches, peak memory, LDLQ / nearest proxy-loss
-     ratios on layers 0 and 31 and the head, K1 on the packed layers
+     ratios on the first and last layers and the head, K1 on the packed layers
      against the quantizer's f32 W_hat, a bit-exact checkpoint round trip,
      and the loaded checkpoint served by ``Engine.run`` (4 greedy requests)
      with its first 600-token prefill held against the f32 W_hat forward;
@@ -118,9 +119,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      ``cli/bench.main`` at --batch 1 and 4, arena and --paged, --check;
      its JSON lines printed, every slot's greedy stream held to phase
      11's teacher-forced check.
- 16. (last) the quantizer's options on Llama-2-7B at its published widths,
-     BF_LAYERS layers: ``cli/quantize.main`` with --pre_proj and no
-     --proj_mode ('noblock' butterflies), ldlqRG, the head, --resume_dir
+ 16. (after phase 15) the quantizer's options on Llama-2-7B at its
+     published widths, BF_LAYERS layers: ``cli/quantize.main`` with
+     --pre_proj and no --proj_mode ('noblock' butterflies), ldlqRG, the head, --resume_dir
      and --trace on BF_NSAMPLES windows of 2048 tokens, then the same
      command resumed (blocks and the head's planes bit for bit); the
      butterfly checkpoint served by ``Engine.run`` (arena, then paged),
@@ -131,6 +132,21 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      save-hessians, hsummary and proxy on layer 0's wo and wd for every
      rounder against nearest (each ratio below 1); host offload against
      the same quantization on the card (codes equal, lower peak memory).
+ 17. (after phase 16) parallelism, ranks sharing the card over gloo
+     (``parallel/mesh.py::run_ranks``; the collectives gloo lacks for CUDA
+     tensors staged through the host by parallel/comm.py): 17a K1-decode
+     (B = 1, 4) and K1-tile (B = 600) on the column shards of Llama-2-7B's
+     four stacked linears at tp = 2 and 4, joined against the unsharded
+     call, times beside bounds; 17b tp = 2 at full depth, phase 7's four
+     requests (16 new tokens) through the serial ``Engine(mesh=).run``,
+     each token held to the unsharded teacher-forced forward, launches
+     by rank, a decode step's collectives (5 all-gathers a layer) and ms;
+     17c dp = 2 x tp = 2 on PAR_LAYERS layers, int8 KV, the 200-token
+     prefix, likewise; 17d pp = 2, ``pipelined_forward`` at B = 4, S =
+     512, M = 2 and 4 against the unsharded forward, K2 launches, the
+     host-staged bytes against ``pipeline_comm_bytes``; 17e
+     ``cli/quantize.main --dp 2`` (2 layers, 8 windows of 2048 tokens)
+     against ``--dp 1``: Hessians, codes, seconds a layer.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -1225,6 +1241,7 @@ def phase_serve(name: str, smi: str):
     from quip_tpu_torch.models import paged as PG
     from quip_tpu_torch.models.build import packed_model
     from quip_tpu_torch.serve.engine import Engine
+    from quip_tpu_torch.tools.teacher_forced import serving_prompts
 
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config("llama-2-7b")
@@ -1234,9 +1251,7 @@ def phase_serve(name: str, smi: str):
     torch.cuda.synchronize()
     log(f"built 32-layer 2-bit Llama-2-7B (packed lm_head) in "
         f"{time.time() - t:.1f} s")
-    rng = np.random.default_rng(0)
-    prompts = {n: rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in (600, 128, 37, 5, 200)}
+    prompts = serving_prompts(cfg.vocab_size)
     cache_bytes = lambda e: sum(  # noqa: E731
         t.numel() * t.element_size() for t in e.pkv
         if isinstance(t, torch.Tensor) and t.is_cuda)
@@ -1856,7 +1871,7 @@ def phase_bench(name: str, smi: str, ckpt: str):
 SPEC_K = 4
 # phase 11's target depth: the first SPEC_LAYERS of phase 7's 32 blocks (a
 # cut for the script's limit)
-SPEC_LAYERS = 16
+SPEC_LAYERS = 8           # cut from 16 to pay for phase 17
 # Greedy exactness at full width. The draft's steps run K1-decode at B rows,
 # the verify K1-tile at B*K rows (K1-decode up to 8), the teacher-forced
 # forward K1-tile and K2 over the whole sequence: three bf16 paths whose sums
@@ -1890,31 +1905,10 @@ SPEC_HOT = {"self4": 32, "perfect": 16}
 
 
 def _spec_exactness(model, cfg, reqs, gens, prefix, tol=None):
-    """Teacher-force each request's emitted stream through one forward of
-    the target (its shared prefix first where it opted in): the share of
-    tokens that are the argmax of their row, and the largest gap to the
-    row's max over its max |logit|, which must be <= ``tol`` (None: only
-    read)."""
-    from quip_tpu_torch.models import model as M
-    exact = total = 0
-    worst = 0.0
-    for q, g in zip(reqs, gens):
-        pre = (list(prefix) if prefix is not None and q.get("use_prefix", True)
-               else [])
-        seq = pre + list(q["prompt"]) + g[:-1]
-        dev = model.embed.tokens.device
-        with torch.inference_mode():
-            lg = M.forward(model, torch.tensor(seq, device=dev)[None],
-                           cfg)[0, len(pre) + len(q["prompt"]) - 1:].float()
-        assert torch.isfinite(lg).all(), "NaN/inf logits"
-        gen = torch.tensor(g, device=dev)
-        gap = ((lg.max(-1).values - lg.gather(1, gen[:, None])[:, 0])
-               / lg.abs().max(-1).values)
-        exact += int((gap == 0).sum())
-        total += len(g)
-        worst = max(worst, gap.max().item())
-    assert tol is None or worst <= tol, (worst, tol)
-    return exact / total, worst
+    """tools/teacher_forced.py's check: (share of tokens that are their
+    row's argmax, worst gap over max |logit|), the gap held to ``tol``."""
+    from quip_tpu_torch.tools.teacher_forced import exactness
+    return exactness(model, cfg, reqs, gens, prefix, tol)
 
 
 def _accept_all_step(draft, target, tokens, dcaches, tcaches, cfg_d, cfg_t,
@@ -2314,6 +2308,7 @@ def phase_spec(name: str, smi: str, model, cfg, prompts):
 # Phase 12: the OPT and BLOOM families at their published widths.
 FAMILY_PRESETS = ("opt-6.7b", "bloom-7b1")
 BLOOM_LAYERS = 4          # phase 12c's BLOOM-7b1 depth (of 30): a cut
+OPT_LAYERS = 8            # phase 12b's OPT-6.7B depth (of 32): a cut
 FAMILY_QUANT_LAYERS = 2   # phase 12d's OPT-6.7B depth (of 32): a cut
 FAMILY_QUANT_NSAMPLES = 32
 
@@ -2357,8 +2352,10 @@ def phase_families(name: str, smi: str, llama_dec=None):
         del model
         torch.cuda.empty_cache()
 
-    # b. full-depth OPT-6.7B: phase 7's requests, serial and through the pump
-    cfg = dataclasses.replace(get_config("opt-6.7b"), dtype="bfloat16")
+    # b. OPT-6.7B at OPT_LAYERS of 32 layers: phase 7's requests, serial
+    # and through the pump
+    cfg = dataclasses.replace(get_config("opt-6.7b"), dtype="bfloat16",
+                              n_layers=OPT_LAYERS)
     model = packed_model(cfg, bits=2, seed=0, dtype=torch.bfloat16,
                          device="cuda")
     rng = np.random.default_rng(12)
@@ -2388,7 +2385,8 @@ def phase_families(name: str, smi: str, llama_dec=None):
         pump = _run_pump(eng, reqs, cfg, serial["tokens"])
         pump.update(graphs=len(eng._graphs), capture_s=eng._graphs.capture_s)
         del eng
-        assert pump["k1_tile"] == n_lin * tiled and pump["k2"] == 32, pump
+        assert pump["k1_tile"] == n_lin * tiled, pump
+        assert pump["k2"] == cfg.n_layers, pump
         assert pump["k1_decode"] >= n_lin * 40, pump
         assert pump["k1_decode"] % n_lin == 0 and pump["k3"] == 0, pump
         # b1 only: the b4 window was cut to pay for phases 13-15's time
@@ -2396,7 +2394,8 @@ def phase_families(name: str, smi: str, llama_dec=None):
         dec = {B: _pump_decode(model, cfg, rng, B) for B in (1,)}
         dec_s = time.time() - t
     torch.cuda.empty_cache()
-    log(f"OPT-6.7B (32 layers, 2-bit, dense tied head): Engine.run 4 "
+    log(f"OPT-6.7B ({cfg.n_layers} layers, 2-bit, dense tied head): "
+        f"Engine.run 4 "
         f"requests in {serial['run_s']:.2f} s, {serial['decode_steps']} "
         f"decode steps; launches K1-decode {serial['k1_decode']} "
         f"({serial['k1_per_step']} a step), K1-tile {serial['k1_tile']}, K2 "
@@ -2576,8 +2575,9 @@ def _quantize_family(smi: str) -> dict:
 # Cut to 32 since phase 12 joined the script: the 1200 s limit.
 QUANT_NSAMPLES = 32
 # phase 9's depth (of 32), which phases 10 and 15 read back: cut from 32
-# (with phase 11's SPEC_LAYERS) to pay for phase 16 within the script's limit
-QUANT_LAYERS = 16
+# to 16 (with phase 11's SPEC_LAYERS) to pay for phase 16, and to 4 for
+# phase 17, within the script's limit
+QUANT_LAYERS = 4
 QUANT_BUDGET_S = 300.0
 
 
@@ -3427,6 +3427,490 @@ def phase_butterfly(name: str, smi: str):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: parallelism (parallel/mesh.py, comm.py, pipeline.py,
+# Engine(mesh=), cli/quantize --dp), ranks sharing the one card over gloo
+# ---------------------------------------------------------------------------
+
+# 17c / 17d depth: the first PAR_LAYERS of the full-width model's 32 blocks
+# (a cut for the script's limit; the widths are the model's)
+PAR_LAYERS = 8
+PAR_NEW = 16                 # new tokens a request in 17b / 17c
+PAR_BUDGET_S = 180.0
+# 17a: K1 on a column shard against the unsharded call, f32 x: the same
+# kernel sums the same fan-in for a column, but its plan (warps, fan-in
+# splits) follows m_p, so the f32 sums may run in another order; the K1
+# phase's kernel-against-plain limit, 1e-3 of max |y|, bounds that
+SHARD_TOL = 1e-3
+# 17d: GPipe logits against the unsharded forward on the same weights.
+# Each micro-batch runs K1-tile on B/M x S rows, whose plan differs from
+# the whole batch's: bf16 activations that round differently through 8
+# layers. The limit is phase 11's full-depth bf16 one (5e-2 of max |logit|)
+PP_TOL = 5e-2
+# 17e: the --dp 2 Hessians, relative Frobenius. Layer 0's attention input
+# is the normed embedding, the same rows in both runs: against --dp 1 only
+# the f32 sum order differs (16384 rows summed in 2 shards, then
+# all-reduced): 1e-5. Its other taps pass through bf16 matmuls at 4
+# against 8 windows a call: 2e-2, the bf16 activations' rounding (a lost
+# or doubled all-reduce reads 0.5 or 1). Layer 1 sees layer 0's quantized
+# outputs, and LDLQ's error feedback lets a sum-order change in H flip
+# codes, so --dp 1's layer 1 differs by more (read, not held); each of
+# its Hessians is held instead, at 2e-2, to one
+# calibration pass over all 8 windows through the --dp 2 run's own
+# quantized layer 0 and the original layer 1 (driver.save_hessians)
+DP_H_TOL = {"exact": 1e-5, "bf16": 2e-2}
+
+
+def _llama_full(dev):
+    """Phase 7's model: full-depth 2-bit Llama-2-7B, packed lm_head, seed 0
+    (every rank builds the same one)."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    cfg = get_config("llama-2-7b")
+    return packed_model(cfg, bits=2, seed=0, dtype=torch.bfloat16,
+                        head_bits=2, device=dev), cfg
+
+
+def _cut_model(model, cfg, n: int):
+    """The first ``n`` blocks of ``model`` (its embedding and head)."""
+    from quip_tpu_torch.models.model import Model
+    c = dataclasses.replace(cfg, n_layers=n)
+    return Model(c, model.embed, list(model.blocks)[:n], model.final_ln,
+                 model.lm_head), c
+
+
+def _mesh_run(eng, reqs) -> dict:
+    """``eng.run(reqs)`` on a sharded engine, every kernel counter and
+    collective counter set to 0 just before and read just after; each
+    decode step synchronized and timed, with its collectives by kind."""
+    from quip_tpu_torch.models import paged as PG
+    from quip_tpu_torch.parallel import comm
+    orig = PG.paged_decode_step
+    steps = []
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        before = comm.counts()
+        t = time.perf_counter()
+        out = orig(*a, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        after = comm.counts()
+        steps.append(dict(ms=ms, comm={
+            k: {f: after[k][f] - before[k][f] for f in after[k]}
+            for k in after if after[k]["count"] > before[k]["count"]}))
+        return out
+
+    PG.paged_decode_step = timed
+    try:
+        _zero_counts()
+        comm.reset()
+        t = time.time()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.time() - t
+        counts, totals = _read_counts(), comm.counts()
+    finally:
+        PG.paged_decode_step = orig
+    for r, q in zip(out, reqs):
+        assert len(r.generated) == q["max_new_tokens"] + 1, r.uid
+    return dict(tokens=[r.generated for r in out], run_s=run_s,
+                counts=counts, comm={k: v for k, v in totals.items()
+                                     if v["count"]},
+                decode_steps=len(steps),
+                ms_per_step=float(np.median([s["ms"] for s in steps])),
+                comm_per_step=steps[len(steps) // 2]["comm"],
+                mesh=eng.stats()["mesh"])
+
+
+def _p17_pair(prompts):
+    """Two ranks: 17b (tp = 2, full depth, serial Engine.run) and 17d
+    (pp = 2 on PAR_LAYERS layers, pipelined_forward at M = 2 and 4).
+    Rank 0 teacher-forces 17b's tokens through its unsharded model last
+    (``tp2_exactness``)."""
+    from quip_tpu_torch.kernels import flash_attn as FA
+    from quip_tpu_torch.models import model as M
+    from quip_tpu_torch.parallel import comm
+    from quip_tpu_torch.parallel import mesh as PM
+    from quip_tpu_torch.parallel.pipeline import (pipeline_comm_bytes,
+                                                  pipelined_forward)
+    from quip_tpu_torch.serve.engine import Engine
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t = time.time()
+    model, cfg = _llama_full(dev)
+    out = dict(build_s=time.time() - t)
+    mesh = PM.make_mesh(dp=1, tp=2)
+    reqs = [dict(prompt=prompts[n], max_new_tokens=PAR_NEW)
+            for n in (600, 128, 37, 5)]
+    with fused_rht(False):
+        t = time.time()
+        eng = Engine(model, cfg, max_batch=4, max_seq=1024, hot=32, page=64,
+                     cache_dtype=torch.bfloat16, mesh=mesh)
+        out["engine_s"] = time.time() - t
+        out["tp2"] = _mesh_run(eng, reqs)
+    del eng
+    torch.cuda.empty_cache()
+    m8, c8 = _cut_model(model, cfg, PAR_LAYERS)
+    pmesh = PM.make_pp_mesh(2)
+    stage = PM.shard_params_pp(m8, c8, pmesh)
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(
+        0, cfg.vocab_size, (4, 512))).to(dev)
+    with torch.inference_mode():
+        want = M.forward(m8, tokens, c8).float()
+    for mb in (2, 4):
+        with torch.inference_mode():
+            _zero_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rep = comm.comm_report(pipelined_forward,
+                                   (stage, tokens, c8, pmesh, mb))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        got = rep.pop("result").float()
+        err, rel = rel_err(got, want)
+        model_bytes = pipeline_comm_bytes(c8, 4, 512, mb, 2)
+        out[f"pp2_m{mb}"] = dict(
+            ms=ms, max_abs_err=err, rel_err=rel,
+            argmax_share=float((got.argmax(-1) == want.argmax(-1))
+                               .float().mean()),
+            k2=FA.launches, counts=_read_counts(),
+            per_kind=rep["per_kind"],
+            host_staged=sum(v["host_staged"]
+                            for v in rep["per_kind"].values()),
+            model=model_bytes, stage=pmesh.axis("pp").index)
+    if mesh.rank == 0:
+        with fused_rht(False):
+            out["tp2_exactness"] = _spec_exactness(
+                model, cfg, reqs, out["tp2"]["tokens"], None)
+    return out
+
+
+def _p17_quad(prompts):
+    """Four ranks: 17c, dp = 2 x tp = 2 on a PAR_LAYERS-layer 2-bit
+    Llama-2-7B (seed 0), int8 KV and the 200-token shared prefix, the
+    serial Engine.run; rank 0 then teacher-forces the tokens through its
+    unsharded model (``exactness``)."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.parallel import mesh as PM
+    from quip_tpu_torch.serve.engine import Engine
+    dev = torch.device("cuda", torch.cuda.current_device())
+    c8 = dataclasses.replace(get_config("llama-2-7b"), n_layers=PAR_LAYERS)
+    m8 = packed_model(c8, bits=2, seed=0, dtype=torch.bfloat16, head_bits=2,
+                      device=dev)
+    mesh = PM.make_mesh(dp=2, tp=2)
+    reqs = _p17_prefix_reqs(prompts)
+    with fused_rht(False):
+        eng = Engine(m8, c8, max_batch=4, max_seq=1024, hot=32, page=64,
+                     cache_dtype=torch.bfloat16, kv_quant=True,
+                     shared_prefix=prompts[200], mesh=mesh)
+        out = _mesh_run(eng, reqs)
+        del eng
+        if mesh.rank == 0:
+            out["exactness"] = _spec_exactness(m8, c8, reqs, out["tokens"],
+                                               prompts[200])
+    return out
+
+
+def _p17_prefix_reqs(prompts):
+    return [dict(prompt=prompts[n], max_new_tokens=PAR_NEW)
+            for n in (128, 37, 5)] + [dict(prompt=prompts[600],
+                                           max_new_tokens=PAR_NEW,
+                                           use_prefix=False)]
+
+
+def _p17_quant(argv):
+    """A rank of 17e: cli/quantize.main(argv) on PAR_QUANT_LAYERS layers;
+    rank 0 keeps every Hessian."""
+    import functools
+    import torch.distributed as dist
+    from quip_tpu_torch.cli import quantize as QCLI
+    from quip_tpu_torch.quantize import driver as DRV
+    orig = DRV.quantize_model
+    DRV.quantize_model = functools.partial(orig, keep_hessians=True)
+    try:
+        with _cut_depth(PAR_QUANT_LAYERS):
+            out = _quiet_call(QCLI.main, argv)
+    finally:
+        DRV.quantize_model = orig
+    return out if not dist.is_initialized() or dist.get_rank() == 0 else None
+
+
+PAR_QUANT_LAYERS = 2
+PAR_QUANT_NSAMPLES = 8
+
+
+def _p17_replay_hessians(argv, quant) -> dict:
+    """Every layer's Hessians as ``quantize_model`` forms them, from one
+    calibration pass over all the windows: layer l's inputs through
+    ``quant``'s (quantized) layers < l, its taps through the original
+    layer l (the CLI's random model, rebuilt from its seed). Keyed by the
+    fused linears' names."""
+    from quip_tpu_torch.cli import common
+    from quip_tpu_torch.cli import quantize as QCLI
+    from quip_tpu_torch.models import model as M
+    from quip_tpu_torch.quantize.driver import save_hessians
+    args = QCLI.build_parser().parse_args(argv)
+    with _cut_depth(PAR_QUANT_LAYERS):
+        dense, cfg = common.load_model(args)
+        dense = M.fuse_params(dense, cfg)
+        (calib, _), _ = common.get_data(args, cfg)
+    tokens = torch.from_numpy(calib).to(args.device)
+    out = {}
+    by_tap = {s.tap: s.name for s in M.linear_specs(cfg)}
+    for li in range(cfg.n_layers):
+        hybrid = M.Model(cfg, dense.embed,
+                         list(quant.blocks)[:li] + [dense.blocks[li]],
+                         dense.final_ln, dense.lm_head)
+        hybrid_cfg = dataclasses.replace(cfg, n_layers=li + 1)
+        H = save_hessians(hybrid, hybrid_cfg, tokens, chunk=len(tokens))
+        for spec in M.linear_specs(cfg, fused=True):
+            out[f"layers.{li}.{spec.name}"] = H[
+                f"layers.{li}.{by_tap[spec.tap]}"]
+    return out
+
+
+def _p17_shards(name: str) -> dict:
+    """17a: K1 on the column shards of Llama-2-7B's four stacked linears
+    (the rule of parallel/mesh.py::shard_packed) at tp = 2 and 4: the
+    shards' outputs joined against the unsharded call, f32 x; each shard's
+    ms (rank 0's shard, bf16 x) beside its bound and beside the whole
+    call's."""
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.parallel.comm import Axis
+    from quip_tpu_torch.parallel.mesh import _part
+    from quip_tpu_torch.utils.timing import time_ms
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    scale = torch.tensor(0.02, device=dev)
+    shapes = {k: LLAMA_SHAPES[k] for k in ("wqkv", "wo", "wgu", "wd")}
+    sums: dict = {}
+    worst = dict(decode=0.0, tile=0.0)
+    worst_abs = dict(decode=0.0, tile=0.0)
+    for sname, (m, d) in shapes.items():
+        words = (d * 2 // 32, m)
+        ncopy = max(1, math.ceil(120e6 / (words[0] * m * 4)))
+        copies = [torch.randint(-2 ** 31, 2 ** 31, words, dtype=torch.int32,
+                                generator=g, device=dev)
+                  for _ in range(ncopy)]
+        for B in (1, 4, 600):
+            x = torch.randn(B, d, device=dev, generator=g).bfloat16()
+            path = DM.route(B, d, m, 2)
+            whole = DM.dequant_matmul(x.float(), (copies[0],), scale, None,
+                                      bits=2)
+            it = 20 if B <= 128 else 5
+            whole_ms = time_ms([lambda c=c: DM.dequant_matmul(
+                x, (c,), scale, None, bits=2) for c in copies], it)
+            for tp in (2, 4):
+                axes = [Axis("tp", tp, r, tuple(range(tp)))
+                        for r in range(tp)]
+                parts = [_part(copies[0], -1, a, sname) for a in axes]
+                mp = m // tp
+                assert DM.route(B, d, mp, 2) == path, (sname, tp, B)
+                t0, d0 = DM.launches_tile, DM.launches_decode
+                got = torch.cat([DM.dequant_matmul(x.float(), (p,), scale,
+                                                   None, bits=2)
+                                 for p in parts], dim=-1)
+                took = (DM.launches_tile - t0, DM.launches_decode - d0)
+                assert took == ((tp, 0) if path == "tile" else (0, tp)), took
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, whole)
+                assert rel <= SHARD_TOL, (sname, tp, B, rel)
+                worst[path] = max(worst[path], rel)
+                worst_abs[path] = max(worst_abs[path], err)
+                shard_copies = [torch.randint(
+                    -2 ** 31, 2 ** 31, (words[0], mp), dtype=torch.int32,
+                    generator=g, device=dev) for _ in range(max(
+                        1, math.ceil(120e6 / (words[0] * mp * 4))))]
+                ms = time_ms([lambda c=c: DM.dequant_matmul(
+                    x, (c,), scale, None, bits=2) for c in shard_copies], it)
+                bms, by = bound_ms(B * d * 2 + words[0] * mp * 4
+                                   + B * mp * 2, 2 * B * d * mp, name)
+                s = sums.setdefault((tp, B), dict(
+                    ms=0.0, bound_ms=0.0, whole_ms=0.0, by=set(),
+                    path=path))
+                s["ms"] += ms
+                s["bound_ms"] += bms
+                s["whole_ms"] += whole_ms
+                s["by"].add(by)
+                log(f"17a K1 {sname:5s} tp={tp} shard {mp}x{d} B={B:3d} "
+                    f"[{path}]: {ms:.4f} ms (bound {bms:.4f} {by}, "
+                    f"{bms / ms:.0%}); whole {m}x{d} {whole_ms:.4f} ms; "
+                    f"joined shards vs whole rel err {rel:.1e}")
+        del copies
+        torch.cuda.empty_cache()
+    out = {}
+    for (tp, B), s in sorted(sums.items()):
+        assert len(s["by"]) == 1, s
+        kern = "k1_decode" if s["path"] == "decode" else "k1_tile"
+        tag = f"tp{tp}_b{B}"
+        out.setdefault(kern, {}).update({
+            f"ms_{tag}": s["ms"], f"bound_ms_{tag}": s["bound_ms"],
+            f"bound_by_{tag}": s["by"].pop(),
+            f"whole_ms_{tag}": s["whole_ms"]})
+        log(f"17a K1 sum of the four shards, tp={tp} B={B:3d} "
+            f"[{s['path']}]: {s['ms']:.4f} ms a rank (bound "
+            f"{s['bound_ms']:.4f}, {s['bound_ms'] / s['ms']:.0%}); the "
+            f"whole calls {s['whole_ms']:.4f} ms")
+    out["k1_decode"]["max_rel_err_shards"] = worst["decode"]
+    out["k1_tile"]["max_rel_err_shards"] = worst["tile"]
+    out["k1_decode"]["max_abs_err_shards"] = worst_abs["decode"]
+    out["k1_tile"]["max_abs_err_shards"] = worst_abs["tile"]
+    return out
+
+
+def phase_parallel(name: str, smi: str) -> dict:
+    """Phase 17 (parallelism): 17a K1 on column shards; 17b tp = 2 at full
+    depth, two ranks on the card over gloo, phase 7's four requests
+    through the serial Engine(mesh=).run, each token held to the unsharded
+    model's teacher-forced forward; 17c dp = 2 x tp = 2 on PAR_LAYERS
+    layers with int8 KV and the 200-token prefix, held likewise; 17d pp =
+    2, pipelined_forward at B = 4, S = 512, M = 2 and 4 against the
+    unsharded forward, K2's launches, the host-staged bytes against
+    pipeline_comm_bytes; 17e cli/quantize.main --dp 2 on PAR_QUANT_LAYERS
+    layers and PAR_QUANT_NSAMPLES windows of 2048 tokens against --dp 1."""
+    from quip_tpu_torch.parallel.mesh import run_ranks
+    t_phase = time.time()
+    res: dict = {"shards": _p17_shards(name)}
+    res["shards_s"] = time.time() - t_phase
+
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.tools.teacher_forced import serving_prompts
+    cfg = get_config("llama-2-7b")
+    prompts = serving_prompts(cfg.vocab_size)          # phase 7's
+    ranks = dict(device="cuda", timeout_s=600, collective_timeout_s=300)
+
+    # ---- 17b + 17d: two ranks ---------------------------------------------
+    t = time.time()
+    pair = run_ranks(_p17_pair, 2, (prompts,), **ranks)
+    res["pair_s"] = time.time() - t
+    tp2 = [p["tp2"] for p in pair]
+    assert tp2[0]["tokens"] == tp2[1]["tokens"], "ranks disagree"
+    share, gap = pair[0]["tp2_exactness"]
+    assert gap <= SPEC_TOL[False], (gap, SPEC_TOL[False])
+    per_step = tp2[0]["comm_per_step"]
+    ag = per_step.get("all-gather", {})
+    for r in tp2:
+        c = r["counts"]
+        assert c["k1_decode"] >= 129 * r["decode_steps"], c
+        assert c["k1_tile"] >= 128 and c["k2"] >= 32, c
+    # the design: 5 all-gathers over tp a layer, none for the head
+    assert ag.get("count") == 5 * cfg.n_layers, per_step
+    res["tp2"] = dict(exact_share=share, worst_gap=gap, ranks=tp2,
+                      build_s=pair[0]["build_s"],
+                      engine_s=pair[0]["engine_s"])
+    log(f"17b tp=2, full depth (2 ranks, {tp2[0]['mesh']}): "
+        f"{tp2[0]['decode_steps']} decode steps, {tp2[0]['ms_per_step']:.1f} "
+        f"ms a step (rank 0), run {tp2[0]['run_s']:.1f} s; argmax of the "
+        f"teacher-forced forward {share:.1%}, worst gap {gap:.2e} <= "
+        f"{SPEC_TOL[False]}; launches by rank "
+        + "; ".join(f"K1-decode {r['counts']['k1_decode']} K1-tile "
+                    f"{r['counts']['k1_tile']} K2 {r['counts']['k2']}"
+                    for r in tp2)
+        + f"; a decode step's collectives {per_step}")
+
+    for mb in (2, 4):
+        rows = [p[f"pp2_m{mb}"] for p in pair]
+        r0 = next(r for r in rows if r["stage"] == 0)
+        r1 = next(r for r in rows if r["stage"] == 1)
+        for r in rows:
+            assert r["rel_err"] <= PP_TOL, (mb, r["rel_err"])
+            assert r["k2"] == PAR_LAYERS // 2 * mb, (mb, r["k2"])
+        hop = r0["model"]["hop_bytes"]
+        # stage 0 copies each of its M sends to the host, stage 1 each of
+        # its M receives back to the card: M hops of the model's M + pp - 1
+        assert r0["host_staged"] == mb * hop, (r0["host_staged"], hop)
+        assert r1["per_kind"]["recv"]["host_staged"] == mb * hop, r1
+        res[f"pp2_m{mb}"] = rows
+        log(f"17d pp=2 M={mb} ({PAR_LAYERS} layers, B=4 S=512): "
+            f"{r0['ms']:.1f} ms; logits vs unsharded rel err "
+            f"{r0['rel_err']:.2e} <= {PP_TOL}, argmax {r0['argmax_share']:.1%}"
+            f"; K2 {r0['k2']} a rank; host-staged {r0['host_staged']} bytes "
+            f"(stage 0) = {mb} hops of {hop:.0f}; the GPipe model's "
+            f"{r0['model']['total_wire_bytes']:.0f} over "
+            f"{r0['model']['ticks']} ticks")
+
+    # ---- 17c: four ranks --------------------------------------------------
+    t = time.time()
+    quad = run_ranks(_p17_quad, 4, (prompts,), **ranks)
+    res["quad_s"] = time.time() - t
+    assert all(q["tokens"] == quad[0]["tokens"] for q in quad)
+    share_c, gap_c = quad[0]["exactness"]
+    assert gap_c <= SPEC_TOL[True], (gap_c, SPEC_TOL[True])
+    per_c = quad[0]["comm_per_step"]
+    # 5 all-gathers over tp a layer, and one of the hidden states over dp
+    assert per_c["all-gather"]["count"] == 5 * PAR_LAYERS + 1, per_c
+    res["dp2tp2"] = dict(exact_share=share_c, worst_gap=gap_c, ranks=quad)
+    log(f"17c dp=2 x tp=2 ({PAR_LAYERS} layers, int8 KV, 200-token "
+        f"prefix; 4 ranks): {quad[0]['decode_steps']} decode steps, "
+        f"{quad[0]['ms_per_step']:.1f} ms a step (rank 0); argmax "
+        f"{share_c:.1%}, worst gap {gap_c:.2e} <= {SPEC_TOL[True]}; "
+        f"launches by rank "
+        + "; ".join(f"K1-decode {q['counts']['k1_decode']} K1-tile "
+                    f"{q['counts']['k1_tile']} K2 {q['counts']['k2']}"
+                    for q in quad)
+        + f"; a decode step's collectives {per_c}")
+
+    # ---- 17e: cli/quantize --dp 2 against --dp 1 --------------------------
+    argv = ["llama-2-7b", "synthetic", "--weights", "random", "--wbits",
+            "2", "--quant", "ldlq", "--incoh_processing", "--fuse",
+            "--nsamples", str(PAR_QUANT_NSAMPLES), "--seqlen", "2048",
+            "--chunk", str(PAR_QUANT_NSAMPLES), "--device", "cuda"]
+    t = time.time()
+    (quant2, art2), _ = run_ranks(_p17_quant, 2, (argv + ["--dp", "2"],),
+                                  rank0_here=True, **ranks)[0]
+    dp2_s = time.time() - t
+    t = time.time()
+    (_, art1), _ = _p17_quant(argv)
+    dp1_s = time.time() - t
+    rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+    # layer 0 against --dp 1; every layer against one pass through the
+    # --dp 2 model's quantized earlier layers
+    hres = {k: rel(art2.hessians[k], h1) for k, h1 in art1.hessians.items()}
+    replay = _p17_replay_hessians(argv, quant2)
+    hres_replay = {k: rel(art2.hessians[k], h) for k, h in replay.items()}
+    worst_h = {
+        "exact": max(v for k, v in hres.items()
+                     if k.startswith("layers.0.self_attn.")),
+        "bf16": max(v for k, v in hres.items() if k.startswith("layers.0.")
+                    and not k.startswith("layers.0.self_attn.")),
+        "replay": max(hres_replay.values()),
+        "dp1_later": max(v for k, v in hres.items()
+                         if not k.startswith("layers.0."))}
+    agree = {k: float((art2.results[k].codes == r.codes).float().mean())
+             for k, r in art1.results.items()}
+    res["quant_dp2"] = dict(
+        dp2_s=dp2_s, dp1_s=dp1_s, hessian_rel=hres,
+        hessian_rel_replay=hres_replay, worst=worst_h, codes_agree=agree,
+        s_a_layer_dp2=[art2.times[f"layers.{i}"]
+                       for i in range(PAR_QUANT_LAYERS)],
+        s_a_layer_dp1=[art1.times[f"layers.{i}"]
+                       for i in range(PAR_QUANT_LAYERS)])
+    log(f"17e cli/quantize --dp 2 ({PAR_QUANT_LAYERS} layers, "
+        f"{PAR_QUANT_NSAMPLES} windows of 2048): {dp2_s:.1f} s (a layer "
+        + ", ".join(f"{s:.2f}" for s in res["quant_dp2"]["s_a_layer_dp2"])
+        + f" s) against --dp 1 {dp1_s:.1f} s (a layer "
+        + ", ".join(f"{s:.2f}" for s in res["quant_dp2"]["s_a_layer_dp1"])
+        + f" s); Hessians rel Frobenius against --dp 1: layer 0's "
+        f"attention input {worst_h['exact']:.1e} <= {DP_H_TOL['exact']}, "
+        f"its other taps {worst_h['bf16']:.1e} <= {DP_H_TOL['bf16']}, layer "
+        f"1 {worst_h['dp1_later']:.1e} (read); every layer against one "
+        f"pass through the --dp 2 model {worst_h['replay']:.1e} <= "
+        f"{DP_H_TOL['bf16']}; codes agree with --dp 1 "
+        f"{min(agree.values()):.2%}..{max(agree.values()):.2%}")
+    assert worst_h["exact"] <= DP_H_TOL["exact"], hres
+    assert worst_h["bf16"] <= DP_H_TOL["bf16"], hres
+    assert worst_h["replay"] <= DP_H_TOL["bf16"], hres_replay
+    del art1, art2, quant2
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 17: {res['phase_s']:.1f} s (budget {PAR_BUDGET_S:.0f} s"
+        + (", OVER" if res["phase_s"] > PAR_BUDGET_S else "")
+        + f"); card: {smi}")
+    RESULTS["parallel"] = res
+    return res
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3473,6 +3957,12 @@ def main():
         shutil.rmtree(ckpt, ignore_errors=True)
     with watchdog(BF_BUDGET_S + 100, "the butterfly phase"):
         bf = phase_butterfly(name, smi)
+    with watchdog(PAR_BUDGET_S + 240, "the parallel phase"):
+        par = phase_parallel(name, smi)
+    # launches_tp2 / _dp2tp2 / _pp2: phase 17's ranks, each rank's count
+    # from its sharded run (17b, 17c; 17d's pipelined_forward at M = 4)
+    by_rank = lambda runs, k: [r["counts"][k] for r in runs]  # noqa: E731
+    p_tp2, p_dp2 = par["tp2"]["ranks"], par["dp2tp2"]["ranks"]
     # launches_butterfly: phase 16b's Engine.run of the butterfly
     # checkpoint, arena then paged (K2 from the paged run's prefill and
     # 16a's calibration: the arena never runs K2)
@@ -3509,6 +3999,9 @@ def main():
              launches_bloom=bloom["k1_decode"],
              launches_arena=ar_u["k1_decode"],
              launches_butterfly=bf_ar["k1_decode"] + bf_pg["k1_decode"],
+             launches_tp2=by_rank(p_tp2, "k1_decode"),
+             launches_dp2tp2=by_rank(p_dp2, "k1_decode"),
+             **par["shards"]["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
@@ -3520,7 +4013,10 @@ def main():
              **{k: v for k, v in k1.items() if "_w3_" in k or "_3bit_" in k},
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8); "
                    "_opt: OPT-6.7B's wqkv, wo, fc1, fc2 at B=1; _w3: 3-bit "
-                   "codes widened to 4-bit fields, _3bit: as two planes"),
+                   "codes widened to 4-bit fields, _3bit: as two planes; "
+                   "_tpN_bB: phase 17a, the sum over wqkv, wo, wgu, wd of "
+                   "one column shard at tp = N, B rows (whole_ms: the "
+                   "unsharded calls)"),
         dict(name="dequant_matmul_tile", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",
@@ -3532,6 +4028,10 @@ def main():
              launches_opt=opt["k1_tile"], launches_bloom=bloom["k1_tile"],
              launches_arena=ar_u["k1_tile"],
              launches_butterfly=bf_ar["k1_tile"] + bf_pg["k1_tile"],
+             launches_tp2=by_rank(p_tp2, "k1_tile"),
+             launches_dp2tp2=by_rank(p_dp2, "k1_tile"),
+             launches_pp2=by_rank(par["pp2_m4"], "k1_tile"),
+             **par["shards"]["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
              bound_ms=k1t["bound_ms"], bound_by=k1t["bound_by"],
@@ -3547,7 +4047,8 @@ def main():
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=600 (and "
                    "B=2048, a perplexity window's rows); _opt: OPT-6.7B's "
                    "wqkv, wo, fc1, fc2; _w3 / _3bit: phase 2's 3-bit "
-                   "layouts at B=600"),
+                   "layouts at B=600; _tpN_b600: phase 17a's column "
+                   "shards, as K1-decode's"),
         dict(name="flash_prefill", route="cuda",
              source="quip_tpu_torch/kernels/csrc/flash_attn.cu",
              replaces="quip_tpu/kernels/flash_attn.py:87",
@@ -3559,6 +4060,9 @@ def main():
              launches_opt=opt["k2"], launches_arena=ar_u["k2"],
              launches_butterfly=bf_pg["k2"],
              launches_butterfly_calibration=bf["k2_calibration"],
+             launches_tp2=by_rank(p_tp2, "k2"),
+             launches_dp2tp2=by_rank(p_dp2, "k2"),
+             launches_pp2=[r["k2"] for r in par["pp2_m4"]],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],

@@ -24,3 +24,14 @@ def resolve_device(device) -> torch.device:
             "quip_tpu_torch: device 'cuda' requested but no CUDA device is "
             "available; pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def same_device(a, b) -> bool:
+    """Whether ``a`` and ``b`` name one device (a CUDA device without an
+    index is the current one)."""
+    def canon(d):
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+    return canon(a) == canon(b)

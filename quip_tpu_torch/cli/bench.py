@@ -19,8 +19,15 @@ cache), with ``--paged`` one ``paged_decode_step`` on the two-level cache,
 its hot ring flushed every ``--hot`` steps outside the step. On the card
 each step is one CUDA graph replay (one graph for the arena, one for each
 page bucket the run reaches on the paged cache, all built before the
-timed chain); on the CPU it runs eagerly. ``--dp`` / ``--tp`` above 1
-wait for mesh sharding (ROADMAP queue 1 item 9) and stop with an error.
+timed chain); on the CPU it runs eagerly.
+
+``--dp D --tp T`` time the step sharded on D·T ranks, as quip_tpu's
+mesh: weights column-parallel over tp, the cache's slots over dp and kv
+heads over tp (parallel/mesh.py; ``--batch`` divisible by D). The command
+starts the ranks itself (this process is rank 0; it alone prints) or
+joins the group under ``python -m torch.distributed.run``. On a gloo
+group (ranks sharing a card, or the CPU) the steps run eagerly: a CUDA
+graph cannot hold gloo's collectives.
 """
 from __future__ import annotations
 
@@ -58,9 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "timing (steady-state decode at a given context; "
                         "content is zeros, cost-identical)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel mesh ways (not ported yet)")
+                   help="data-parallel mesh ways (the batch's slots)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel mesh ways (not ported yet)")
+                   help="tensor-parallel mesh ways (weights and kv heads)")
     p.add_argument("--check", action="store_true",
                    help="also report nll of the benchmarked continuation")
     p.add_argument("--seed", type=int, default=0)
@@ -72,7 +79,7 @@ class _Stepper:
     token (B, 1), the cache and its cursors, all in fixed tensors that the
     step updates in place, so a CUDA graph replays it."""
 
-    def __init__(self, params, cfg, args, dev: torch.device):
+    def __init__(self, params, cfg, args, dev: torch.device, mesh=None):
         from quip_tpu_torch.models import paged as PG
         from quip_tpu_torch.serve import arena as AR
         from quip_tpu_torch.serve.graphs import ChunkGraphs
@@ -81,17 +88,30 @@ class _Stepper:
         B = args.batch
         self.tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
         at = torch.full((B,), args.prefix, dtype=torch.int32, device=dev)
-        if args.paged:
-            self.caches = PG.init_paged(
-                B, args.max_seq, cfg, dtype=torch.bfloat16,
-                quantized=args.kv_quant, hot=args.hot, page=args.page,
-                device=dev)._replace(base=at, hot_len=torch.zeros_like(at))
+        kw = dict(dtype=torch.bfloat16, quantized=args.kv_quant,
+                  hot=args.hot, page=args.page, device=dev)
+        if args.paged and mesh is not None:
+            from quip_tpu_torch.parallel.mesh import init_paged_shard
+            self.caches = init_paged_shard(B, args.max_seq, cfg, mesh,
+                                           **kw)._replace(
+                base=at, hot_len=torch.zeros_like(at))
+        elif args.paged:
+            self.caches = PG.init_paged(B, args.max_seq, cfg, **kw)._replace(
+                base=at, hot_len=torch.zeros_like(at))
         else:
-            self.kv = AR.init_arena(cfg, B, args.max_seq, torch.bfloat16,
-                                    quantize=args.kv_quant, device=dev)
+            if mesh is not None:
+                from quip_tpu_torch.parallel.mesh import init_arena_shard
+                self.kv = init_arena_shard(B, args.max_seq, cfg, mesh,
+                                           torch.bfloat16,
+                                           quantize=args.kv_quant,
+                                           device=dev)
+            else:
+                self.kv = AR.init_arena(cfg, B, args.max_seq, torch.bfloat16,
+                                        quantize=args.kv_quant, device=dev)
             self.lens = at
         self.base, self.hot = args.prefix, 0     # host mirrors (paged)
-        self.graphs = ChunkGraphs(dev, torch.Generator(device=dev))
+        self.graphs = ChunkGraphs(dev, torch.Generator(device=dev), eager=(
+            mesh is not None and mesh.backend == "gloo"))
 
     def _key(self, base: int):
         if not self.args.paged:
@@ -139,7 +159,7 @@ class _Stepper:
         step at that bucket's base: the frontier and the cursors are put
         back after it, and the ring row it wrote is the one the next real
         step writes first."""
-        if not (self.args.paged and self.tok.is_cuda):
+        if not (self.args.paged and self.tok.is_cuda) or self.graphs.eager:
             return
         bases = {self.base + j * self.args.hot
                  for j in range((self.hot + n_steps) // self.args.hot + 1)}
@@ -164,9 +184,16 @@ def main(argv=None):
         p.error(f"--prefix {args.prefix} + --tokens {args.tokens} (+4 "
                 f"warmup, +{n_lat} latency probes) exceeds the KV cache "
                 f"(--max_seq {args.max_seq}); raise --max_seq")
+    mesh = None
     if args.dp * args.tp > 1:
-        p.error("--dp/--tp: mesh sharding is not ported yet (ROADMAP queue "
-                "1 item 9)")
+        if args.batch % args.dp:
+            p.error(f"--batch {args.batch} must be divisible by --dp")
+        if common.needs_ranks(args.dp * args.tp):
+            return common.start_ranks("quip_tpu_torch.cli.bench", argv,
+                                      args.dp * args.tp, args.device)
+        common.join_ranks(args)
+        from quip_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, tp=args.tp)
     if args.load:
         params, cfg, meta = common.load_checkpoint_model(args)
         print(f"loaded {meta}")
@@ -175,7 +202,12 @@ def main(argv=None):
     dev = torch.device(args.device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
-    st = _Stepper(params, cfg, args, dev)
+    if mesh is not None:
+        from quip_tpu_torch.parallel.mesh import check_replicas, shard_params
+        params = params.to(dev)
+        check_replicas(params, mesh)
+        params = shard_params(params, cfg, mesh)
+    st = _Stepper(params, cfg, args, dev, mesh)
     with torch.no_grad():
         for _ in range(4):                # warmup (and the first graph)
             st.step()

@@ -154,3 +154,67 @@ def get_data(args, cfg):
     return get_loaders(args.dataset, nsamples=args.nsamples, seed=args.seed,
                        seqlen=seqlen, model=args.model,
                        vocab_size=cfg.vocab_size), seqlen
+
+
+# ---------------------------------------------------------------------------
+# Ranks: one process a rank for --dp / --tp
+# ---------------------------------------------------------------------------
+
+
+def _rank_main(module: str, argv):
+    """A rank's run of a CLI (the process group is up): its ``main``;
+    only rank 0's result comes back."""
+    import importlib
+    import torch.distributed as dist
+    out = importlib.import_module(module).main(argv)
+    return out if dist.get_rank() == 0 else None
+
+
+def needs_ranks(world: int) -> bool:
+    """Whether a CLI asked for ``world`` ranks must start them: more than
+    one, no process group yet, and not launched by torch.distributed.run
+    (which sets WORLD_SIZE)."""
+    import os
+    import torch.distributed as dist
+    return (world > 1 and not dist.is_initialized()
+            and "WORLD_SIZE" not in os.environ)
+
+
+# a CLI's ranks: the deadline for the whole run, and each collective's
+RANKS_TIMEOUT_S = 3600.0
+COLLECTIVE_TIMEOUT_S = 600.0
+# the CUDA sources a rank's serving, quantizing and evaluating path runs
+SERVING_KERNELS = ("dequant_matmul_decode", "dequant_matmul_tile",
+                   "flash_attn", "rht")
+
+
+def start_ranks(module: str, argv, world: int, device: str):
+    """Run ``module``'s ``main(argv)`` on ``world`` ranks: this process is
+    rank 0 (its result is returned; it alone prints), the others are
+    children joined by a deadline. On the card the kernels are built here
+    first. A child's exception raises here with its traceback."""
+    import sys
+    from quip_tpu_torch.parallel.mesh import run_ranks
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if torch.device(device).type == "cuda":
+        # built once here, before any rank could race to build them
+        from quip_tpu_torch.kernels import _build
+        _build.build_all(SERVING_KERNELS)
+    return run_ranks(_rank_main, world, (module, argv), device=device,
+                     timeout_s=RANKS_TIMEOUT_S,
+                     collective_timeout_s=COLLECTIVE_TIMEOUT_S,
+                     rank0_here=True, quiet=True)[0]
+
+
+def join_ranks(args) -> None:
+    """Inside a rank (started by ``start_ranks`` or torch.distributed.run):
+    join the process group if it is not up yet and point ``args.device``
+    at this rank's device."""
+    import torch.distributed as dist
+    from quip_tpu_torch.parallel.mesh import _STATE, init_distributed
+    if not dist.is_initialized():
+        _, dev = init_distributed(device=args.device,
+                                  timeout_s=COLLECTIVE_TIMEOUT_S)
+    else:
+        dev = _STATE["device"]
+    args.device = str(dev)

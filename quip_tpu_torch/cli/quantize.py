@@ -11,8 +11,17 @@ it. ``--eval`` scores the dense quantized model's perplexity on the test
 stream afterwards. ``--resume_dir`` resumes per layer (quip_tpu's
 ``layer_{i}.npz`` files), ``--host_offload`` builds the model in host
 memory and moves one block at a time to ``--device``, ``--trace DIR``
-writes a torch.profiler trace of the quantization. ``--dp`` waits for the
-parallelism slice (ROADMAP queue 1 item 9) and raises.
+writes a torch.profiler trace of the quantization.
+
+``--dp N`` calibrates data-parallel on N ranks (quip_tpu's checks:
+``--nsamples`` divisible by N and ``--chunk`` equal to ``--nsamples``):
+each rank runs the calibration forward on its contiguous share of the
+windows, the Hessian sums are all-reduced (quantize/driver.py), every
+rank solves from the same seed, and rank 0 alone prints and saves. The
+command starts the N ranks itself (this process is rank 0), or joins the
+group when launched by ``python -m torch.distributed.run
+--nproc_per_node N``. Ranks sharing one card, or on the CPU, talk over
+gloo (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -47,7 +56,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "device at a time (the reference's CPU<->GPU block "
                         "streaming, opt.py:94-181)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel calibration (not ported yet)")
+                   help="data-parallel calibration over this many ranks")
     p.add_argument("--trace", type=str, default=None,
                    help="write a torch.profiler trace of the quantization "
                         "run to this directory (utils/profiling.trace)")
@@ -57,15 +66,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(p: argparse.ArgumentParser, args) -> None:
-    """Refuse flag combinations without a packed form, and ``--dp``,
-    whose code is not ported yet."""
+    """Refuse flag combinations without a packed form, and quip_tpu's two
+    ``--dp`` checks (before any model load)."""
     if args.packed and args.groupsize > 0:
         p.error("--packed requires per-row grids; --groupsize produces "
                 "per-group scales with no packed representation. Drop one "
                 "of the two flags.")
     if args.dp > 1:
-        raise NotImplementedError(
-            "--dp: not ported yet (ROADMAP queue 1 item 9, parallelism)")
+        if args.nsamples % args.dp:
+            p.error(f"--nsamples {args.nsamples} must be divisible by "
+                    f"--dp {args.dp}")
+        if args.chunk != args.nsamples:
+            p.error("--dp requires --chunk == --nsamples: the driver "
+                    "accumulates one chunk window at a time and batch "
+                    "shards are contiguous, so only a window spanning the "
+                    "whole batch actually runs data-parallel")
 
 
 def main(argv=None):
@@ -74,6 +89,14 @@ def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     check_args(p, args)
+    dp = None
+    if args.dp > 1:
+        if common.needs_ranks(args.dp):
+            return common.start_ranks("quip_tpu_torch.cli.quantize", argv,
+                                      args.dp, args.device)
+        common.join_ranks(args)
+        from quip_tpu_torch.parallel.mesh import make_mesh
+        dp = make_mesh(dp=args.dp, tp=1).axis("dp")
 
     # --host_offload: the model is built in host memory; the driver moves
     # one block at a time to --device
@@ -92,11 +115,11 @@ def main(argv=None):
             params, cfg, torch.from_numpy(calib), qcfg, seed=args.seed,
             chunk=args.chunk, progress=True, resume_dir=args.resume_dir,
             host_offload=args.host_offload, quant_head=args.quant_head,
-            device=args.device)
+            device=args.device, dp=dp)
     print(f"Total quant time: {time.time() - t0:.2f}s")
     print(f"Total proxy error: {art.total_error:.4f}")
 
-    if args.save:
+    if args.save and (dp is None or dp.index == 0):
         from quip_tpu_torch.pack.model import (pack_quantized_model,
                                                save_checkpoint)
         to_save = newp
@@ -108,7 +131,7 @@ def main(argv=None):
         })
         print(f"saved checkpoint to {args.save}")
 
-    if args.eval and not args.proxy_only:
+    if args.eval and not args.proxy_only and (dp is None or dp.index == 0):
         from quip_tpu_torch.eval.ppl import perplexity
         ppl = perplexity(newp, cfg, test_stream, seqlen)
         print(json.dumps({"dataset": args.dataset, "ppl": ppl}))

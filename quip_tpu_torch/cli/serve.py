@@ -9,10 +9,17 @@ Examples (on the card; ``--device cpu`` runs the plain path):
 
 quip_tpu's flags plus ``--device``. The cache is bf16 on the card and f32
 on the CPU; paged unless ``--no_paged`` asks for the flat slot arena (a
-draft or a system prompt keeps it paged, as in quip_tpu). ``--tp`` /
-``--dp`` wait for mesh sharding (ROADMAP queue 1 item 9) and stop with an
-error. The tokenizer is the model's Hugging Face tokenizer from the local
-cache, else the byte tokenizer.
+draft or a system prompt keeps it paged, as in quip_tpu). The tokenizer
+is the model's Hugging Face tokenizer from the local cache, else the byte
+tokenizer.
+
+``--tp T --dp D`` serve sharded on T·D ranks (``Engine(mesh=)``,
+parallel/mesh.py; ``--no_paged`` is refused, as in quip_tpu): the command
+starts the ranks itself (this process is rank 0; it alone prints), or
+joins the group under ``python -m torch.distributed.run --nproc_per_node
+T·D``. Batch prompts run on every rank alike; with ``--http`` rank 0
+serves and the other ranks follow it (``Engine.follow``). E.g. on the CPU:
+  python -m quip_tpu_torch.cli.serve llama-tiny --tp 2 --dp 2 --device cpu
 """
 from __future__ import annotations
 
@@ -64,9 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt", type=str, action="append", default=None,
                    help="prompt(s); '-' reads one prompt a stdin line")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel ways (not ported yet)")
+                   help="tensor-parallel ways (ranks a model replica spans)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel ways (not ported yet)")
+                   help="data-parallel ways (replicas, each its slots)")
     p.add_argument("--kv_quant", action="store_true",
                    help="int8 KV cache")
     p.add_argument("--no_paged", action="store_true",
@@ -96,9 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(p: argparse.ArgumentParser, args) -> None:
-    if args.tp > 1 or args.dp > 1:
-        p.error("--tp/--dp: mesh sharding is not ported yet (ROADMAP queue "
-                "1 item 9)")
+    if (args.tp > 1 or args.dp > 1) and args.no_paged:
+        p.error("--no_paged is incompatible with --tp/--dp: mesh "
+                "serving runs the paged production step")
     if args.self_draft and args.spec_draft:
         p.error("--self_draft and --spec_draft are mutually exclusive")
 
@@ -140,6 +147,14 @@ def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     check_args(p, args)
+    mesh = None
+    if args.tp * args.dp > 1:
+        if common.needs_ranks(args.tp * args.dp):
+            return common.start_ranks("quip_tpu_torch.cli.serve", argv,
+                                      args.tp * args.dp, args.device)
+        common.join_ranks(args)
+        from quip_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, tp=args.tp)
     params, cfg = load_target(args)
     draft = load_draft(args, params, cfg)
     tokenizer = load_tokenizer(args.model, cfg.vocab_size)
@@ -167,12 +182,15 @@ def main(argv=None):
                  seed=args.seed, draft=draft, spec_k=args.spec_k,
                  shared_prefix=prefix,
                  admit_limit=args.admit_limit,
-                 pipeline_depth=args.pipeline_depth, device=dev)
+                 pipeline_depth=args.pipeline_depth, device=dev, mesh=mesh)
     chunked = not args.no_chunked
     if args.http is not None:
         from quip_tpu_torch.serve.server import serve_http
         print("warming serving graphs...", file=sys.stderr)
         eng.warmup(chunked=chunked)
+        if not eng.leader:
+            eng.follow()              # until rank 0's server shuts down
+            return None
         httpd, loop = serve_http(eng, host=args.host, port=args.http,
                                  tokenizer=tokenizer, chunked=chunked,
                                  overlap=not args.no_overlap,

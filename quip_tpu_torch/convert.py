@@ -94,13 +94,16 @@ def packed_from_numpy(obj, layer: Optional[int] = None,
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
-                      dtype: Optional[torch.dtype] = None) -> Model:
+                      dtype: Optional[torch.dtype] = None,
+                      mesh=None) -> Model:
     """quip_tpu params (numpy leaves) -> a port ``Model`` on ``device``,
     for every family: norms are ``{"scale"[, "bias"]}`` dicts,
     ``final_ln`` None for post-norm OPT, ``embed`` holds ``tokens`` and
     whichever of ``positions``, ``proj_in``, ``proj_out`` and ``ln`` the
     family has. Dense leaves are cast to ``dtype`` (None keeps theirs);
-    packed planes, grid scales and rotations keep int32/f32."""
+    packed planes, grid scales and rotations keep int32/f32. ``mesh`` (a
+    parallel/mesh.py mesh) returns this rank's shard
+    (``parallel/mesh.py::shard_params``)."""
     dev = resolve_device(device)
 
     def leaf(a, layer=None):
@@ -125,16 +128,21 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
                           Attention(**attn), MLP(**mlp)))
     e = tree["embed"]
     emb = Embed(*(leaf(e.get(k)) for k in Embed.TABLES), ln=norm(e.get("ln")))
-    return Model(cfg, emb, mods, norm(tree.get("final_ln")),
-                 leaf(tree.get("lm_head")))
+    model = Model(cfg, emb, mods, norm(tree.get("final_ln")),
+                  leaf(tree.get("lm_head")))
+    if mesh is None:
+        return model
+    from quip_tpu_torch.parallel.mesh import shard_params
+    return shard_params(model, cfg, mesh)
 
 
-def _cache_fields(obj, cls, device, host=()):
-    """The fields of ``cls`` read off ``obj`` as tensors on ``device``
-    (``host`` fields as int32 tensors on the CPU; None stays None)."""
+def _cache_fields(obj, cls, device, host=(), skip=()):
+    """The fields of ``cls`` but ``skip`` read off ``obj`` as tensors on
+    ``device`` (``host`` fields as int32 tensors on the CPU; None stays
+    None)."""
     device = resolve_device(device)
     out = {}
-    for f in cls._fields:
+    for f in (f for f in cls._fields if f not in skip):
         a = getattr(obj, f)
         if a is None:
             out[f] = None
@@ -151,9 +159,11 @@ def kvcache_from_numpy(obj, device="cuda") -> KVCache:
 
 
 def paged_from_numpy(obj, device="cuda") -> PagedKV:
-    """quip_tpu ``PagedKV`` (numpy leaves), int8 scales included."""
+    """quip_tpu ``PagedKV`` (numpy leaves), int8 scales included: every
+    slot's tensors (the port's ``slots`` field stays None)."""
     return PagedKV(**_cache_fields(obj, PagedKV, device,
-                                   host=("base", "hot_len")))
+                                   host=("base", "hot_len"),
+                                   skip=("slots",)))
 
 
 def prefix_from_numpy(obj, device="cuda") -> Prefix:

@@ -16,6 +16,15 @@ Family specifics, as in quip_tpu: learned positions with offset 2, ReLU
 MLP and OPT-350m's post-norm and project_in/out (OPT); RoPE, RMSNorm,
 SwiGLU and GQA (Llama-2); ALiBi, the embedding LayerNorm and exact GELU
 (BLOOM). OPT and BLOOM tie the lm_head to the token table.
+
+Under tensor parallelism (parallel/mesh.py::shard_params) a block's
+``Attention`` and ``MLP`` carry the mesh's tp axis (``tp``) and their
+linears are ``TPLinear`` shards: each rank attends with its own
+n_heads / tp query and kv_heads / tp key-value heads (taken from the
+gathered q/k/v of a packed projection, or given directly by Megatron's
+column-parallel dense ones), and the attention output and the MLP's hidden
+vector are gathered or sliced to what the next linear takes. Unsharded
+modules have ``tp`` None and run as before.
 """
 from __future__ import annotations
 
@@ -30,8 +39,9 @@ from torch import nn
 from quip_tpu_torch import resolve_device
 from quip_tpu_torch.kernels.flash_attn import flash_prefill_bshd
 from quip_tpu_torch.models.config import ModelConfig
-from quip_tpu_torch.ops.qlinear import linear_apply
+from quip_tpu_torch.ops.qlinear import TPLinear, linear_apply
 from quip_tpu_torch.pack.format import PackedLinear
+from quip_tpu_torch.parallel import comm
 
 Linear = Union[torch.Tensor, PackedLinear]
 
@@ -52,6 +62,7 @@ class Attention(nn.Module):
     """wqkv (fused) or wq/wk/wv, then wo; optional biases."""
 
     NAMES = ("wqkv", "wq", "wk", "wv", "wo", "bqkv", "bq", "bk", "bv", "bo")
+    tp: Optional[comm.Axis] = None      # set on a tp shard (parallel/mesh)
 
     def __init__(self, **weights):
         super().__init__()
@@ -65,6 +76,7 @@ class MLP(nn.Module):
     BLOOM): w1 (+ b1), then w2 (+ b2)."""
 
     NAMES = ("wgu", "wg", "wu", "wd", "w1", "b1", "w2", "b2")
+    tp: Optional[comm.Axis] = None
 
     def __init__(self, **weights):
         super().__init__()
@@ -131,7 +143,12 @@ class Block(nn.Module):
 class Model(nn.Module):
     """A decoder LM: embed (``Embed``), blocks, final_ln (a ``Norm``, None
     for OPT-350m's post-norm) and lm_head ((D, V) dense or PackedLinear;
-    None for the tied families)."""
+    None for the tied families). A rank's shard (parallel/mesh.py) carries
+    the mesh axes it runs over: ``tp`` (its blocks' linears) and ``dp``
+    (the paged steps gather the hidden states over it)."""
+
+    tp: Optional[comm.Axis] = None
+    dp: Optional[comm.Axis] = None
 
     def __init__(self, cfg: ModelConfig, embed: Embed, blocks,
                  final_ln: Optional[Norm], lm_head: Optional[Linear] = None):
@@ -287,25 +304,68 @@ def _flash_eligible(cfg: ModelConfig, S: int, x: torch.Tensor,
             and S >= 512 and cfg.hd % 128 == 0)
 
 
+def take_slots(slots: Optional[Tuple[int, int]], *ts: torch.Tensor):
+    """Each of ``ts`` cut to the global slots [lo, hi) that a dp shard of
+    a cache holds (``slots``; None: all, the tensors as they are)."""
+    if slots is None:
+        return ts
+    lo, hi = slots
+    return tuple(t[lo:hi] for t in ts)
+
+
+def head0(p: Attention, cfg: ModelConfig) -> int:
+    """The first query head this rank attends with (0 unsharded)."""
+    tp = p.tp
+    return 0 if tp is None else tp.index * (cfg.n_heads // tp.size)
+
+
 def qkv_project(p: Attention, x: torch.Tensor, cfg: ModelConfig):
-    """q (B, S, H, hd), k/v (B, S, KV, hd) before RoPE."""
+    """q (B, S, H, hd), k/v (B, S, KV, hd) before RoPE; under tp this
+    rank's H / tp and KV / tp heads."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
     if p.fused:
         qkv = linear_apply(p.wqkv, x)
         if p.bqkv is not None:
             qkv = qkv + p.bqkv
-        nq, nkv = H * hd, KV * hd
+        # [q | k | v], whole or a column-parallel shard of each part
+        n = qkv.shape[-1] // (H + 2 * KV)
+        nq, nkv = H * n, KV * n
         q, k, v = qkv[..., :nq], qkv[..., nq:nq + nkv], qkv[..., nq + nkv:]
     else:
         q, k, v = (linear_apply(w, x) + (b if b is not None else 0.0)
                    for w, b in ((p.wq, p.bq), (p.wk, p.bk), (p.wv, p.bv)))
-    return (q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd),
-            v.reshape(B, S, KV, hd))
+    q, k, v = (q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd),
+               v.reshape(B, S, -1, hd))
+    tp = p.tp
+    if tp is not None and tp.size > 1 and q.shape[2] == H:
+        # a gathered projection: keep this rank's heads
+        h0, kv0 = head0(p, cfg), tp.index * (KV // tp.size)
+        q = q[:, :, h0:h0 + H // tp.size]
+        k = k[:, :, kv0:kv0 + KV // tp.size]
+        v = v[:, :, kv0:kv0 + KV // tp.size]
+    return q, k, v
+
+
+def _reshard(h: torch.Tensor, is_shard: bool, dst, tp) -> torch.Tensor:
+    """``h`` (this rank's column shard if ``is_shard``, else whole) as the
+    linear ``dst`` takes it under tensor parallelism: gathered over tp for
+    a linear that takes the whole input, sliced for a row-parallel one."""
+    if tp is None or tp.size == 1:
+        return h
+    want = isinstance(dst, TPLinear) and dst.takes_shard
+    if is_shard and not want:
+        return comm.all_gather(h, tp, dim=-1)
+    if want and not is_shard:
+        k = h.shape[-1] // tp.size
+        return h[..., tp.index * k:(tp.index + 1) * k]
+    return h
 
 
 def out_project(p: Attention, out: torch.Tensor) -> torch.Tensor:
-    y = linear_apply(p.wo, out)
+    """``wo`` (+ bo) of the attention output (under tp this rank's heads:
+    gathered over tp for a packed wo, as is for a row-parallel one)."""
+    y = linear_apply(p.wo, _reshard(out, True, p.wo, p.tp))
     return y + p.bo if p.bo is not None else y
 
 
@@ -330,10 +390,11 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     paths. Returns (out (B, S, D), kv): the cache with its length advanced,
     or without one the window's (k, v) rows."""
     B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
     if taps is not None:
         taps["attn_in"] = x
     q, k, v = qkv_project(p, x, cfg)
+    H = q.shape[2]
     if cfg.positions == "rope":
         cos, sin = (rope_cs if rope_cs is not None
                     else rope_tables(cfg, positions))
@@ -362,7 +423,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         out = out.reshape(B, S, H * hd)
     else:
         out = dense_attention(q, k_all, v_all, ks_all, vs_all, positions,
-                              mask, cfg, x.dtype)
+                              mask, cfg, x.dtype, head0(p, cfg))
     if taps is not None:
         taps["o_in"] = out
     return out_project(p, out), kv
@@ -371,13 +432,15 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
 def dense_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                     ks_all: Optional[torch.Tensor],
                     vs_all: Optional[torch.Tensor], positions: torch.Tensor,
-                    mask: torch.Tensor, cfg: ModelConfig, dtype
-                    ) -> torch.Tensor:
+                    mask: torch.Tensor, cfg: ModelConfig, dtype,
+                    h0: int = 0) -> torch.Tensor:
     """Softmax attention of q (B, S, H, hd) at ``positions`` (B, S) over
     every key of k_all / v_all (B, L, KV, hd), key l at position l, under
     ``mask`` (B, S, L); int8 keys and values fold their scales ks_all /
     vs_all (B, L, KV) around the dots (``KVCache``). The probabilities are
-    cast to ``dtype`` before the V dot. Returns (B, S, H * hd)."""
+    cast to ``dtype`` before the V dot; ``h0`` is the first query head q
+    holds (ALiBi's slopes are those of heads h0..h0+H-1). Returns
+    (B, S, H * hd)."""
     B, S, H, hd = q.shape
     KV = k_all.shape[2]
     scale = 1.0 / math.sqrt(hd)
@@ -396,7 +459,7 @@ def dense_attention(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     if cfg.positions == "alibi":
         # the bias in f32: bf16 holds positions exactly only up to 256
         L = logits.shape[-1]
-        slopes = alibi_slopes(H, logits.device)
+        slopes = alibi_slopes(cfg.n_heads, logits.device)[h0:h0 + H]
         dist = (positions[:, None, :, None].to(torch.float32)
                 - torch.arange(L, device=logits.device,
                                dtype=torch.float32))      # (B, 1, S, L)
@@ -425,17 +488,23 @@ def mlp(p: MLP, x: torch.Tensor, cfg: ModelConfig,
     if cfg.act == "silu_glu":
         if p.fused:
             gu = linear_apply(p.wgu, x)
-            g, u = gu[..., : cfg.d_ff], gu[..., cfg.d_ff:]
+            # [gate | up], whole or a column-parallel shard of each half
+            f = gu.shape[-1] // 2
+            g, u = gu[..., :f], gu[..., f:]
+            w_in = p.wgu
         else:
             g, u = linear_apply(p.wg, x), linear_apply(p.wu, x)
+            w_in = p.wg
         h = F.silu(g) * u
         w_out, b_out = p.wd, None
     else:
         h = _biased(p.w1, p.b1, x)
         h = F.relu(h) if cfg.act == "relu" else F.gelu(h, approximate="none")
-        w_out, b_out = p.w2, p.b2
+        w_in, w_out, b_out = p.w1, p.w2, p.b2
     if taps is not None:
         taps["down_in"] = h
+    h = _reshard(h, isinstance(w_in, TPLinear) and w_in.gives_shard, w_out,
+                 p.tp)
     return _biased(w_out, b_out, h)
 
 

@@ -30,6 +30,15 @@ Every family runs here: RoPE rotates the keys before they are stored;
 learned positions (OPT) enter at the embedding; ALiBi (BLOOM) biases each
 block's logits by the keys' absolute positions (the prefix's 0..P0-1, a
 slot's own rows shifted past its prefix).
+
+Sharded (parallel/mesh.py): a rank's cache holds its dp shard of the
+slots (``PagedKV.slots`` names them) and its tp shard of the kv heads,
+while the cursors stay whole, as the engine keeps them on every rank. A
+step takes every slot's tokens and cursors, runs its own slots (each rank
+its own heads, the blocks' collectives over tp), then gathers the last
+hidden states over dp, so every rank computes every slot's logits and
+samples them alike. A slot's prefill runs in the dp row that owns it; its
+last hidden state is broadcast over dp.
 """
 from __future__ import annotations
 
@@ -41,6 +50,7 @@ import torch
 from quip_tpu_torch import resolve_device
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
+from quip_tpu_torch.parallel import comm
 
 _NEG = -1e30    # finite mask floor: exp(_NEG - _NEG) stays 1.0 (zero weight)
 
@@ -61,6 +71,9 @@ class PagedKV(NamedTuple):
     vs: Optional[torch.Tensor] = None
     hot_ks: Optional[torch.Tensor] = None  # (n_layers, B, hot, kv_heads)
     hot_vs: Optional[torch.Tensor] = None
+    # a dp shard: the global slots [lo, hi) its tensors hold (the cursors
+    # cover every slot); None: the tensors hold every slot
+    slots: Optional[Tuple[int, int]] = None
 
     @property
     def capacity(self) -> int:
@@ -117,6 +130,16 @@ def build_prefix(params: M.Model, tokens, cfg: ModelConfig,
     k8, ksc = M.quantize_kv(k)
     v8, vsc = M.quantize_kv(v)
     return logits[0], Prefix(k8, v8, P, ksc, vsc)
+
+
+def _local_view(caches: PagedKV):
+    """(the cache with the cursors of the slots its tensors hold, their
+    global range or None)."""
+    if caches.slots is None:
+        return caches, None
+    base, hot_len = M.take_slots(caches.slots, caches.base, caches.hot_len)
+    return caches._replace(base=base, hot_len=hot_len,
+                           slots=None), caches.slots
 
 
 def advance(caches: PagedKV, hot: Hot) -> PagedKV:
@@ -228,7 +251,7 @@ class _StepCtx(NamedTuple):
 
 def _step_ctx(caches: PagedKV, S: int, device,
               pre_len: Optional[torch.Tensor], P0: int,
-              page: int) -> _StepCtx:
+              n_pages: int) -> _StepCtx:
     """The step context from host cursors, copied to ``device``. Rows past
     the ring end (other slots of a multi-token admission window) are
     dropped."""
@@ -248,9 +271,7 @@ def _step_ctx(caches: PagedKV, S: int, device,
         pre_len = to(pre_len)
     return _StepCtx((to(slot[keep]), to(row[keep])),
                     (to(slot[keep]), to(s[keep])), to(hot_valid),
-                    to(caches.base),
-                    page_bucket(int(caches.base.max()), page,
-                                caches.capacity), pre_valid, pre_len)
+                    to(caches.base), n_pages, pre_valid, pre_len)
 
 
 def _step_ctx_dev(caches: PagedKV, S: int,
@@ -291,9 +312,10 @@ def _paged_attention(p: M.Attention, h: torch.Tensor, cfg: ModelConfig,
     q and k (the rope family; else None); ``alibi`` biases every block by
     its keys' absolute positions. Returns out (B, S, D)."""
     B, S, _ = h.shape
-    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
-    rep = H // KV
+    hd = cfg.hd
     q, k, v = M.qkv_project(p, h, cfg)
+    H, KV = q.shape[2], k.shape[2]       # this rank's heads under tp
+    rep = H // KV
     if rope_cs is not None:
         cos, sin = rope_cs
         q = M.apply_rope(q, cos, sin)
@@ -396,11 +418,25 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
     n_pages None: the cursors and prefix_on lie on the host and the page
     loop reads ``page_bucket(max(base))`` pages. Given: they lie on the
     tokens' device, the loop reads ``n_pages`` pages, and nothing is read
-    back to the host (the chunked loop's form, see ``_step_ctx_dev``)."""
+    back to the host (the chunked loop's form, see ``_step_ctx_dev``).
+
+    A dp shard of the cache (``slots``) runs its own slots' tokens and
+    gathers the hidden states over ``params.dp`` before the head: the
+    logits are every slot's (B, S, V)."""
     if caches.capacity % page:
         raise ValueError(
             f"capacity {caches.capacity} must be a multiple of page {page} "
             f"(init_paged(..., page=...) rounds it up)")
+    full_hot_len = caches.hot_len
+    if n_pages is None:
+        # every slot's longest base, also on a dp shard: the page loop
+        # then groups its sums as the chunked loop's (and as unsharded)
+        host_pages = page_bucket(int(caches.base.max()), page,
+                                 caches.capacity)
+    caches, rows = _local_view(caches)
+    tokens, = M.take_slots(rows, tokens)
+    if prefix_on is not None:
+        prefix_on, = M.take_slots(rows, torch.as_tensor(prefix_on))
     B, S = tokens.shape
     dev = tokens.device
     cdev = caches.base.device            # where the cursors lie
@@ -418,11 +454,15 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
     rope_cs = M.position_tables(cfg, positions)
     alibi = None
     if cfg.positions == "alibi":
-        alibi = _Alibi(M.alibi_slopes(cfg.n_heads, dev).reshape(
-            cfg.kv_heads, -1), positions)
+        tp = params.tp
+        n = 1 if tp is None else tp.size
+        h0 = 0 if tp is None else tp.index * (cfg.n_heads // n)
+        alibi = _Alibi(M.alibi_slopes(cfg.n_heads, dev)[
+            h0:h0 + cfg.n_heads // n].reshape(cfg.kv_heads // n, -1),
+            positions)
     P0 = prefix.k.shape[1] if prefix is not None else 0
     if n_pages is None:
-        ctx = _step_ctx(caches, S, dev, pre_len, P0, page)
+        ctx = _step_ctx(caches, S, dev, pre_len, P0, host_pages)
     else:
         ctx = _step_ctx_dev(caches, S, pre_len, P0, n_pages)
     for l, bp in enumerate(params.blocks):
@@ -432,8 +472,10 @@ def paged_append_step(params: M.Model, tokens: torch.Tensor,
                 bp.attn, h, cfg, l, caches, rope_cs, page, ctx, prefix,
                 alibi), None),
             lambda h, bp=bp: M.mlp(bp.mlp, h, cfg))
+    if rows is not None:
+        x = comm.all_gather(x, params.dp, dim=0)
     logits = M.unembed(params, x, cfg)
-    return logits, Hot(caches.hot_k, caches.hot_v, caches.hot_len + S,
+    return logits, Hot(caches.hot_k, caches.hot_v, full_hot_len + S,
                        caches.hot_ks, caches.hot_vs)
 
 
@@ -458,9 +500,11 @@ def flush_hot(caches: PagedKV) -> PagedKV:
     host-to-device copy of the cursors (which would wait for the stream).
     Rows past hot_len are garbage but land at >= the new base, which masks
     and later flushes overwrite. Slots must keep base + hot <= capacity
-    (callers retire them earlier)."""
+    (callers retire them earlier). A dp shard flushes its own slots; the
+    cursors of all advance."""
     P = caches.hot_size
-    for b, at in enumerate(caches.base.tolist()):
+    view, _ = _local_view(caches)
+    for b, at in enumerate(view.base.tolist()):
         if at + P > caches.capacity:
             raise ValueError(f"flush_hot: slot {b} base {at} + hot {P} "
                              f"exceeds capacity {caches.capacity}")
@@ -482,10 +526,11 @@ def flush_hot_dev(caches: PagedKV, advance: bool = True) -> None:
     ``advance=False`` first. Rows are clamped to the arena: a live slot
     keeps base + hot <= capacity (the engine retires it earlier), and only
     a free slot's frozen cursors could reach past it, onto its own dead
-    rows."""
+    rows. A dp shard flushes its own slots; the cursors of all advance."""
     B, P = caches.hot_k.shape[1], caches.hot_size
     dev = caches.k.device
-    rows = (caches.base.to(dev, torch.int64)[:, None]
+    view, _ = _local_view(caches)
+    rows = (view.base.to(dev, torch.int64)[:, None]
             + torch.arange(P, device=dev)[None, :]).clamp_(
                 max=caches.capacity - 1)
     slot = torch.arange(B, device=dev)[:, None].expand(B, P)
@@ -507,6 +552,14 @@ def _prompt_kv(params: M.Model, tokens: torch.Tensor, plen: torch.Tensor,
 
     tokens (B, S) (right-padded); plen (B,) real lengths. Only the last
     real rows go through the lm_head."""
+    last, ks, vs = _prompt_hidden(params, tokens, plen, cfg)
+    return M.unembed(params, last, cfg)[:, 0], ks, vs
+
+
+def _prompt_hidden(params: M.Model, tokens: torch.Tensor,
+                   plen: torch.Tensor, cfg: ModelConfig):
+    """``_prompt_kv`` before the head: the last real positions' hidden
+    states (B, 1, D) and the per-layer K/V."""
     B, S = tokens.shape
     M.check_positions(params, cfg, S)
     dev = tokens.device
@@ -525,7 +578,7 @@ def _prompt_kv(params: M.Model, tokens: torch.Tensor, plen: torch.Tensor,
         ks.append(k)
         vs.append(v)
     last = x[torch.arange(B, device=dev), plen - 1][:, None]   # (B, 1, D)
-    return M.unembed(params, last, cfg)[:, 0], ks, vs
+    return last, ks, vs
 
 
 def _store_kv(caches: PagedKV, ks, vs, slot: int) -> None:
@@ -565,13 +618,28 @@ def paged_prefill_slot(params: M.Model, tokens: torch.Tensor, plen: int,
                        ) -> Tuple[torch.Tensor, PagedKV]:
     """Prefill ONE slot (continuous-batching admission). tokens (1, S),
     plen <= S real tokens. Returns (logits (V,), caches with
-    base[slot] = plen, hot_len[slot] = 0)."""
+    base[slot] = plen, hot_len[slot] = 0). On a dp shard only the dp row
+    that holds the slot runs the prompt; its last hidden state is
+    broadcast over dp, and every rank computes the logits."""
     S = tokens.shape[1]
     if S > caches.capacity:
         raise ValueError(f"prompt of {S} exceeds capacity {caches.capacity}")
     plen_t = torch.tensor([int(plen)], dtype=torch.int32)
-    logits, ks, vs = _prompt_kv(params, tokens, plen_t, cfg)
-    _store_kv(caches, ks, vs, int(slot))
+    view, rows = _local_view(caches)
+    if rows is None:
+        logits, ks, vs = _prompt_kv(params, tokens, plen_t, cfg)
+        _store_kv(caches, ks, vs, int(slot))
+    else:
+        lo, hi = rows
+        if lo <= slot < hi:
+            last, ks, vs = _prompt_hidden(params, tokens, plen_t, cfg)
+            _store_kv(view, ks, vs, int(slot) - lo)
+        else:
+            last = torch.empty((1, 1, cfg.d_model),
+                               dtype=params.embed.tokens.dtype,
+                               device=tokens.device)
+        last = comm.broadcast(last, params.dp, src=int(slot) // (hi - lo))
+        logits = M.unembed(params, last, cfg)[:, 0]
     base, hot_len = caches.base.clone(), caches.hot_len.clone()
     base[int(slot)] = int(plen)
     hot_len[int(slot)] = 0

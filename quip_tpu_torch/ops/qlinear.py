@@ -23,6 +23,15 @@ regenerate JAX keys (see core/incoherence.py).
 in quip_tpu) sends 'rht'-mode layers at decode-size batches (at most 32
 rows) through the fused RHT kernel (kernels/rht.py): one launch per
 rotation instead of the multiply, two matmuls and their casts.
+
+Tensor parallelism (parallel/mesh.py) wraps a block's linears in
+:class:`TPLinear`. A packed linear is column-parallel, as quip_tpu's
+``_packed_linear_spec`` has it: the V side runs on the replicated x, K1 on
+this rank's (nwords, m_p / tp) column shard, one all-gather over tp gives
+(B, m_p), then the slice to out_features, the U side on the whole vector
+and the bias: what GSPMD inserts around quip_tpu's ``_dm_partitioned``.
+A dense linear is Megatron's: column-parallel (its output stays a shard)
+or row-parallel (its input is a shard; one all-reduce).
 """
 from __future__ import annotations
 
@@ -35,27 +44,35 @@ from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul
 from quip_tpu_torch.kernels.rht import rht_apply_fused
 from quip_tpu_torch.ops.actquant import ActQuant
 from quip_tpu_torch.pack.format import PackedLinear, rot_to_butterflies
+from quip_tpu_torch.parallel import comm
 
 
 def _fused_rht_enabled() -> bool:
     return os.environ.get("QUIP_FUSED_RHT") == "1"
 
 
-def _packed_matmul(q: PackedLinear, x2: torch.Tensor) -> torch.Tensor:
-    """x2 (B, d) @ Ŵ₂ᵀ, sliced from the padded planes to out_features."""
+def _packed_matmul(q: PackedLinear, x2: torch.Tensor,
+                   gather=None) -> torch.Tensor:
+    """x2 (B, d) @ Ŵ₂ᵀ, sliced from the padded planes to out_features;
+    ``gather`` (a column shard's) joins the shards' columns first."""
     if q.qfn == "b":
         scale, zero = q.scale_b, None
     else:
         scale, zero = q.scale, q.zero
     out = dequant_matmul(x2, q.planes, scale, zero, bits=q.bits, qfn=q.qfn,
                          code_bits=q.code_bits)
+    if gather is not None:
+        out = gather(out)
     if out.shape[-1] != q.out_features:
         out = out[:, : q.out_features]     # padded_m rows are dead
     return out
 
 
-def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
-    """Apply a packed quantized linear to x (..., in_features)."""
+def qlinear_apply(q: PackedLinear, x: torch.Tensor,
+                  gather=None) -> torch.Tensor:
+    """Apply a packed quantized linear to x (..., in_features). ``q`` may
+    be a column shard (parallel/mesh.py::shard_packed) whose ``gather``
+    joins its K1 output over tp before the U side."""
     lead = x.shape[:-1]
     d = x.shape[-1]
     if d != q.in_features:
@@ -77,19 +94,19 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
             vec_v = (V.signs if q.scaleWH is None
                      else V.signs / q.scaleWH)
         x2 = rht_apply_fused(x2, vec_v, V.left, V.right)
-        t = _packed_matmul(q, x2)
+        t = _packed_matmul(q, x2, gather)
         y = rht_apply_fused(t, U.signs, U.left, U.right, transpose=True)
     elif q.butterfly:
         if q.scaleWH is not None:
             x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
         U, V = rot_to_butterflies(q)
         x2 = inc.apply_butterfly(V, x2, axis=-1)         # x @ Vᵀ
-        t = _packed_matmul(q, x2)
+        t = _packed_matmul(q, x2, gather)
         y = inc.apply_butterfly(U, t, axis=-1, transpose=True)  # @ U
     elif not q.has_rot:
         if q.scaleWH is not None:
             x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
-        y = _packed_matmul(q, x2)
+        y = _packed_matmul(q, x2, gather)
     else:
         U, V = rot_to_butterflies(q)
         if q.has_vin:
@@ -98,7 +115,7 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
         elif q.scaleWH is not None:
             x2 = x2 / q.scaleWH.to(x2.dtype)[None, :]
         x2 = inc.apply_rht(V, x2, axis=-1)               # x @ Vᵀ
-        t = _packed_matmul(q, x2)
+        t = _packed_matmul(q, x2, gather)
         y = inc.apply_rht(U, t, axis=-1, transpose=True)  # @ U
 
     if q.bias is not None:
@@ -106,10 +123,59 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, q.out_features)
 
 
+class TPLinear(torch.nn.Module):
+    """A tensor-parallel linear (made by parallel/mesh.py::shard_block):
+    ``inner`` is this rank's shard (a PackedLinear column shard or a dense
+    tensor, optionally in an ActQuant), ``layout`` how it runs:
+
+      * 'gather': a packed column shard; takes the whole x, gives the whole
+        y (one all-gather over ``axis`` inside, before the U side);
+      * 'col': dense columns; takes the whole x, gives its column shard;
+      * 'row': dense rows; takes its shard of x, gives the whole y (one
+        all-reduce over ``axis``)."""
+
+    def __init__(self, inner, layout: str, axis: comm.Axis):
+        super().__init__()
+        if layout not in ("gather", "col", "row"):
+            raise ValueError(f"TPLinear: unknown layout {layout!r}")
+        if isinstance(inner, torch.nn.Module):
+            self.inner = inner
+        else:
+            self.register_buffer("inner", inner)
+        self.layout = layout
+        self.axis = axis
+
+    @property
+    def takes_shard(self) -> bool:
+        return self.layout == "row"
+
+    @property
+    def gives_shard(self) -> bool:
+        return self.layout == "col"
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear_apply(self, x)
+
+
+def _tp_apply(w: TPLinear, x: torch.Tensor) -> torch.Tensor:
+    inner = w.inner
+    if isinstance(inner, ActQuant):
+        x, inner = inner.quantize(x), inner.inner
+    if w.layout == "gather":
+        return qlinear_apply(
+            inner, x, gather=lambda t: comm.all_gather(t, w.axis, dim=-1))
+    if w.layout == "col":
+        return x @ inner
+    return comm.all_reduce(x @ inner, w.axis)
+
+
 def linear_apply(w, x: torch.Tensor) -> torch.Tensor:
     """Dense-or-packed dispatch: a dense weight is stored (in, out) as in
     quip_tpu, so y = x @ w. An ActQuant wrapper (ops/actquant.py)
-    quantizes the activations first, then dispatches its inner linear."""
+    quantizes the activations first, then dispatches its inner linear; a
+    TPLinear runs its shard with its collective."""
+    if isinstance(w, TPLinear):
+        return _tp_apply(w, x)
     if isinstance(w, ActQuant):
         return linear_apply(w.inner, w.quantize(x))
     if isinstance(w, PackedLinear):

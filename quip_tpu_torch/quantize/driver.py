@@ -27,6 +27,13 @@ resumes a directory that either package wrote. ``host_offload`` keeps the
 blocks and the per-layer artifacts in host memory (pinned where a card
 is the compute device) and moves one block at a time to the device.
 ``save_hessians`` runs the calibration alone.
+
+Data-parallel calibration (``dp``, a parallel/comm.py axis; ``cli/quantize
+--dp``): each dp rank runs the calibration forward and the replays on its
+contiguous share of the windows, and each tap's Hessian sum is
+all-reduced over dp before the division by the number of windows, as
+quip_tpu's GSPMD psums them. Every rank then solves from the same seed, so
+all ranks hold the same quantized model.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from quip_tpu_torch.core.hessian import Transform
 from quip_tpu_torch.core.incoherence import transform_to
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
+from quip_tpu_torch.parallel import comm
 from quip_tpu_torch.quantize.config import QuantConfig
 from quip_tpu_torch.quantize.pipeline import LayerQuantResult, quantize_layer
 from quip_tpu_torch.utils import f32_matmuls, name_salt
@@ -192,6 +200,7 @@ def quantize_model(
     host_offload: bool = False,
     quant_head: bool = False,
     device=None,
+    dp: Optional[comm.Axis] = None,
 ) -> Tuple[M.Model, QuantizedModelArtifacts]:
     """Quantize every linear of every block, layer-streaming, on
     ``device`` (default: the model's). Returns (a new Model holding the
@@ -210,7 +219,11 @@ def quantize_model(
     their results are not in the artifacts, as in quip_tpu).
     ``host_offload``: the blocks stay in host memory (the model may be
     built there) and one at a time moves to ``device``; the quantized
-    blocks, the artifacts and the returned model are on the host."""
+    blocks, the artifacts and the returned model are on the host.
+
+    ``dp``: this rank's data-parallel axis; it calibrates on its
+    contiguous nsamples / dp windows in chunks of chunk / dp, and the
+    Hessian sums are all-reduced over dp (module docstring)."""
     if quant_head and (cfg.tie_word_embeddings or params.lm_head is None):
         raise ValueError(
             "quant_head requires an untied lm_head: tied families reuse the "
@@ -221,6 +234,19 @@ def quantize_model(
     N, S = calib_tokens.shape
     if N % chunk:
         raise ValueError(f"nsamples {N} must be divisible by chunk {chunk}")
+    n_windows = N
+    if dp is not None and dp.size > 1:
+        if chunk % dp.size:
+            raise ValueError(f"chunk {chunk} must be divisible by dp "
+                             f"{dp.size}")
+        N, chunk = N // dp.size, chunk // dp.size
+        calib_tokens = calib_tokens[dp.index * N:(dp.index + 1) * N]
+
+    def reduced(Hsum: torch.Tensor) -> torch.Tensor:
+        """A Hessian sum over every window, normalized by their number."""
+        if dp is not None:
+            Hsum = comm.all_reduce(Hsum, dp)
+        return Hsum / n_windows
     home = params.embed.tokens.device
     dev = torch.device(device) if device is not None else home
     host = torch.device("cpu")
@@ -250,6 +276,10 @@ def quantize_model(
     n_layers = cfg.n_layers
     if resume_dir:
         os.makedirs(resume_dir, exist_ok=True)
+    # the layers to resume, fixed before any rank writes a file (a dp rank
+    # must not resume a layer another rank is quantizing with collectives)
+    resumable = {li for li in range(n_layers) if resume_dir
+                 and os.path.exists(_resume_path(resume_dir, li))}
 
     def replay_all(block):
         out = torch.empty_like(inps)
@@ -259,7 +289,7 @@ def quantize_model(
 
     for li, block in enumerate(params.blocks):
         resumed = _load_resume_layer(resume_dir, li, block) \
-            if resume_dir else None
+            if li in resumable else None
         if resumed is not None:
             new_block, saved_err = resumed
             art.errors.update(saved_err)
@@ -278,7 +308,7 @@ def quantize_model(
         for i in range(0, N, chunk):
             accumulate(block, inps[i:i + chunk], H)
         # normalize by the number of sequences (method.py:122-123)
-        H = {k: v / N for k, v in H.items()}
+        H = {k: reduced(v) for k, v in H.items()}
         t1 = _clock(dev)
 
         # --- quantize each linear (opt.py:150-170) ---
@@ -309,7 +339,7 @@ def quantize_model(
         elif dev != home:
             new_block = _block_to(new_block, home)
         new_blocks.append(new_block)
-        if resume_dir:
+        if resume_dir and (dp is None or dp.index == 0):
             _save_resume_layer(resume_dir, li, new_block, {
                 k: v for k, v in art.errors.items()
                 if k.startswith(f"layers.{li}.")})
@@ -335,7 +365,7 @@ def quantize_model(
                 zt = z.reshape(-1, z.shape[-1]).to(torch.float32)
                 up = zt.t() @ zt
                 Hh = up if Hh is None else Hh + up
-        Hh = Hh / N
+        Hh = reduced(Hh)
         res = _quantize_one(head.to(dev).t(), Hh, qcfg, "lm_head", seed,
                             rotations)
         head = res.W_hat.t().to(getattr(torch, cfg.dtype))

@@ -24,24 +24,28 @@ quip_tpu's does; it passes no ``plen`` to the block, so the flash kernel
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from quip_tpu_torch import resolve_device
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
+from quip_tpu_torch.parallel import comm
 
 
 class BatchedKV(NamedTuple):
     """k/v (n_layers, max_batch, max_seq, kv_heads, hd), float or int8;
     ks/vs (n_layers, max_batch, max_seq, kv_heads) f32, the int8 mode's
-    per-(slot, position, head) scales (None for a float arena)."""
+    per-(slot, position, head) scales (None for a float arena). A dp
+    shard (parallel/mesh.py::init_arena_shard) holds the global slots
+    ``slots`` = [lo, hi) (None: all of them)."""
 
     k: torch.Tensor
     v: torch.Tensor
     ks: Optional[torch.Tensor] = None
     vs: Optional[torch.Tensor] = None
+    slots: Optional[Tuple[int, int]] = None
 
     @property
     def quantized(self) -> bool:
@@ -91,7 +95,7 @@ def attn_steps(p: M.Attention, x: torch.Tensor, cfg: ModelConfig,
         k_l[rows] = k[:, 0].to(k_l.dtype)
         v_l[rows] = v[:, 0].to(v_l.dtype)
     out = M.dense_attention(q, k_l, v_l, ks_l, vs_l, positions, mask, cfg,
-                            x.dtype)
+                            x.dtype, M.head0(p, cfg))
     return M.out_project(p, out)
 
 
@@ -102,7 +106,13 @@ def slot_attention_step(params: M.Model, cfg: ModelConfig,
     tokens (B, 1), lengths (B,) on the tokens' device; slot b's token takes
     position lengths[b] and its K/V row lands there. Returns logits (B, V);
     the arena is updated in place, the lengths are not (the caller advances
-    them). Inactive slots (length 0) compute too."""
+    them). Inactive slots (length 0) compute too.
+
+    A dp shard of the arena (``kv.slots``; parallel/mesh.py::
+    init_arena_shard, as the decode benchmark makes it) runs its own
+    slots' tokens and gathers their hidden states over ``params.dp``
+    before the head."""
+    tokens, lengths = M.take_slots(kv.slots, tokens, lengths)
     B = tokens.shape[0]
     dev = tokens.device
     pos = lengths.to(torch.int64)
@@ -118,6 +128,8 @@ def slot_attention_step(params: M.Model, cfg: ModelConfig,
             lambda h, l=l, bp=bp: (attn_steps(bp.attn, h, cfg, positions,
                                               mask, kv, l, rows, cs), None),
             lambda h, bp=bp: M.mlp(bp.mlp, h, cfg))
+    if kv.slots is not None:
+        x = comm.all_gather(x, params.dp, dim=0)
     return M.unembed(params, x, cfg)[:, -1, :]
 
 

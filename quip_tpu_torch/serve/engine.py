@@ -51,7 +51,20 @@ lengths in a device buffer pushed from the host before each chunk);
 ``pump`` runs one serial ``step_chunk`` a call, as quip_tpu's arena pump
 does (there is no overlapped arena loop).
 
-Not ported yet (ROADMAP queue 1 item 9): mesh sharding.
+``mesh=`` (a parallel/mesh.py (dp, tp) mesh; one process a rank, every
+rank running the same host code) serves sharded, as quip_tpu's
+``Engine(mesh=)``: it implies the paged cache and checks the same three
+divisibilities. Each rank holds its dp shard of the slots and its tp shard
+of the kv heads and of every packed linear's columns (the draft's too);
+a slot's prefill runs in the dp row that owns it, and each step gathers
+the last hidden states over dp, so every rank samples every slot from the
+same logits with the same generators and the host state stays identical
+on every rank. ``run`` is SPMD (every rank passes the same requests); for
+``stream`` and the HTTP server, rank 0 owns the requests: its
+``lead(op)`` broadcasts the requests it admitted since the last call and
+the loop operation, which the other ranks replay in ``follow()``. On a
+gloo group (ranks sharing a card, or the CPU) the chunks run eagerly, since a
+CUDA graph cannot hold gloo's collectives; on NCCL they are captured.
 """
 from __future__ import annotations
 
@@ -62,7 +75,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from quip_tpu_torch import resolve_device
+from quip_tpu_torch import resolve_device, same_device
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models import paged as PG
 from quip_tpu_torch.models.config import ModelConfig
@@ -206,7 +219,7 @@ class Engine:
                  paged: bool = False, hot: int = 32, page: int = 64,
                  seed: int = 0, shared_prefix=None,
                  admit_limit: Optional[int] = None, pipeline_depth: int = 2,
-                 draft=None, spec_k: int = 4, device="cuda"):
+                 draft=None, spec_k: int = 4, device="cuda", mesh=None):
         """``paged=False`` (quip_tpu's default) serves from the flat slot
         arena, ``paged=True`` from the two-level paged cache (hot ring of
         ``hot`` rows, frozen pages of ``page``), whose per-step reads scale
@@ -223,8 +236,33 @@ class Engine:
         target append (serve/speculative.py). Greedy requests emit exactly
         the target's greedy tokens; sampled ones go through rejection
         sampling. A self-draft (``make_self_draft``) shares the target's
-        tensors, and moving it to the device copies nothing."""
+        tensors, and moving it to the device copies nothing.
+
+        ``mesh`` (parallel/mesh.py): serve sharded over its dp and tp axes
+        (module docstring); implies ``paged=True``; ``device`` must be the
+        mesh's."""
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if not same_device(self.device, mesh.device):
+                raise ValueError(
+                    f"device {self.device} is not the mesh's device "
+                    f"{mesh.device}: pass the mesh's device")
+            dp, tp = mesh.axis("dp").size, mesh.axis("tp").size
+            if max_batch % dp:
+                raise ValueError(
+                    f"max_batch={max_batch} must be divisible by the mesh "
+                    f"dp axis ({dp}) — the KV cache shards its batch axis")
+            if cfg.kv_heads % tp:
+                raise ValueError(
+                    f"kv_heads={cfg.kv_heads} must be divisible by the "
+                    f"mesh tp axis ({tp}) — the KV cache shards its heads")
+            if draft is not None and draft[1].kv_heads % tp:
+                raise ValueError(
+                    f"draft kv_heads={draft[1].kv_heads} must be divisible "
+                    f"by the mesh tp axis ({tp}) — the draft KV cache "
+                    f"shards its heads too")
+            paged = True
         # positions run to the prefix's length + max_seq
         M.check_positions(params, cfg, max_seq + (
             0 if shared_prefix is None else len(shared_prefix)))
@@ -236,6 +274,12 @@ class Engine:
             draft = (widen_3bit_tree(draft[0], memo), draft[1])
         self.paged = paged or draft is not None or shared_prefix is not None
         self.params = params.to(self.device)
+        self._shard_memo: Dict[int, Any] = {}
+        if mesh is not None:
+            from quip_tpu_torch.parallel import mesh as PM
+            PM.check_replicas(self.params, mesh)
+            self.params = PM.shard_params(self.params, cfg, mesh,
+                                          self._shard_memo)
         self.cfg = cfg
         self.max_batch = max_batch
         self.max_seq = max_seq
@@ -255,10 +299,10 @@ class Engine:
         if self.paged:
             # capacity = max_seq + hot so a flush always fits (base <=
             # max_seq)
-            self.pkv = PG.init_paged(max_batch, max_seq + self.hot, cfg,
-                                     dtype=cache_dtype, quantized=kv_quant,
-                                     hot=self.hot, page=page,
-                                     device=self.device)
+            self.pkv = self._init_paged(max_batch, max_seq + self.hot, cfg,
+                                        dtype=cache_dtype,
+                                        quantized=kv_quant, hot=self.hot,
+                                        page=page, device=self.device)
         else:
             self.kv = AR.init_arena(cfg, max_batch, max_seq, cache_dtype,
                                     quantize=kv_quant, device=self.device)
@@ -311,7 +355,11 @@ class Engine:
         # at the next dispatch
         self._first_buf = torch.zeros(B, dtype=torch.int64, device=dev)
         self._front_mask = torch.zeros(B, dtype=torch.bool, device=dev)
-        self._graphs = ChunkGraphs(dev, self.gen_dev)
+        # a CUDA graph cannot hold gloo's collectives: chunks run eagerly
+        self._graphs = ChunkGraphs(dev, self.gen_dev, eager=(
+            mesh is not None and mesh.backend == "gloo"))
+        self._unshared: List[Dict[str, Any]] = []
+        self._t_shared = time.time()
         self.accept_hist: List[int] = []   # spec: tokens emitted a step
         self._spec_stale = False
         if self.spec:
@@ -323,11 +371,17 @@ class Engine:
         built through its own weights, and the spec pump's state."""
         dmodel, self.draft_cfg = draft
         self.draft_params = dmodel.to(self.device)
+        if self.mesh is not None:
+            from quip_tpu_torch.parallel import mesh as PM
+            self.draft_params = PM.shard_params(
+                self.draft_params, self.draft_cfg, self.mesh,
+                self._shard_memo)
         self.spec_k = spec_k
         B, dev = self.max_batch, self.device
-        self.dkv = PG.init_paged(B, self.pkv.capacity, self.draft_cfg,
-                                 dtype=cache_dtype, quantized=kv_quant,
-                                 hot=self.hot, page=self.page, device=dev)
+        self.dkv = self._init_paged(B, self.pkv.capacity, self.draft_cfg,
+                                    dtype=cache_dtype, quantized=kv_quant,
+                                    hot=self.hot, page=self.page,
+                                    device=dev)
         self.dprefix = None
         if self.prefix is not None:
             _, self.dprefix = PG.build_prefix(
@@ -346,6 +400,14 @@ class Engine:
         self._flush_epoch = 0
         self._act_d = torch.zeros(B, dtype=torch.int32, device=dev)
         self._tks_d = torch.zeros(B, dtype=torch.int64, device=dev)
+
+    def _init_paged(self, batch: int, capacity: int, cfg: ModelConfig,
+                    **kw) -> PG.PagedKV:
+        """A paged cache, or under a mesh this rank's shard of it."""
+        if self.mesh is None:
+            return PG.init_paged(batch, capacity, cfg, **kw)
+        from quip_tpu_torch.parallel import mesh as PM
+        return PM.init_paged_shard(batch, capacity, cfg, self.mesh, **kw)
 
     def _sync_pkv(self) -> PG.PagedKV:
         return self._with_cursors(self.pkv)
@@ -458,6 +520,12 @@ class Engine:
                 k: (round(v * 1e3 / n, 2) if k != "steps" else v)
                 for k, v in self._t_pump.items() if k != "chunks"}
             out["pump_chunks"] = n
+        if self.mesh is not None:
+            out["mesh"] = dict(
+                dp=self.mesh.axis("dp").size, tp=self.mesh.axis("tp").size,
+                backend=self.mesh.backend,
+                chunks="eager (gloo)" if self._graphs.eager
+                else "CUDA graphs")
         if self.spec and self.accept_hist:
             out["spec_emitted_mean"] = float(np.mean(self.accept_hist))
             out["spec_emitted_hist"] = np.bincount(
@@ -1583,16 +1651,83 @@ class Engine:
                     self.step()
         return [all_reqs[uid] for uid in uids]
 
+    # -- rank 0 leads, the other ranks follow (a mesh) ----------------------
+
+    @property
+    def leader(self) -> bool:
+        """Whether this rank owns the requests (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def submit_shared(self, **kw) -> int:
+        """``submit`` on the leader, recorded for the next ``lead`` to
+        broadcast (the other ranks submit it there)."""
+        if not self.leader:
+            raise RuntimeError("only rank 0 submits shared requests; the "
+                               "other ranks call follow()")
+        uid = self.submit(**kw)
+        if self.mesh is not None:
+            self._unshared.append(kw)
+        return uid
+
+    def _share(self, op: tuple):
+        """Broadcast (the requests submitted since the last call, ``op``)
+        from rank 0; returns what rank 0 sent."""
+        from quip_tpu_torch.parallel import comm
+        got = comm.broadcast_object(
+            (self._unshared, op) if self.leader else None, self.mesh.world,
+            src=0)
+        self._unshared = []
+        self._t_shared = time.time()
+        return got
+
+    def lead(self, op: str, *args):
+        """Rank 0's loop operation (``step``, ``pump``, ``step_chunk``):
+        under a mesh, first broadcast it with the requests admitted since
+        the last one, so every other rank's ``follow`` runs the same
+        operation on the same queue. Returns the operation's result."""
+        if self.mesh is not None and self.mesh.size > 1:
+            self._share((op,) + args)
+        return getattr(self, op)(*args)
+
+    def keepalive(self, every_s: float = 1.0) -> None:
+        """An idle leader's heartbeat: share nothing at most every
+        ``every_s`` seconds, so followers never wait out a group's
+        timeout."""
+        if (self.mesh is not None and self.mesh.size > 1
+                and time.time() - self._t_shared >= every_s):
+            self._share(("noop",))
+
+    def release_followers(self) -> None:
+        """End every other rank's ``follow`` loop (rank 0, under a mesh)."""
+        if self.mesh is not None and self.mesh.size > 1 and self.leader:
+            self._share(("stop",))
+
+    def noop(self) -> None:
+        return None
+
+    def follow(self) -> None:
+        """A non-leader rank's serving loop: replay rank 0's submissions
+        and loop operations until it releases the followers."""
+        while True:
+            reqs, op = self._share(())
+            for kw in reqs:
+                self.submit(**kw)
+            if op[0] == "stop":
+                return
+            getattr(self, op[0])(*op[1:])
+
     def stream(self, prompt, max_new_tokens=64, temperature=0.0, top_k=0,
                top_p=1.0, stop=None):
         """Yield one request's tokens as they are produced, stepping the
-        engine (other requests keep decoding in the same steps)."""
-        uid = self.submit(prompt, max_new_tokens, temperature, top_k, top_p,
-                          stop)
+        engine (other requests keep decoding in the same steps). Under a
+        mesh rank 0 streams and the other ranks ``follow``."""
+        uid = self.submit_shared(prompt=prompt, max_new_tokens=max_new_tokens,
+                                 temperature=temperature, top_k=top_k,
+                                 top_p=top_p, stop=stop)
         req = next(r for r in self._queue if r.uid == uid)
         emitted = 0
         while not req.done:
-            self.step()
+            self.lead("step")
             while emitted < len(req.generated):
                 yield req.generated[emitted]
                 emitted += 1

@@ -24,7 +24,11 @@ eager execution.
 
 The kernel wrappers count launches in Python, which a replay never runs:
 the counts a capture added are taken back (a capture launches nothing) and
-added again at every replay, which launches those kernels.
+added again at every replay, which launches those kernels. The
+collectives' counters (parallel/comm.py) are kept the same way: a chunk of
+a sharded engine on an NCCL group captures its collectives. On a gloo
+group, whose collectives a graph cannot hold, the engine makes its
+ChunkGraphs ``eager``: every chunk runs its function.
 """
 from __future__ import annotations
 
@@ -36,28 +40,32 @@ import torch
 from quip_tpu_torch.kernels import dequant_matmul as DM
 from quip_tpu_torch.kernels import flash_attn as FA
 from quip_tpu_torch.kernels import rht as K3
+from quip_tpu_torch.parallel import comm
 
 _COUNTERS = ((DM, "launches"), (DM, "launches_decode"),
              (DM, "launches_tile"), (FA, "launches"), (K3, "launches"))
 
 
-def _counts() -> List[int]:
-    return [getattr(mod, name) for mod, name in _COUNTERS]
+def _counts() -> List[float]:
+    return [getattr(mod, name) for mod, name in _COUNTERS] + comm.snapshot()
 
 
-def _add_counts(delta: List[int]) -> None:
+def _add_counts(delta: List[float]) -> None:
     for (mod, name), d in zip(_COUNTERS, delta):
         setattr(mod, name, getattr(mod, name) + d)
+    comm.add(delta[len(_COUNTERS):])
 
 
 class ChunkGraphs:
     """Graphs by key on ``device``, all in one memory pool, each drawing
     from ``generator``. ``capture_s`` and ``pool_bytes`` add up the time
     spent building graphs (eager run included) and the device memory the
-    pool holds."""
+    pool holds. ``eager`` runs every chunk's function (no graph)."""
 
-    def __init__(self, device: torch.device, generator: torch.Generator):
+    def __init__(self, device: torch.device, generator: torch.Generator,
+                 eager: bool = False):
         self.device = device
+        self.eager = eager
         self.generator = generator
         self._graphs: Dict[Hashable, Tuple[Any, Any, List[int]]] = {}
         self._pool = None
@@ -74,7 +82,7 @@ class ChunkGraphs:
     def run(self, key: Hashable, fn: Callable[[], Any]) -> Any:
         """``fn()`` on the CPU; on the card the replay of ``key``'s graph,
         built from ``fn`` at the key's first call."""
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.eager:
             return fn()
         entry = self._graphs.get(key)
         if entry is None:

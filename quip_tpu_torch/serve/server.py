@@ -4,7 +4,10 @@
 One worker thread owns the Engine (it is not thread-safe: every device
 call, graph replay included, runs on that thread); HTTP handlers submit
 requests through a queue and wait on per-request events. Stdlib only
-(http.server).
+(http.server). A sharded engine (``Engine(mesh=)``) serves from rank 0:
+its loop runs each operation through ``Engine.lead``, which broadcasts the
+newly admitted requests to the other ranks (``Engine.follow``), and a
+heartbeat while idle; ``shutdown`` releases them.
 
 API:
     GET  /health            -> {"status": "ok", "active": n, "queued": m}
@@ -55,6 +58,7 @@ class EngineLoop:
         self._stop.set()
         if self._started:
             self._thread.join(timeout=30)
+        self.engine.release_followers()
 
     def submit(self, stream: bool = False, **kw):
         """Thread-safe: enqueue a request; returns (uid_future_event,
@@ -85,7 +89,7 @@ class EngineLoop:
             except queue.Empty:
                 return
             try:
-                uid = self.engine.submit(**kw)
+                uid = self.engine.submit_shared(**kw)
             except (ValueError, TypeError) as e:      # bad request
                 holder["error"] = str(e)
                 if "stream" in holder:
@@ -109,13 +113,15 @@ class EngineLoop:
                     if self.chunked and self.overlap:
                         # overlapped double-buffered scheduling: the host
                         # read of chunk N runs while chunk N+1 executes
-                        self.engine.pump(self.max_chunk)
+                        self.engine.lead("pump", self.max_chunk)
                     elif self.chunked:
-                        self.engine.step_chunk(
-                            self.max_chunk
+                        self.engine.lead(
+                            "step_chunk", self.max_chunk
                             or self.engine._default_max_chunk())
                     else:
-                        self.engine.step()
+                        self.engine.lead("step")
+                else:
+                    self.engine.keepalive()
                 done = []
                 for uid, (_, r, h, sent) in self._events.items():
                     if "stream" in h:           # push newly emitted tokens

@@ -51,11 +51,21 @@ def test_bench_matches_quip_tpu(ckpt, capsys, mode):
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
                                    ["--tokens", "40"]])
 def test_bench_refusals(ckpt, capsys, flags):
-    """A mesh waits for ROADMAP queue 1 item 9; a run past the cache stops
-    as quip_tpu's does."""
-    with pytest.raises(SystemExit):
-        tbench.main(["llama-tiny", "--load", ckpt, "--device", "cpu",
-                     "--max_seq", "48", "--tokens", "8"] + flags)
-    err = capsys.readouterr().err
-    assert ("item 9" in err) if flags[0] != "--tokens" else (
-        "raise --max_seq" in err)
+    """A run past the cache stops as quip_tpu's does. The mesh flags run
+    sharded on two gloo ranks (this process rank 0, the only one that
+    prints) and match quip_tpu's sharded run on its virtual mesh: the same
+    keys and mesh, the continuation nll within NLL_TOL."""
+    args = ["llama-tiny", "--load", ckpt, "--max_seq", "48", "--tokens",
+            "8"] + flags
+    if flags[0] == "--tokens":
+        with pytest.raises(SystemExit):
+            tbench.main(args + ["--device", "cpu"])
+        assert "raise --max_seq" in capsys.readouterr().err
+        return
+    args += ["--batch", "2", "--check"]
+    jbench.main(args)
+    want = _last_json(capsys.readouterr().out)
+    got = tbench.main(args + ["--device", "cpu"])
+    assert _last_json(capsys.readouterr().out) == got
+    assert set(got) == set(want) and got["mesh"] == want["mesh"]
+    assert abs(got["continuation_nll"] - want["continuation_nll"]) <= NLL_TOL

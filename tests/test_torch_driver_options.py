@@ -204,5 +204,8 @@ def test_cli_resume_offload_trace(tmp_path):
     (second, _), out = _quiet(CLI.main, argv)
     assert out.count("(resumed)") == 2
     _assert_same_blocks(second, first)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CLI.main(argv + ["--dp", "2"])
+    # --dp 2 (two gloo ranks, this process rank 0) resumes every layer of
+    # the same directory, each rank deciding before either writes
+    (third, _), out = _quiet(CLI.main, argv + ["--dp", "2"])
+    assert out.count("(resumed)") == 2
+    _assert_same_blocks(third, first)

@@ -225,9 +225,26 @@ def test_serve_cli_no_paged_matches_quip_tpu(ckpt, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--dp", "2"],
-                                   ["--self_draft", "1", "--spec_draft", "x"]])
-def test_serve_cli_refuses_unported_flags(flags, capsys):
-    with pytest.raises(SystemExit):
-        tcli.main(["llama-tiny", "--device", "cpu"] + flags)
-    err = capsys.readouterr().err
-    assert "ROADMAP" in err or "mutually exclusive" in err
+                                   ["--self_draft", "1", "--spec_draft", "x"],
+                                   ["--tp", "2", "--no_paged"]])
+def test_serve_cli_refuses_unported_flags(flags, ckpt, capsys, monkeypatch):
+    """Conflicting flags stop with quip_tpu's errors (two drafts; a mesh
+    on the slot arena). --tp 2 / --dp 2 serve on two gloo ranks (this
+    process rank 0, the only one that prints) and print the completions
+    of quip_tpu's CLI with the same flags on its virtual mesh."""
+    monkeypatch.setenv("QUIP_TPU_HF_ONLINE", "0")
+    if "--self_draft" in flags or "--no_paged" in flags:
+        with pytest.raises(SystemExit):
+            tcli.main(["llama-tiny", "--device", "cpu"] + flags)
+        err = capsys.readouterr().err
+        assert "mutually exclusive" in err or "incompatible" in err
+        return
+    args = ["llama-tiny", "--load", ckpt, "--max_batch", "2", "--max_seq",
+            "64", "--max_new_tokens", "8", "--prompt", "Hi", "--prompt",
+            "quip", "--prompt", "a longer prompt"] + flags
+    jcli.main(args + ["--no_chunked", "--no_compile_cache"])
+    want = _completions(capsys.readouterr().out)
+    reqs = tcli.main(args + ["--device", "cpu"])
+    got = _completions(capsys.readouterr().out)
+    assert got == want and len(got) == 3
+    assert [len(r.generated) for r in reqs] == [9] * 3
