@@ -147,6 +147,19 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      host-staged bytes against ``pipeline_comm_bytes``; 17e
      ``cli/quantize.main --dp 2`` (2 layers, 8 windows of 2048 tokens)
      against ``--dp 1``: Hessians, codes, seconds a layer.
+ 18. (after phase 15, on phase 9's checkpoint; HOST_BUDGET_S) the host
+     packer and the tools CLI's transcode and counter: 18a one full-width
+     Llama-2-7B layer's four fused linears and its 32000-row head as 2-bit
+     codes, then the four at 3 bits, packed on the host by the host packer
+     (``pack/native.py``, g++) and by the plain torch ops, planes equal bit
+     for bit, unpacked both ways, the 3-bit planes widened to 4-bit
+     fields, seconds and threads; 18b ``cli/tools.main(["transcode",
+     ...])`` on the card (seconds, bytes written, the linears float32 and
+     every other leaf as stored), the dense checkpoint as an f32 model
+     against the packed one (K1, K2) on phase 7's four prompts within
+     TRANSCODE_TOL of max |logit|, the output deleted; 18c
+     ``cli/tools.main(["counter"])`` at its default sizes on the card
+     against the port's float64 CPU rows within COUNTER_TOL.
 
 Every phase asserts; any failure exits nonzero. The line before the last
 is the kernels' JSON record, the last line ``{"ok": true, "device": ...}``.
@@ -1864,6 +1877,246 @@ def phase_bench(name: str, smi: str, ckpt: str):
     res["phase_s"] = time.time() - t_phase
     log(f"phase 15: {res['phase_s']:.1f} s; card: {smi}")
     RESULTS["bench_cli"] = res
+    return res
+
+
+# Phase 18: the host packer, transcode and counter. Its stated budget:
+HOST_BUDGET_S = 60.0
+# 18b: the dense f32 checkpoint against the packed bf16 model through K1,
+# over each prompt's max |logit| (phase 11's bf16 limit, SPEC_TOL[False])
+TRANSCODE_TOL = 5e-2
+# 18c: the card's float32 rows against the port's float64 CPU rows
+COUNTER_TOL = 1e-4
+
+
+def _plain_pack(codes: torch.Tensor, bits: int):
+    """pack_codes as the torch ops compute it (its path for CUDA codes, and
+    for CPU codes before the host packer): int64 codes, one
+    ``_pack_plane`` a PLANE_SPLITS entry."""
+    from quip_tpu_torch.pack.format import PLANE_SPLITS, _pack_plane
+    codes, shift, planes = codes.to(torch.int64), 0, []
+    for fb, _ in PLANE_SPLITS[bits]:
+        planes.append(_pack_plane((codes >> shift) & (2 ** fb - 1), fb))
+        shift += fb
+    return tuple(planes)
+
+
+def _plain_unpack(planes, bits: int, d: int) -> torch.Tensor:
+    from quip_tpu_torch.pack.format import PLANE_SPLITS, _unpack_plane
+    out, shift = None, 0
+    for p, (fb, _) in zip(planes, PLANE_SPLITS[bits]):
+        part = _unpack_plane(p, fb, d) << shift
+        out = part if out is None else out | part
+        shift += fb
+    return out
+
+
+def _host_pack(name: str) -> dict:
+    """18a: one full-width Llama-2-7B layer's four fused linears and the
+    32000-row head (out-features padded as pack_layer_result pads them),
+    2-bit codes from a seeded CPU generator, packed by the host packer
+    (``pack_codes`` of CPU int32 codes, the host-offload path) and by the
+    plain torch ops, planes equal word for word, unpacked both ways; then
+    the four linears at 3 bits, packed both ways and widened to 4-bit
+    fields (``widen_3bit``, host packer) against the plain repack."""
+    from quip_tpu_torch.pack import native
+    from quip_tpu_torch.pack.format import (PackedLinear, pack_codes,
+                                            unpack_codes, widen_3bit)
+
+    g = torch.Generator().manual_seed(18)
+    out = dict(threads=native.threads(), cpu_count=os.cpu_count(),
+               torch_threads=torch.get_num_threads())
+
+    def timed(fn, *a):
+        t = time.perf_counter()
+        r = fn(*a)
+        return r, time.perf_counter() - t
+
+    def both(codes, bits):
+        d = codes.shape[1]
+        planes, ts = timed(pack_codes, codes, bits)
+        plain, tp = timed(_plain_pack, codes, bits)
+        assert len(planes) == len(plain)
+        assert all(torch.equal(a, b) for a, b in zip(planes, plain)), bits
+        back, tu = timed(unpack_codes, planes, bits, d)
+        pback, tpu = timed(_plain_unpack, plain, bits, d)
+        assert torch.equal(back, codes) and torch.equal(
+            pback.to(torch.int32), codes), bits
+        return planes, dict(native_s=ts, plain_s=tp, unpack_native_s=tu,
+                            unpack_plain_s=tpu)
+
+    pack_codes(torch.zeros((64, 64), dtype=torch.int32), 2)  # the g++ build
+    for bits, names in ((2, ("wqkv", "wo", "wgu", "wd", "lm_head")),
+                        (3, ("wqkv", "wo", "wgu", "wd"))):
+        tot = dict(native_s=0.0, plain_s=0.0, unpack_native_s=0.0,
+                   unpack_plain_s=0.0, widen_native_s=0.0,
+                   widen_plain_s=0.0, codes=0)
+        for nm in names:
+            m, d = LLAMA_SHAPES[nm]
+            codes = torch.randint(0, 2 ** bits, (m, d), generator=g,
+                                  dtype=torch.int32)
+            planes, t = both(codes, bits)
+            for k, v in t.items():
+                tot[k] += v
+            tot["codes"] += m * d
+            if bits == 3:
+                q = PackedLinear(planes, scale_b=torch.tensor(0.02), bits=3,
+                                 qfn="b", proj_mode="rht", out_features=m,
+                                 in_features=d)
+                w, tw = timed(widen_3bit, q)
+                want, twp = timed(lambda: _plain_pack(
+                    _plain_unpack(q.planes, 3, d), 4))
+                assert w.code_bits == 3 and len(w.planes) == 1
+                assert torch.equal(w.planes[0], want[0]), nm
+                tot["widen_native_s"] += tw
+                tot["widen_plain_s"] += twp
+            del codes, planes
+        key = "layer_and_head_2bit" if bits == 2 else "layer_3bit"
+        out[key] = tot
+        log(f"18a host packing, {key} ({tot['codes'] / 1e6:.0f} M codes, "
+            f"{out['threads']} packer threads of {out['cpu_count']} CPUs): "
+            f"host packer {tot['native_s']:.4f} s, plain torch ops "
+            f"{tot['plain_s']:.4f} s ({tot['plain_s'] / tot['native_s']:.1f}"
+            f"x); unpack {tot['unpack_native_s']:.4f} / "
+            f"{tot['unpack_plain_s']:.4f} s; planes equal bit for bit"
+            + (f"; widening to 4-bit fields {tot['widen_native_s']:.4f} / "
+               f"{tot['widen_plain_s']:.4f} s" if bits == 3 else ""))
+    return out
+
+
+def _transcode(name: str, ckpt: str) -> dict:
+    """18b: ``cli/tools.main(["transcode", ...])`` on phase 9's checkpoint,
+    dequantized on the card; leaf dtypes (the linears float32, every other
+    leaf as stored); the dense checkpoint loaded as a dense f32 model on
+    the card against the packed checkpoint's model (bf16, K1 and K2) on
+    phase 7's four prompts, teacher-forced; the output deleted."""
+    from quip_tpu_torch.cli import tools as TT
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models import model as M
+    from quip_tpu_torch.pack.model import PackedLeaf, load_checkpoint
+    from quip_tpu_torch.tools.teacher_forced import serving_prompts
+
+    dst = tempfile.mkdtemp(prefix="quip_dense_")
+    try:
+        t = time.time()
+        (dense, meta), _ = _quiet_call(TT.main, ["transcode", "--load", ckpt,
+                                                 "--save", dst])
+        transcode_s = time.time() - t
+        nbytes = sum(os.path.getsize(os.path.join(dst, f))
+                     for f in os.listdir(dst))
+        packed_tree, _ = load_checkpoint(ckpt)
+        back, bmeta = load_checkpoint(dst)
+        assert bmeta == meta and meta["packed"] is False, meta
+        n_lin = n_other = 0
+
+        def walk(p, dn, bk, path):
+            nonlocal n_lin, n_other
+            if isinstance(p, PackedLeaf):
+                lead = p.planes[0].shape[:-2]
+                want = (*lead, p.in_features, p.out_features)
+                assert dn.dtype == bk.dtype == torch.float32, path
+                assert tuple(bk.shape) == want, (path, bk.shape, want)
+                n_lin += 1
+            elif isinstance(p, dict):
+                assert sorted(p) == sorted(dn) == sorted(bk), path
+                for k in p:
+                    walk(p[k], dn[k], bk[k], f"{path}/{k}")
+            elif p is not None:
+                assert bk.dtype == p.dtype and torch.equal(bk, p), path
+                n_other += 1
+        walk(packed_tree, dense, back, "")
+        assert n_lin == 5, n_lin
+        del dense
+        cfg = dataclasses.replace(get_config("llama-2-7b"),
+                                  n_layers=QUANT_LAYERS)
+        packed = params_from_numpy(packed_tree, cfg, device="cuda")
+        ref = params_from_numpy(back, cfg, device="cuda",
+                                dtype=torch.float32)
+        del packed_tree, back
+        prompts = serving_prompts(cfg.vocab_size)
+        gaps = {}
+        _zero_counts()
+        with torch.inference_mode():
+            lg_packed = {n: M.forward(packed, torch.tensor(
+                prompts[n], device="cuda")[None], cfg)[0].float()
+                for n in (600, 128, 37, 5)}
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            with _env("QUIP_FLASH_PREFILL", "0"):
+                for n, lp in lg_packed.items():
+                    lr = M.forward(ref, torch.tensor(
+                        prompts[n], device="cuda")[None], cfg)[0]
+                    assert torch.isfinite(lp).all() and lp.shape == lr.shape
+                    gaps[n] = ((lp - lr).abs().max()
+                               / lr.abs().max()).item()
+        L = cfg.n_layers
+        # 4L + 1 packed linears a forward: the 600/128/37-token prompts on
+        # K1-tile, the 5-token one on K1-decode; K2 for the 600 prompt
+        assert counts == dict(k1_tile=3 * (4 * L + 1), k1_decode=4 * L + 1,
+                              k2=L, k3=0, k1p=0), counts
+        worst = max(gaps.values())
+        assert worst <= TRANSCODE_TOL, gaps
+        del packed, ref, lg_packed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(dst, ignore_errors=True)
+    res = dict(transcode_s=transcode_s, bytes_written=nbytes,
+               linears=n_lin, other_leaves=n_other, gaps=gaps,
+               worst_gap=worst, counts=counts)
+    log(f"18b transcode of phase 9's {QUANT_LAYERS}-layer checkpoint on "
+        f"the card: {transcode_s:.2f} s, {nbytes / 1e9:.3f} GB written "
+        f"({n_lin} linears float32, {n_other} other leaves as stored); "
+        f"dense f32 against packed logits on prompts 600/128/37/5: worst "
+        f"{worst:.2e} of max |logit| <= {TRANSCODE_TOL:.0e} "
+        + " ".join(f"{n}:{v:.2e}" for n, v in gaps.items())
+        + f"; packed forward launches K1-tile {counts['k1_tile']}, "
+        f"K1-decode {counts['k1_decode']}, K2 {counts['k2']}")
+    return res
+
+
+def _counter(name: str) -> dict:
+    """18c: ``cli/tools.main(["counter"])`` at its default sizes on the card
+    (float32), each row held to the port's float64 CPU run of the same
+    function."""
+    from quip_tpu_torch import analysis
+    from quip_tpu_torch.cli import tools as TT
+
+    t = time.time()
+    rows, _ = _quiet_call(TT.main, ["counter"])
+    card_s = time.time() - t
+    t = time.time()
+    worst = 0.0
+    for r in rows:
+        ref = analysis.counter_rows(r["n"], torch.float64, "cpu")
+        for k, v in ref.items():
+            rel = abs(r[k] / v - 1)
+            worst = max(worst, rel)
+            assert rel <= COUNTER_TOL, (r["n"], k, r[k], v)
+        assert r["ldlq"] < r["nearest"] / 2, r
+    cpu_s = time.time() - t
+    for r in rows:
+        log("18c counter " + json.dumps(r))
+    log(f"18c counter on the card: {card_s:.2f} s for n = "
+        f"{','.join(str(r['n']) for r in rows)}; each row within "
+        f"{worst:.1e} of the float64 CPU run (<= {COUNTER_TOL:.0e}, "
+        f"{cpu_s:.2f} s)")
+    return dict(rows=rows, card_s=card_s, cpu_f64_s=cpu_s, worst_rel=worst)
+
+
+def phase_host(name: str, smi: str, ckpt: str) -> dict:
+    """Phase 18 (after phase 15, on phase 9's checkpoint): the host packer
+    against the plain torch ops at full width (18a), ``tools transcode``
+    on the card and the dense model against the packed one (18b),
+    ``tools counter`` on the card against float64 on the CPU (18c)."""
+    t_phase = time.time()
+    res = dict(pack=_host_pack(name), transcode=_transcode(name, ckpt),
+               counter=_counter(name))
+    res["phase_s"] = time.time() - t_phase
+    log(f"phase 18: {res['phase_s']:.1f} s (budget {HOST_BUDGET_S:.0f} s"
+        + (", OVER" if res["phase_s"] > HOST_BUDGET_S else "")
+        + f"); card: {smi}")
+    RESULTS["host"] = res
     return res
 
 
@@ -3946,13 +4199,15 @@ def main():
         phase_3bit(name, smi)
     ckpt = tempfile.mkdtemp(prefix="quip_ckpt_")
     try:
-        # phases 9, 10 and 15 on QUANT_LAYERS of Llama-2-7B's 32 layers
+        # phases 9, 10, 15 and 18 on QUANT_LAYERS of Llama-2-7B's 32 layers
         with _cut_depth(QUANT_LAYERS):
             quant = phase_quantize(name, smi, ckpt)
             with watchdog(600, "the evaluation phase"):
                 ev = phase_eval(name, smi, ckpt)
             with watchdog(400, "the bench CLI phase"):
                 phase_bench(name, smi, ckpt)
+            with watchdog(HOST_BUDGET_S + 240, "the host phase"):
+                host = phase_host(name, smi, ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     with watchdog(BF_BUDGET_S + 100, "the butterfly phase"):
@@ -3980,6 +4235,9 @@ def main():
     # launches_arena from phase 13's serial run on the slot arena
     # (un-fused, bf16; K3's fused, int8), read, K2's 0 included; K1's
     # *_w3_* / *_3bit_* from phase 2's 3-bit layouts (widened, two planes)
+    # launches_transcode_check: phase 18b's packed forward of phase 7's
+    # four prompts on phase 9's checkpoint (K1 and K2 of this slice's path)
+    tc = host["transcode"]["counts"]
     spec_u, spec_f = spec["unfused_self4"], spec["fused_int8_prefix_self4"]
     ar_u, ar_f = arena["serial"], arena["fused_int8"]
     opt, bloom = fam["opt"]["serial"], fam["bloom"]["serial"]
@@ -4001,6 +4259,7 @@ def main():
              launches_butterfly=bf_ar["k1_decode"] + bf_pg["k1_decode"],
              launches_tp2=by_rank(p_tp2, "k1_decode"),
              launches_dp2tp2=by_rank(p_dp2, "k1_decode"),
+             launches_transcode_check=tc["k1_decode"],
              **par["shards"]["k1_decode"],
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
@@ -4031,6 +4290,7 @@ def main():
              launches_tp2=by_rank(p_tp2, "k1_tile"),
              launches_dp2tp2=by_rank(p_dp2, "k1_tile"),
              launches_pp2=by_rank(par["pp2_m4"], "k1_tile"),
+             launches_transcode_check=tc["k1_tile"],
              **par["shards"]["k1_tile"],
              max_abs_err=k1t["max_abs_err"],
              ms=k1t["ms"], plain_ms=k1t["plain_ms"],
@@ -4063,6 +4323,7 @@ def main():
              launches_tp2=by_rank(p_tp2, "k2"),
              launches_dp2tp2=by_rank(p_dp2, "k2"),
              launches_pp2=[r["k2"] for r in par["pp2_m4"]],
+             launches_transcode_check=tc["k2"],
              max_abs_err=k2_err,
              ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=k2["library_ms"],

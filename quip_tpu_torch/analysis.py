@@ -8,6 +8,9 @@ reference scripts, SURVEY.md §2.4):
   * Hessian summary    — compute_Hsummary.py:18-31 (tr(D)/tr(H), rank at
                          rtol {0, 0.01}, incoherence μ)
   * OPTQ ≡ LDLQ check  — optq_ldlq_equiv.py
+  * the counterexample — optq_counter.py:7-43 (quip_tpu's ``tools
+                         counter``: the rounders' proxy losses on an
+                         adversarial H)
 
 Precision: quip_tpu summarises in float64 where JAX has x64 on (its CPU
 runs) and float32 otherwise; the port uses float64 on the CPU and float32
@@ -159,3 +162,26 @@ def optq_ldlq_equivalence_check(m: int = 256, d: int = 256, bits: int = 4,
         "proxy_ldlq": float(ldlq.hessian_loss(q_ldl - Wt, Ht)),
         "proxy_nearest": float(ldlq.hessian_loss(q_near - Wt, Ht)),
     }
+
+
+def counter_rows(n: int, dtype=torch.float32, device="cuda"
+                 ) -> Dict[str, float]:
+    """The finite-grid counterexample at size ``n`` (quip_tpu's ``tools
+    counter``; optq_counter.py:7-43): four rows of W = 0.499 on a 1-bit
+    grid against H = I with 0.499 coupling each pair of columns (plus
+    1e-3·I), and the proxy loss tr(ΔW H ΔWᵀ) of LDLQ, LDLQ-RG (no greedy
+    passes), allbal (2 passes) and rounding to nearest. quip_tpu's CLI
+    computes in float32 (no x64), its tests in float64."""
+    from quip_tpu_torch import resolve_device
+    from quip_tpu_torch.core import ldlq
+    dev = resolve_device(device)
+    H = np.eye(n)
+    for i in range(0, n - 1, 2):
+        H[i, i + 1] = H[i + 1, i] = 0.499
+    W = torch.full((4, n), 0.499, dtype=dtype, device=dev)
+    H = torch.from_numpy(H + 1e-3 * np.eye(n)).to(device=dev, dtype=dtype)
+    loss = lambda Q: float(ldlq.hessian_loss(Q - W, H))  # noqa: E731
+    return {"ldlq": loss(ldlq.round_ldl(W, H, 1, 0)),
+            "ldlqRG": loss(ldlq.round_ldlqRG(W, H, 1, 0)),
+            "allbal(2)": loss(ldlq.round_allbal_sorted(W, H, 1, 2)),
+            "nearest": loss(ldlq.round_nearest(W, 1))}

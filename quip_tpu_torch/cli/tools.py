@@ -1,7 +1,8 @@
 """Analysis tools CLI (port of ``quip_tpu/cli/tools.py``; reference
-opt_saveH.py, opt_proxy.py, compute_Hsummary.py, optq_ldlq_equiv.py):
-quip_tpu's save-hessians, proxy, hsummary and equiv-check subcommands,
-with its flags and outputs plus ``--device``:
+opt_saveH.py, opt_proxy.py, compute_Hsummary.py, optq_ldlq_equiv.py,
+optq_counter.py and load_quant): quip_tpu's save-hessians, proxy,
+hsummary, equiv-check, transcode and counter subcommands, with its flags
+and outputs plus ``--device``:
 
   python -m quip_tpu_torch.cli.tools save-hessians llama-tiny synthetic \\
       --out H.npz --device cpu
@@ -9,6 +10,9 @@ with its flags and outputs plus ``--device``:
       --wbits 2 --quant ldlq --incoh_processing --device cpu
   python -m quip_tpu_torch.cli.tools hsummary --hessians H.npz
   python -m quip_tpu_torch.cli.tools equiv-check
+  python -m quip_tpu_torch.cli.tools transcode --load CKPT --save DENSE \\
+      --device cpu
+  python -m quip_tpu_torch.cli.tools counter --sizes 64,256 --device cpu
 """
 from __future__ import annotations
 
@@ -64,6 +68,24 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--wbits", type=int, default=4)
     pe.add_argument("--seed", type=int, default=0)
     pe.add_argument("--device", type=str, default="cuda",
+                    help="torch device (default cuda; tests pass cpu)")
+
+    pt = sub.add_parser("transcode",
+                        help="packed checkpoint -> dense checkpoint "
+                             "(load_quant parity: rebuild dense weights "
+                             "from codes + scales + rotations)")
+    pt.add_argument("--load", required=True)
+    pt.add_argument("--save", required=True)
+    pt.add_argument("--device", type=str, default="cuda",
+                    help="torch device the linears are dequantized on "
+                         "(default cuda; tests pass cpu)")
+
+    pc = sub.add_parser("counter",
+                        help="finite-grid counterexample: rounder proxy "
+                             "losses on adversarial (W, H) "
+                             "(optq_counter.py:7-43)")
+    pc.add_argument("--sizes", type=str, default="256,512,1024,2048,4096")
+    pc.add_argument("--device", type=str, default="cuda",
                     help="torch device (default cuda; tests pass cpu)")
 
     return p
@@ -136,6 +158,20 @@ def main(argv=None):
         assert out["frac_agree_1e6"] > 0.99, "LDLQ != OPTQ!"
         print("EQUIVALENCE OK")
         return out
+
+    if args.cmd == "transcode":
+        from quip_tpu_torch.pack.model import transcode
+        out = transcode(args.load, args.save, args.device)
+        print(f"transcoded {args.load} -> dense at {args.save}")
+        return out
+
+    if args.cmd == "counter":
+        rows = []
+        for n in (int(s) for s in args.sizes.split(",")):
+            rows.append({"n": n, **analysis.counter_rows(
+                n, torch.float32, args.device)})
+            print(json.dumps(rows[-1]))
+        return rows
 
     return None
 

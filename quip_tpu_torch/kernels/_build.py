@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+"""Build the port's native code and load it with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
 ``_build/lib<name>-<hash>.so`` (the hash is the source's, so an edited
@@ -12,6 +12,18 @@ package:
 
 (``-Xptxas -v`` keeps each kernel's registers, shared memory and spills in
 ``_build/lib<name>-<hash>.log``.)
+
+The host packer ``pack/csrc/packlib.cpp`` (name ``packlib``) is C++ for
+the CPU and goes through g++ instead, into the same directory:
+
+    g++ -O3 -march=native -fPIC -std=c++17 -Wall -shared \
+        -o _build/libpacklib-<hash>.so packlib.cpp -lpthread
+
+Its hash also covers the host's CPU model, since ``-march=native`` builds
+for the CPU it runs on. Every build writes a file of its own process and
+renames it into place, so processes that build at once (test workers)
+never load a half-written library. A missing compiler or a failed build
+raises, naming the compiler and the log.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -29,6 +42,10 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _OUT = Path(__file__).resolve().parent / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# host (CPU) sources by name, built by g++ (native/Makefile's flags)
+_HOST = {"packlib": _CSRC.parent.parent / "pack" / "csrc" / "packlib.cpp"}
+_GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
+              "-shared"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -41,37 +58,73 @@ def nvcc() -> str:
     return path
 
 
+def gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found on PATH (the host packer "
+                           "pack/csrc/packlib.cpp needs it)")
+    return path
+
+
+def _source(name: str) -> Path:
+    return _HOST.get(name) or _CSRC / f"{name}.cu"
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name (``-march=native`` builds for it)."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return platform.processor()
+
+
 def _target(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return _OUT / f"lib{name}-{digest}.so"
+    src = _source(name)
+    h = hashlib.sha256(src.read_bytes())
+    if name in _HOST:
+        h.update(f"{_GXX_FLAGS} {platform.machine()} {_cpu_model()}"
+                 .encode())
+    return _OUT / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _command(name: str, tmp: Path) -> list:
+    src = str(_source(name))
+    if name in _HOST:
+        return [gxx(), *_GXX_FLAGS, "-o", str(tmp), src, "-lpthread"]
+    return [nvcc(), *_FLAGS, "-o", str(tmp), src]
 
 
 def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists. Returns
-    (target, process or None)."""
+    """Start the compiler for ``name`` unless its library exists. Returns
+    (target, (process, temporary library, log) or None)."""
     out = _target(name)
     if out.exists():
         return out, None
     _OUT.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log = open(out.with_suffix(".log"), "w")
-    try:
-        proc = subprocess.Popen(
-            [nvcc(), *_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT)
-    finally:
-        log.close()
-    return out, (proc, tmp)
+    log = out.with_suffix(f".{os.getpid()}.log")
+    cmd = _command(name, tmp)
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+    return out, (proc, tmp, log)
 
 
 def _finish(name: str, out: Path, job) -> None:
     if job is None:
         return
-    proc, tmp = job
-    if proc.wait() != 0:
-        log = out.with_suffix(".log").read_text()
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    proc, tmp, log = job
+    rc = proc.wait()
+    os.replace(log, out.with_suffix(".log"))
+    if rc != 0:
+        compiler = "g++" if name in _HOST else "nvcc"
+        raise RuntimeError(
+            f"{compiler} failed for {_source(name).name} (log: "
+            f"{out.with_suffix('.log')}):\n"
+            f"{out.with_suffix('.log').read_text()}")
     os.replace(tmp, out)
 
 
@@ -88,7 +141,8 @@ def build_all(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu`` (or the host source
+    ``name`` of ``_HOST``), built on first use."""
     lib = _libs.get(name)
     if lib is not None:
         return lib

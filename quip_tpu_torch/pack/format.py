@@ -7,6 +7,11 @@ k in 0..(16/bits)-1, for fan-in column ``c = k * (2 * nwords) + 2 * j + h``.
 Every plane holds 1, 2 or 4-bit fields; wider widths compose planes
 (PLANE_SPLITS). ``quip_tpu/pack/format.py`` is the reference: the tests
 hold these planes equal to its planes word for word.
+
+Codes on the CPU pack and unpack through the host packer
+(``pack/native.py``, C++ built by g++ at first use), codes on the card
+through the torch ops ``_pack_plane`` / ``_unpack_plane``, which are also
+the plain version the tests hold the host packer against.
 """
 from __future__ import annotations
 
@@ -97,9 +102,13 @@ def padded_m(m: int, d: int, bits: int) -> int:
 
 def pack_codes(codes: torch.Tensor, bits: int) -> Tuple[torch.Tensor, ...]:
     """Integer grid codes (m, d) -> one (nw, m) int32 plane per
-    PLANE_SPLITS entry."""
+    PLANE_SPLITS entry, on the codes' device (the host packer for CPU
+    codes)."""
     if bits not in PLANE_SPLITS:
         raise ValueError(f"unsupported bit width {bits}")
+    if codes.device.type == "cpu":
+        from quip_tpu_torch.pack import native
+        return native.pack(codes, bits)
     planes = []
     shift = 0
     codes = codes.to(torch.int64)
@@ -111,8 +120,12 @@ def pack_codes(codes: torch.Tensor, bits: int) -> Tuple[torch.Tensor, ...]:
 
 
 def unpack_codes(planes, bits: int, d: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes` -> (m, d) int32 codes."""
     if bits not in PLANE_SPLITS:
         raise ValueError(f"unsupported bit width {bits}")
+    if planes[0].device.type == "cpu":
+        from quip_tpu_torch.pack import native
+        return native.unpack(planes, bits, d)
     out = None
     shift = 0
     for plane, (field_bits, _) in zip(planes, PLANE_SPLITS[bits]):
@@ -209,18 +222,37 @@ class PackedLinear(nn.Module):
         from quip_tpu_torch.ops.qlinear import qlinear_apply
         return qlinear_apply(self, x)
 
+    def _host_grid(self, dtype) -> bool:
+        """Whether ``dequantize`` takes the host packer's grid step
+        (``native.dequant_table``): single-plane (2- or 4-bit, widened
+        3-bit codes too) qfn-b planes on the CPU, dequantized to
+        float32."""
+        return (self.qfn == "b" and self.nplanes == 1
+                and dtype == torch.float32
+                and self.plane0.device.type == "cpu")
+
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         """The dense Ŵ (m, d) in the original space (quip_tpu's
         ``PackedLinear.dequantize``): codes -> grid values -> Uᵀ · V -> the
         diagonal un-scale. Sign-folded modes carry no sign slot where the
         signs live in the codes, so one un-rotation covers all three."""
-        codes = unpack_codes(self.planes, self.bits, self.in_features)
-        codes = codes[: self.out_features].to(dtype)
-        if self.qfn == "b":
-            W = ((codes / self.maxq) * 2 - 1) * self.scale_b.to(dtype)
+        if self._host_grid(dtype):
+            # the host packer's one pass through the 2**bits grid values,
+            # each made by the expression below: the same bits
+            from quip_tpu_torch.pack import native
+            grid = torch.arange(2 ** self.bits, dtype=dtype)
+            grid = ((grid / self.maxq) * 2 - 1) * self.scale_b.to(dtype)
+            W = native.dequant_table(self.planes, self.bits,
+                                     self.in_features,
+                                     grid)[: self.out_features]
         else:
-            W = self.scale.to(dtype)[:, None] * (
-                codes - self.zero.to(dtype)[:, None])
+            codes = unpack_codes(self.planes, self.bits, self.in_features)
+            codes = codes[: self.out_features].to(dtype)
+            if self.qfn == "b":
+                W = ((codes / self.maxq) * 2 - 1) * self.scale_b.to(dtype)
+            else:
+                W = self.scale.to(dtype)[:, None] * (
+                    codes - self.zero.to(dtype)[:, None])
         if self.butterfly:
             W = inc.unrotate_weight(*rot_to_butterflies(self), W)
         elif self.has_rot:

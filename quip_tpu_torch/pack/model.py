@@ -17,6 +17,10 @@ rotation (the RNG decision in core/incoherence.py). quip_tpu reads a
 non-None ``proj_key`` as "this layer is rotated", so the port writes two
 zero words there for every rotated layer; they are not a key, and
 quip_tpu never regenerates from them while ``rot`` is present.
+
+``transcode`` (the tools CLI's) writes a packed checkpoint dense as
+quip_tpu's ``tools transcode`` does: the linears as float32 (in, out)
+weights, every other leaf as stored.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from quip_tpu_torch import resolve_device
+from quip_tpu_torch.convert import packed_from_numpy
 from quip_tpu_torch.models import model as M
 from quip_tpu_torch.models.config import ModelConfig
 from quip_tpu_torch.pack.format import (PACK_FORMAT_VERSION, PackedLinear,
@@ -257,9 +263,17 @@ def save_checkpoint(path: str, params: M.Model,
                     meta: Optional[Dict[str, Any]] = None) -> None:
     """Write a (possibly packed) Model as a quip_tpu checkpoint:
     ``path/arrays.npz`` + ``path/tree.json``."""
+    save_tree(path, model_tree(params), meta)
+
+
+def save_tree(path: str, tree: Dict[str, Any],
+              meta: Optional[Dict[str, Any]] = None) -> None:
+    """Write quip_tpu's param tree (dicts, tuples, ``PackedLeaf`` nodes;
+    tensor or numpy leaves, as ``load_checkpoint`` reads them) as a
+    checkpoint either package reads."""
     os.makedirs(path, exist_ok=True)
     leaves: list = []
-    spec = {"treedef": _to_json(model_tree(params), leaves)}
+    spec = {"treedef": _to_json(tree, leaves)}
     arrays, exotic = {}, {}
     for i, t in enumerate(leaves):
         a, name = _leaf_to_np(t)
@@ -312,3 +326,49 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
                                        exotic.get(str(i))))
     return _from_json(spec["treedef"], iter(leaves)), spec["meta"]
 
+
+# ---------------------------------------------------------------------------
+# Transcoding (packed checkpoint -> dense checkpoint)
+# ---------------------------------------------------------------------------
+
+
+def unpack_tree(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """quip_tpu's ``unpack_model`` on a ``load_checkpoint`` tree: each
+    ``PackedLeaf`` becomes its dequantized (in, out) float32 weight on the
+    CPU, a layer-stacked one (L, in, out), dequantized a layer at a time on
+    ``device``; every other leaf stays as stored (a bf16 embedding stays
+    bf16). Unlike :func:`unpack_model` nothing is cast, so the tree is
+    quip_tpu's leaf for leaf."""
+    dev = resolve_device(device)
+
+    def dense(leaf: PackedLeaf, layer: Optional[int]) -> torch.Tensor:
+        q = packed_from_numpy(leaf, layer, dev)
+        return q.dequantize(torch.float32).t().contiguous()
+
+    def walk(node):
+        if isinstance(node, PackedLeaf):
+            if node.planes[0].ndim == 2:
+                return dense(node, None).cpu()
+            out = torch.empty((node.planes[0].shape[0], node.in_features,
+                               node.out_features), dtype=torch.float32)
+            for li in range(out.shape[0]):
+                out[li].copy_(dense(node, li))
+            return out
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return node
+
+    return walk(tree)
+
+
+def transcode(src: str, dst: str, device="cuda"
+              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The packed checkpoint at ``src`` written dense at ``dst`` (quip_tpu's
+    ``tools transcode``; the reference's load_quant direction): the linears
+    dequantized on ``device`` (:func:`unpack_tree`), the meta marked
+    ``packed: False`` and ``transcoded_from: src``. Returns (tree, meta)."""
+    tree, meta = load_checkpoint(src)
+    dense = unpack_tree(tree, device)
+    meta = dict(meta, packed=False, transcoded_from=src)
+    save_tree(dst, dense, meta)
+    return dense, meta

@@ -3,8 +3,12 @@ utils/profiling.py, against quip_tpu on the same inputs: Hessian npz IO
 (the same keys), the Hessian summary at float64 (1e-9), the eigenspectrum
 CSV (numpy on both sides: equal text), the proxy evaluation with
 quip_tpu's rotations replayed (1e-9 relative), the OPTQ == LDLQ check
-(1e-9), and the CLI's save-hessians / proxy / hsummary / equiv-check on
-llama-tiny."""
+(1e-9), the CLI's save-hessians / proxy / hsummary / equiv-check on
+llama-tiny, ``transcode`` of a packed llama-tiny checkpoint written by
+quip_tpu ('rht' and butterfly 'block' at 2 bits, 'rht' at 3 bits; the same
+leaves, dtypes and meta, linears within 1e-5 relative, each package
+reading the other's output) and ``counter``'s rows at n = 64 in float64
+(1e-7 relative)."""
 import contextlib
 import dataclasses
 import glob
@@ -28,7 +32,10 @@ from quip_tpu.quantize.config import QuantConfig as JQC
 from quip_tpu_torch import analysis as TAn
 from quip_tpu_torch.cli import tools as TT
 from quip_tpu_torch.convert import params_from_numpy
+from quip_tpu.pack import model as JPM
 from quip_tpu_torch.models import get_config
+from quip_tpu_torch.models.build import packed_model
+from quip_tpu_torch.pack import model as TPM
 from quip_tpu_torch.utils import profiling as TPf
 from tests.conftest import make_psd_hessian
 from tests.test_torch_quant_core import t_cfg
@@ -135,6 +142,85 @@ def test_tools_cli(tmp_path):
     res, out = _run(TT.main, ["equiv-check", "--m", "16", "--d", "32",
                               "--device", "cpu"])
     assert "EQUIVALENCE OK" in out
+
+
+def _read_ckpt(path):
+    """A checkpoint's tree.json and its arrays, as stored."""
+    with open(os.path.join(path, "tree.json")) as f:
+        spec = json.load(f)
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        return spec, {k: data[k] for k in data.files}
+
+
+@pytest.mark.parametrize("mode,bits", [("rht", 2), ("block", 2),
+                                       ("rht", 3)])
+def test_transcode_matches(mode, bits, tmp_path):
+    """quip_tpu writes a packed llama-tiny (bf16 embedding and norms,
+    packed head); the port's transcode of it holds quip_tpu's leaf for
+    leaf, and each package loads the other's dense checkpoint."""
+    tcfg = get_config("llama-tiny")
+    tparams = packed_model(tcfg, bits=bits, seed=5, dtype=torch.bfloat16,
+                           head_bits=bits, device="cpu", proj=mode)
+    port_dir, packed = str(tmp_path / "port"), str(tmp_path / "packed")
+    TPM.save_checkpoint(port_dir, tparams, {"model": "llama-tiny",
+                                            "wbits": bits, "packed": True})
+    JPM.save_checkpoint(packed, *JPM.load_checkpoint(port_dir))
+    jdir, tdir = str(tmp_path / "jdense"), str(tmp_path / "tdense")
+    _run(JT.main, ["transcode", "--load", packed, "--save", jdir])
+    tree, meta = TPM.transcode(packed, tdir, device="cpu")
+    assert meta == {"model": "llama-tiny", "wbits": bits, "packed": False,
+                    "transcoded_from": packed}
+    jspec, jarr = _read_ckpt(jdir)
+    tspec, tarr = _read_ckpt(tdir)
+    assert tspec == jspec                 # structure, dtypes, meta
+    assert sorted(tarr) == sorted(jarr)
+    linears = 0
+    for k, want in jarr.items():
+        got = tarr[k]
+        assert (got.shape, got.dtype) == (want.shape, want.dtype), k
+        if want.dtype == np.float32 and want.ndim >= 2:   # a linear
+            linears += 1
+            err = np.abs(got - want).max() / np.abs(want).max()
+            assert err <= 1e-5, (k, err)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=k)
+    assert linears == 5 and len(jspec["leaf_dtypes"]) == len(jarr) - 5
+    # the dense tree the function returns is what it wrote
+    assert tree["blocks"]["mlp"]["wgu"].shape == (2, 64, 256)
+    assert tree["embed"]["tokens"].dtype == torch.bfloat16
+    # each package reads the other's output
+    jtree, jmeta = JPM.load_checkpoint(tdir)
+    assert jmeta == meta and jtree["lm_head"].dtype == jnp.float32
+    back, bmeta = TPM.load_checkpoint(jdir)
+    assert bmeta == meta
+    assert torch.equal(back["embed"]["tokens"], tree["embed"]["tokens"])
+    if mode == "rht" and bits == 2:       # the CLI is the function
+        cdir = str(tmp_path / "cli")
+        _, out = _run(TT.main, ["transcode", "--load", packed, "--save",
+                                cdir, "--device", "cpu"])
+        assert out == f"transcoded {packed} -> dense at {cdir}\n"
+        cspec, carr = _read_ckpt(cdir)
+        assert cspec == tspec
+        for k, v in tarr.items():
+            np.testing.assert_array_equal(carr[k], v, err_msg=k)
+
+
+def test_counter_matches():
+    """The counterexample's rows at n = 64: the port in float64 against
+    quip_tpu's CLI (x64 on in the tests), and the port's CLI in float32."""
+    _, out = _run(JT.main, ["counter", "--sizes", "64"])
+    want = json.loads(out)
+    got = TAn.counter_rows(64, torch.float64, "cpu")
+    assert list(got) == [k for k in want if k != "n"]
+    for k, v in got.items():
+        assert abs(v / want[k] - 1) <= 1e-7, (k, v, want[k])
+    assert got["ldlq"] < got["nearest"] / 2
+    rows, out = _run(TT.main, ["counter", "--sizes", "64,96", "--device",
+                               "cpu"])
+    assert [json.loads(line) for line in out.splitlines()] == rows
+    assert [r["n"] for r in rows] == [64, 96]
+    for k, v in got.items():
+        assert abs(rows[0][k] / v - 1) <= 1e-5, (k, rows[0][k], v)
 
 
 def test_profiling_utils(tmp_path):
