@@ -6,18 +6,21 @@ Needs one CUDA card (written for an H100, sm_90a) and nvcc. It builds the
 port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
   1. the card's name and power limit, and the kernel build (all five nvcc
-     runs started together);
+     runs started together), with each K1-tile kernel's registers, shared
+     memory and spills from the ``-Xptxas -v`` log (no wgmma serialised);
   2. K1 (dequant_matmul: the decode kernel K1-decode up to B = 8, the
      tile kernel K1-tile above, both on the tensor cores) against its plain
      version at the five 2-bit Llama-2-7B projection shapes (B = 1..4, 7, 8,
-     9, 16, 17, 32, 128, 600, 1000, 2048: the last one perplexity window's
-     rows) and at small 3/4/8-bit, qfn-a and code_bits=3 shapes, two of
-     them ragged and one that only K1-decode takes, f32 and
-     bf16 x, each kernel forced past its threshold too, with kernel, plain,
-     bound and library (torch.matmul of the dequantised bf16 weight) times,
-     and both kernels' times at B = 1, 2, 4, 8, 16 (the crossover); then
-     OPT-6.7B's four shapes (fc2 at d = 16384) at B = 1, 4, 8, 9, 32, 37,
-     128, 600 and 2048, timed at all but 32, 37 and 128; then 3-bit codes
+     9, 12, 16, 17, 24, 32, 128, 600, 1000, 2048: the last one perplexity
+     window's rows) and at small 3/4/8-bit, qfn-a and code_bits=3 shapes
+     (B up to 2048), three of them ragged and one that only K1-decode
+     takes, f32 and bf16 x, each kernel forced past its threshold too, with
+     kernel, plain, bound and library (torch.matmul of the dequantised bf16
+     weight) times, and both kernels' times at B = 1, 2, 4, 8, 9, 12, 16,
+     24, 32 (the crossover); then OPT-6.7B's four shapes (fc2 at d = 16384)
+     at B = 1, 4, 8, 9, 16, 32, 37, 128, 600 and 2048, timed at all but 37
+     and 128; K1-tile's sums at B = 16, 32, 600, 2048 beside their bounds,
+     torch.matmul and the mma.sync kernel's earlier times; then 3-bit codes
      at the five Llama-2-7B shapes as two planes and widened to 4-bit
      fields (code_bits=3, by ``widen_3bit``), each against its plain version and against the other at
      B = 1 (K1-decode) and 600 (K1-tile), timed beside their bounds;
@@ -45,7 +48,8 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      each), first un-fused with bf16 KV, then with QUIP_FUSED_RHT=1, int8
      KV and a 200-token shared prefix; the kernels' launch counters are
      zeroed just before each run and read just after; then a timed and a
-     profiled 600-token prefill;
+     profiled 600-token prefill (its dm_tile and dm_prep kernels each as
+     many as the K1-tile launches counted);
   8. the same model through the overlapped pump (``Engine.warmup`` then
      ``run(chunked=True)``: each decode chunk a CUDA graph replay), in both
      configurations of phase 7 on its requests, the greedy tokens held
@@ -238,7 +242,42 @@ def phase_device():
             f"registers, {spills} bytes of spill stores")
     RESULTS["card"] = smi
     RESULTS["build_s"] = build_s
+    RESULTS["ptxas_tile"] = _ptxas_kernels(logs["dequant_matmul_tile"])
+    for k in RESULTS["ptxas_tile"]:
+        log(f"  ptxas dequant_matmul_tile {k['kernel']}: {k['registers']} "
+            f"registers, {k['smem']} bytes static smem, {k['spill']} bytes "
+            f"spilled")
+    serial = logs["dequant_matmul_tile"].count("C7513")
+    log(f"  ptxas dequant_matmul_tile: {serial} kernels with wgmma "
+        f"serialised (C7513)")
+    assert serial == 0, "ptxas serialised K1-tile's wgmma"
     return name, smi
+
+
+def _ptxas_kernels(text: str) -> list:
+    """Each kernel's registers, static shared memory and spilled bytes from
+    an ``nvcc -Xptxas -v`` log (kernel names demangled to their templates:
+    ``dm_tile<128>``)."""
+    import re
+    out, kernel, spill = [], None, 0
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            raw, spill = m.group(1), 0
+            t = re.search(r"(\d+)(dm_\w+?)I(?:Li)?(\w+?)EE", raw)
+            kernel = (f"{t.group(2)}<{re.sub(r'^\d+(?=\D)', '', t.group(3))}>"
+                      if t else
+                      re.sub(r"^.*?\d+(dm_\w+?)E.*$", r"\1", raw))
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and kernel:
+            out.append(dict(kernel=kernel, registers=int(m.group(1)),
+                            smem=int(m.group(2) or 0), spill=spill))
+            kernel = None
+    return out
 
 
 # earlier slices' times on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md
@@ -249,7 +288,26 @@ BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, k2_ms=0.3495,
               k1_sums_ms={1: (0.1327, 0.1059), 8: (0.3652, 0.1090)},
               k3_sum_ms=0.1271,
               # K1' before its redesign: five shapes, B = 1, best tile_m
-              k1p_sum_ms=0.1178)
+              k1p_sum_ms=0.1178,
+              # K1-tile on mma.sync before its wgmma redesign (PR 3-14):
+              # (model, B) -> ms, sums of the five (four OPT) shapes
+              k1t_ms={("Llam", 16): 0.1172, ("Llam", 32): 0.1520,
+                      ("Llam", 600): 1.4740, ("Llam", 2048): 4.1809,
+                      ("OPT-", 600): 0.9591, ("OPT-", 2048): 2.5617})
+
+
+def _names_of(prof) -> dict:
+    """Device kernels of a torch.profiler (CUPTI) run as {name: count}, a
+    kernel of this repo's sources named by its function (``dm_tile``)."""
+    import re
+    from torch.autograd import DeviceType
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.count:
+            m = re.search(r"\b(dm_\w+?|[a-z]\w*_kernel)\b(?=[<(])", e.key)
+            k = m.group(1) if m else e.key
+            names[k] = names.get(k, 0) + e.count
+    return names
 
 
 def phase_k1(name: str):
@@ -295,14 +353,15 @@ def phase_k1(name: str):
         return want_path, rel, rel16
 
     # small widths, every format; d = 1408 leaves the 1-bit plane of 3-bit
-    # a ragged group of word rows, m = 328 a ragged warp of columns; m = 330
-    # (no multiple of 4) and d = 96 are shapes K1-tile does not take: they go
-    # to K1-decode at any B, 8 rows at a time
+    # a ragged group of word rows, m = 328 and 72 ragged blocks of 256
+    # columns (72: one block of the cluster's two has no columns at all);
+    # m = 330 (no multiple of 4) and d = 96 are shapes K1-tile does not
+    # take: they go to K1-decode at any B, 8 rows at a time
     for bits, qfn, code_bits in [(2, "b", None), (3, "b", None),
                                  (4, "b", None), (8, "b", None),
                                  (4, "b", 3), (2, "a", None),
                                  (4, "a", None)]:
-        for m, d in ((640, 1024), (328, 1408), (330, 96)):
+        for m, d in ((640, 1024), (328, 1408), (72, 1408), (330, 96)):
             pl = planes_for(m, d, bits)
             if code_bits:       # 3-bit codes in 4-bit fields: clear bit 3s
                 pl = tuple(p & 0x77777777 for p in pl)
@@ -313,7 +372,7 @@ def phase_k1(name: str):
                 zero = torch.rand(m, device=dev, generator=g) * 2 ** bits
             kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
             for B in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 32, 33, 128, 600,
-                      1000):
+                      1000, 2048):
                 if d == 96 and B > 33:
                     continue
                 x = torch.randn(B, d, device=dev, generator=g).bfloat16()
@@ -327,13 +386,12 @@ def phase_k1(name: str):
                     check(x, pl, scale, zero, (bits, qfn, m, d, B, path),
                           path=path, **kw)
     log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3; 640x1024, "
-        f"328x1408 and 330x96; B = 1..8 and 9..1000, f32 and bf16 x): max rel "
-        f"err K1-decode {worst_rel['decode']:.2e}, K1-tile "
+        f"328x1408, 72x1408 and 330x96; B = 1..8 and 9..2048, f32 and bf16 "
+        f"x): max rel err K1-decode {worst_rel['decode']:.2e}, K1-tile "
         f"{worst_rel['tile']:.2e} <= 1e-3")
-
     # 2048: the rows of one 2048-token perplexity window (phase 10)
-    timed = (1, 2, 4, 8, 16, 32, 128, 600, 2048)
-    crossed = (1, 2, 4, 8, 16)
+    timed = (1, 2, 4, 8, 9, 12, 16, 24, 32, 128, 600, 2048)
+    crossed = (1, 2, 4, 8, 9, 12, 16, 24, 32)
     scale = torch.tensor(0.02, device=dev)
 
     def sweep(model, shapes, checked, timed, crossed=()):
@@ -365,8 +423,10 @@ def phase_k1(name: str):
                         for c in copies], it)
 
                 ms = run()
-                plain = time_ms([lambda: DM.dequant_matmul_ref(
+                # the plain version is timed at the rows the records keep
+                plain = (time_ms([lambda: DM.dequant_matmul_ref(
                     x, copies[0], scale, None, bits=2)], 2)
+                    if B not in (9, 12, 24) else float("nan"))
                 lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
                 bms, by = bound_ms(B * d * 2 + pbytes + B * m * 2,
                                    2 * B * d * m, name)
@@ -400,17 +460,17 @@ def phase_k1(name: str):
         "llama-2-7b",
         {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
          "wd": (4096, 11008), "lm_head": (32000, 4096)},
-        (1, 2, 3, 4, 7, 8, 9, 16, 17, 32, 128, 600, 1000, 2048), timed,
-        crossed)
+        (1, 2, 3, 4, 7, 8, 9, 12, 16, 17, 24, 32, 128, 600, 1000, 2048),
+        timed, crossed)
     # OPT-6.7B's (and BLOOM-7b1's) four projections, phase 12's path: fc2
     # reads d = 16384, the widest fan-in yet; the tied head is dense. Also
     # checked at the other row counts phase 12 gives K1-tile: the 37- and
     # 128-token prompts and the 32-row admission windows
-    opt_timed = (1, 4, 8, 9, 600, 2048)
+    opt_timed = (1, 4, 8, 9, 16, 32, 600, 2048)
     opt_rows, opt_sums, _, opt_by = sweep(
         "opt-6.7b", {"wqkv": (12288, 4096), "wo": (4096, 4096),
                      "fc1": (16384, 4096), "fc2": (4096, 16384)},
-        (1, 4, 8, 9, 32, 37, 128, 600, 2048), opt_timed)
+        (1, 4, 8, 9, 16, 32, 37, 128, 600, 2048), opt_timed)
     w3 = _k1_widened(name, dev, g, scale, planes_for, check)
     for B in opt_timed:
         t = opt_sums[B]
@@ -433,7 +493,8 @@ def phase_k1(name: str):
             + f", K1-tile {c['tile']:.4f} ms"
             + (f"; the previous slice's CUDA-core kernel {b[0]} ms, its "
                f"K1-tile {b[1]} ms" if b else "")
-            + f" (rule: K1-decode up to B = {DM.DECODE_MAX_B})")
+            + f" (rule: K1-tile from B = {DM.TILE_MIN_B}; "
+            + ("faster: " + min(c, key=c.get)) + ")")
     # K1-decode beats the library call at decode sizes and, at B = 1, both of
     # the previous slice's kernels
     # (asserted where the margin is far above the run-to-run spread; the
@@ -459,8 +520,19 @@ def phase_k1(name: str):
               library_ms_b8=sums[8]["library_ms"],
               **{f"{k}_opt_b1": v for k, v in opt_sums[1].items()},
               bound_by_opt_b1=opt_by[1].pop(), **w3[1])
+    for B in (16, 32, 600, 2048):
+        for model, t in (("Llama-2-7B five", sums[B]),
+                         ("OPT-6.7B four", opt_sums[B])):
+            log(f"K1-tile {model} shapes, B={B:4d}: {t['ms']:.4f} ms "
+                f"(earlier {BEFORE['k1t_ms'].get((model[:4], B), '-')}), "
+                f"bound {t['bound_ms']:.4f}, torch.matmul "
+                f"{t['library_ms']:.4f}")
     k1t = dict(sums[600], max_rel_err=worst_rel["tile"],
                max_abs_err=worst["tile"], bound_by=bound_by[600].pop(),
+               **{f"{k}_b{B}": v for B in (16, 32)
+                  for k, v in sums[B].items()},
+               **{f"{k}_opt_b{B}": v for B in (16, 32)
+                  for k, v in opt_sums[B].items()},
                **{f"{k}_b2048": v for k, v in sums[2048].items()},
                bound_by_b2048=bound_by[2048].pop(),
                **{f"{k}_opt_b600": v for k, v in opt_sums[600].items()},
@@ -1315,6 +1387,24 @@ def phase_serve(name: str, smi: str):
         PG.paged_prefill_slot(eng.params, p600, 600, kv, 0, cfg)
         torch.cuda.synchronize()
     pre_dev_ms, pre_launches, pre_aten, pre_top = _kernel_table(prof, 1, 8)
+    # the prefill's K1-tile calls are the dm_tile kernels the card ran, one
+    # dm_prep each and no split finish at 600 rows (the profile is taken
+    # again, up to twice, when CUPTI recorded no kernel at all)
+    names = _names_of(prof)
+    for _ in range(2):
+        if names:
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            PG.paged_prefill_slot(eng.params, p600, 600, kv, 0, cfg)
+            torch.cuda.synchronize()
+        names = _names_of(prof)
+    tile_kernels = {k: v for k, v in names.items() if k.startswith("dm_t")
+                    or k == "dm_prep"}
+    assert tile_kernels == dict(dm_tile=k1_tile_prefill,
+                                dm_prep=k1_tile_prefill), tile_kernels
+    log(f"prefill 600 tokens, profiled: {tile_kernels} (K1-tile launches "
+        f"counted: {k1_tile_prefill})")
     del eng, kv
     torch.cuda.empty_cache()
 
@@ -4302,10 +4392,12 @@ def main():
              library_ms_b2048=k1t["library_ms_b2048"],
              **{f"{k}_opt_b{B}": k1t[f"{k}_opt_b{B}"] for B in (600, 2048)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+             **{k: v for k, v in k1t.items() if k.endswith(("_b16", "_b32"))},
              **{k: v for k, v in k1t.items()
                 if "_w3_" in k or "_3bit_" in k},
              shape="sum over wqkv, wo, wgu, wd, lm_head at B=600 (and "
-                   "B=2048, a perplexity window's rows); _opt: OPT-6.7B's "
+                   "B=2048, a perplexity window's rows; B=16 and 32 too); "
+                   "_opt: OPT-6.7B's "
                    "wqkv, wo, fc1, fc2; _w3 / _3bit: phase 2's 3-bit "
                    "layouts at B=600; _tpN_b600: phase 17a's column "
                    "shards, as K1-decode's"),

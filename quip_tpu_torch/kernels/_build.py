@@ -1,8 +1,9 @@
 """Build the port's native code and load it with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles alone into
-``_build/lib<name>-<hash>.so`` (the hash is the source's, so an edited
-source never loads a stale library). Nothing here runs at import: a kernel
+``_build/lib<name>-<hash>.so`` (the hash covers the source and every
+header it includes by a quoted name from beside it, recursively, so an
+edited source or header never loads a stale library). Nothing here runs at import: a kernel
 is built at its first launch, or ahead of time by :func:`build_all`, which
 starts one nvcc per source at once. The build uses only sources in this
 package:
@@ -32,6 +33,7 @@ import functools
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 import threading
@@ -82,9 +84,30 @@ def _cpu_model() -> str:
     return platform.processor()
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """The source of ``name`` and every header it includes by a quoted name
+    found beside the including file, recursively, each once, in the order
+    first met."""
+    seen, todo = [], [_source(name)]
+    while todo:
+        f = todo.pop(0)
+        if f in seen:
+            continue
+        seen.append(f)
+        for inc in _INCLUDE.findall(f.read_text()):
+            header = (f.parent / inc).resolve()
+            if header.is_file():
+                todo.append(header)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = _source(name)
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256()
+    for f in _sources(name):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
     if name in _HOST:
         h.update(f"{_GXX_FLAGS} {platform.machine()} {_cpu_model()}"
                  .encode())

@@ -15,11 +15,13 @@ accumulation and never builds the dense W. It replaces the Pallas kernel
   memory in a fixed order. Shapes K1-tile does not take go through it 8
   rows at a time. Design note in the source;
   ``decode_walk_ref`` below walks the planes the same way in plain PyTorch.
-* K1-tile, ``csrc/dequant_matmul_tile.cu`` (``dm_tile``), for B > 8 rows:
-  prefill and admission windows, bound by the products. ``mma.sync`` with
-  the plane words as B fragments, x tiles and plane words staged by
-  ``cp.async``. Its design note is in the source; ``tile_walk_ref`` below
-  walks the planes the same way in plain PyTorch.
+* K1-tile, ``csrc/dequant_matmul_tile.cu`` (``dm_tile``), for B >= 9 rows:
+  prefill, admission windows, the speculative verify and perplexity, bound
+  by the products. ``wgmma`` with the unpacked plane words as the A operand
+  from registers and N tokens of x as the B operand, fed to shared memory
+  by TMA through an ``mbarrier`` ring that one producer warpgroup keeps
+  full for two consumer warpgroups. Its design note is in the source;
+  ``tile_walk_ref`` below walks the planes the same way in plain PyTorch.
 
 Dispatch goes by device, then by a stated rule (``route``): a CPU tensor
 takes ``dequant_matmul_ref``, the plain version with the semantics of
@@ -48,11 +50,12 @@ launches_decode = 0   # those of them that went to K1-decode
 
 # The dispatch rule (``route``) and its measurements, NVIDIA H100 80GB HBM3,
 # 700 W, sum of the five 2-bit Llama-2-7B shapes (chip_smoke.py, K1 phase,
-# "crossover" lines; tools/tune_decode.py for the plans): K1-decode takes
-# B <= 8, where it is the faster kernel at every B (0.087 against K1-tile's
-# 0.106 ms at B = 1, 0.105 against 0.109 at B = 8; the first kernel on the
-# CUDA cores took 0.133 and 0.365 and is gone); K1-tile takes B >= 9 (one
-# mma n-tile holds 8 rows of x, and K1-tile's time hardly grows to 16 rows).
+# "crossover" lines, with K1-tile on wgmma): K1-decode takes B <= 8, where
+# it is the faster kernel (0.0861 against K1-tile's 0.1044 ms at B = 1,
+# 0.0953 against 0.1059 at B = 4, 0.1050 against 0.1062 at B = 8); K1-tile
+# takes B >= 9, where K1-decode must go 8 rows at a time (B = 9: 0.1066
+# against 0.1893 ms; 12: 0.1075 / 0.1956; 16: 0.1090 / 0.2051; 24: 0.1162
+# / 0.3053; 32: 0.1191 / 0.4051).
 TILE_MIN_B = 9
 
 DECODE_MAX_B = 8      # rows of x one mma n-tile holds
@@ -69,7 +72,7 @@ def _entry_tile():
     if _fn_tile is None:
         f = _build.load("dequant_matmul_tile").quip_dequant_matmul_tile
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        f.argtypes = [P, I, I, I, P, I, P, I, I, F, F, I, I, I, I, P, P, I, F,
+        f.argtypes = [P, I, I, I, P, I, P, I, I, F, F, I, I, I, P, P, I, F,
                       P, P, P, P]
         f.restype = ctypes.c_int
         _fn_tile = f
@@ -89,34 +92,61 @@ def _entry_decode():
 
 
 def tile_takes(d: int, m_p: int, bits: int) -> bool:
-    """The shapes K1-tile takes: every copy it makes is 16 bytes, so each
-    plane's word-row count is a multiple of 4 (d·f a multiple of 128) and
-    m_p a multiple of 8. Other shapes go to K1."""
+    """The shapes K1-tile takes: its tensor maps need 16-byte row strides,
+    so each plane's word-row count is a multiple of 4 (d·f a multiple of
+    128) and m_p a multiple of 8 (4 columns a lane's store). Other shapes go
+    to K1-decode."""
     return m_p % 8 == 0 and all((d * fb) % 128 == 0
                                 for fb, _ in PLANE_SPLITS[bits])
 
 
+TILE_NS = (16, 32, 48, 64, 80, 96, 112, 128)   # tokens a block (wgmma's N)
+TILE_BN = 256         # output columns a block (two warpgroups of 128)
+# The plan's cost model, in SM clocks of one block: a stage (8 slices of 16
+# fan-in columns) takes 16·N clocks of wgmma (four m64nNk16 a slice at the
+# card's 2048 bf16 FMA a clock an SM) or its bytes (the x boxes, 256·N, and
+# 8 or 16 word rows of 256 columns) at _TILE_SM_BYTES a clock, the larger;
+# a work item adds _TILE_BLOCK_CLK of fill and epilogue, and the items run
+# in waves of one an SM; a split adds its f32 partials' writes and reads at
+# that rate over the card.
+_TILE_SM_BYTES = 20.0
+_TILE_BLOCK_CLK = 2000.0
+
+
 def _tile_stages(d: int, fb: int) -> int:
-    """Stages of 8 slices (128 fan-in columns) K1-tile walks for a plane."""
+    """Stages of 8 slices (16 fan-in columns each) K1-tile walks for a
+    plane: (groups of 8 word rows) x (16 / fb fields) slices."""
     nw = d * fb // 32
     return -(-(-(-nw // 8) * (16 // fb)) // 8)
 
 
+def _tile_cost(B: int, d: int, m_p: int, bits: int, sms: int, n: int,
+               splits: int) -> float:
+    """Modelled SM clocks of K1-tile with ``n`` tokens a block and
+    ``splits`` fan-in splits (see _TILE_SM_BYTES)."""
+    blocks = -(-B // n) * -(-m_p // TILE_BN) * splits
+    clk = _TILE_BLOCK_CLK
+    for fb, _ in PLANE_SPLITS[bits]:
+        words = (16 if fb == 4 else 8) * TILE_BN * 4
+        stage = max(16.0 * n, (words + 256 * n) / _TILE_SM_BYTES)
+        clk += -(-_tile_stages(d, fb) // splits) * stage
+    clk *= -(-blocks // sms)
+    if splits > 1:
+        clk += (2 * splits + 1) * B * m_p * 4 / (_TILE_SM_BYTES * sms)
+    return clk
+
+
 def _tile_plan(B: int, d: int, m_p: int, bits: int, sms: int):
-    """(rows per block, warps per block, fan-in splits) for K1-tile on a
-    card of ``sms`` SMs: the smallest row tile that holds B (up to 64); 8
-    warps (256 columns) where that still gives a block per SM, else 4; and
-    the fan-in split to the nearest count that puts two waves of 64-row
-    blocks, or three of the lighter ones, in flight, each split at least 4
-    stages deep."""
-    bm = 16 if B <= 16 else 32 if B <= 32 else 64
-    rows = -(-B // bm)
-    nwarps = 8 if -(-m_p // 256) * rows >= sms else 4
-    blocks = -(-m_p // (32 * nwarps)) * rows
+    """(tokens a block N, fan-in splits) for K1-tile on a card of ``sms``
+    SMs: the pair of least ``_tile_cost``, N from ``TILE_NS`` up to B
+    rounded up to 16, splits up to 16 with each split at least 4 stages of
+    every plane deep; the smaller N, then the fewer splits, on a tie."""
     depth = min(_tile_stages(d, fb) for fb, _ in PLANE_SPLITS[bits])
-    want = (2 if bm == 64 else 3) * sms
-    return bm, nwarps, max(1, min((want + blocks // 2) // blocks,
-                                  depth // 4))
+    top = -(-B // 16) * 16
+    cands = [(n, s) for n in TILE_NS if n <= top
+             for s in range(1, max(1, min(16, depth // 4)) + 1)]
+    return min(cands, key=lambda c: (_tile_cost(B, d, m_p, bits, sms, *c),)
+               + c)
 
 
 def route(B: int, d: int, m_p: int, bits: int) -> str:
@@ -193,58 +223,76 @@ def dequant_matmul_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
 
 def tile_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
                   scale, zero, *, bits: int, qfn: str = "b",
-                  code_bits: Optional[int] = None) -> torch.Tensor:
+                  code_bits: Optional[int] = None,
+                  plan: Optional[tuple] = None) -> torch.Tensor:
     """For tests only: the index algebra of K1-tile in plain PyTorch, f32
-    out. It walks each plane as ``dm_tile`` does: stages of 8 slices, slice
-    L = (row group L // fph of 8 word rows, field L % fph), the A slice 16
-    contiguous bf16 columns of x at k·2nw + 16·rg (zero past the field's
-    span), rows padded to 16; the B fragment of lane (g, t) for n-tile q of
-    a warp's 32 columns built from words (8rg + t, 4g + q) and
-    (8rg + t + 4, 4g + q) as ((w >> f·k) & mask) | 0x43004300, two bf16
-    values 128 + c, less 128 in bf16; C's column (n-tile q, index n) is
-    column 4n + q. Planes run heavier first into one accumulator."""
+    out. ``plan`` is (tokens a block N, fan-in splits), ``_tile_plan``'s on
+    132 SMs by default. Rows of x pad to whole tiles of N tokens (TMA's
+    zero fill; the work items (token tile, column tile, split) are
+    independent, whichever block takes them); output columns go in blocks
+    of 256, lane (g, t) of warp w of consumer warpgroup c holding columns
+    256y + 128c + 32w + 4g + q, q = 2 mt + h (A tile mt, row 16w + g + 8h).
+    Each plane reads x in its stage order, as ``dm_prep`` writes it:
+    column 16 L + c is x's column k·2nw + 16·rg + c of slice L = (word row
+    group rg = L // fph, field k = L % fph), zero past the field's span.
+    Per split of the fan-in (stages [ns·split / splits, ns·(split + 1) /
+    splits) of each plane) the planes run heavier first into one
+    accumulator: stage s is xp's columns 128s .. + 127, two boxes of 64,
+    slice u = 4 hb + v of it in box hb at v·16 (batch hb of 4 slices); its
+    A registers are, for column (.., q): ((w >> f·k) & mask) | 0x43004300
+    of the words (8rg + t + 4hi, column), two bf16 values 128 + c at
+    k-index 2t + 8hi + half, less 128 in bf16 (word rows >= nw and columns
+    >= m_p read zero). After a plane, acc *= its weight over the next
+    one's (the last: its own). The splits' partials add in split order,
+    then the fix-up with Σ bf16(x)."""
     B, d = x.shape
     m_p = planes[0].shape[-1]
-    Bp, mp32 = -(-B // 16) * 16, -(-m_p // 32) * 32
+    sb = PLANE_SPLITS[bits]
+    n_tok, splits = plan or _tile_plan(B, d, m_p, bits, 132)
+    Bp, ncol = -(-B // n_tok) * n_tok, -(-m_p // TILE_BN) * TILE_BN
     xb = torch.zeros((Bp, d), dtype=torch.bfloat16)
     xb[:B] = x.to(torch.bfloat16)
     xsum = xb[:B].to(torch.float32).sum(dim=1, keepdim=True)
-    # column of (warp, n-tile q, lane group g); C's index n plays g's part
-    col = (32 * torch.arange(mp32 // 32)[:, None, None]
-           + torch.arange(4)[None, :, None] + 4 * torch.arange(8))
-    acc = torch.zeros((Bp, mp32), dtype=torch.float32)
-    splits_bits = PLANE_SPLITS[bits]
-    for p in reversed(range(len(planes))):
-        fb, pw = splits_bits[p]
-        fph, nw = 16 // fb, d * fb // 32
-        stages = _tile_stages(d, fb)
-        words = torch.zeros((8 * (-(-8 * stages // fph)), mp32),
-                            dtype=torch.int64)     # rows >= nw read as zero
-        words[:nw, :m_p] = planes[p].to(torch.int64) & 0xFFFFFFFF
-        pair_mask = ((1 << fb) - 1) * 0x00010001
-        for s in range(stages):
-            for u in range(8):
-                rg, k = divmod(8 * s + u, fph)
-                a = torch.zeros((Bp, 16), dtype=torch.bfloat16)
-                for piece in (0, 8):                # one 16-byte copy each
-                    off = 16 * rg + piece
-                    if off < 2 * nw:
-                        c0 = k * 2 * nw + off
-                        a[:, piece:piece + 8] = xb[:, c0:c0 + 8]
-                frag = torch.zeros((16, mp32 // 32, 4, 8),
-                                   dtype=torch.bfloat16)  # (k index, w, q, g)
-                for t in range(4):
-                    for reg_no in (0, 1):           # registers b0, b1
-                        w = words[8 * rg + t + 4 * reg_no][col]
+    # a lane's first column for (column block y, warpgroup c, warp w, g)
+    y_, c_, w_, g_ = torch.meshgrid(
+        torch.arange(ncol // TILE_BN), torch.arange(2), torch.arange(4),
+        torch.arange(8), indexing="ij")
+    base = (TILE_BN * y_ + 128 * c_ + 32 * w_ + 4 * g_).reshape(-1)
+    cols = base[:, None] + torch.arange(4)              # (lane, q)
+    t_, hi_ = torch.arange(4)[:, None], torch.arange(2)[None, :]
+    total = None
+    for split in range(splits):
+        acc = torch.zeros((Bp, ncol), dtype=torch.float32)
+        for p in reversed(range(len(planes))):
+            fb, pw = sb[p]
+            fph, nw = 16 // fb, d * fb // 32
+            ns = _tile_stages(d, fb)
+            xp = torch.zeros((Bp, 128 * ns), dtype=torch.bfloat16)
+            for L in range(-(-nw // 8) * fph):          # dm_prep
+                rg, k = divmod(L, fph)
+                n = max(0, min(16, 2 * nw - 16 * rg))
+                c0 = k * 2 * nw + 16 * rg
+                xp[:, 16 * L:16 * L + n] = xb[:, c0:c0 + n]
+            words = torch.zeros((8 * -(-8 * ns // fph) + 8, ncol),
+                                dtype=torch.int64)
+            words[:nw, :m_p] = planes[p].to(torch.int64) & 0xFFFFFFFF
+            pair_mask = ((1 << fb) - 1) * 0x00010001
+            for s in range(ns * split // splits, ns * (split + 1) // splits):
+                for hb in range(2):
+                    box = xp[:, 128 * s + 64 * hb:128 * s + 64 * hb + 64]
+                    for v in range(4):
+                        rg, k = divmod(8 * s + 4 * hb + v, fph)
+                        w = words[8 * rg + t_ + 4 * hi_][:, :, cols]
                         reg = ((w >> (fb * k)) & pair_mask) | 0x43004300
-                        for h, half in enumerate((reg & 0xFFFF, reg >> 16)):
-                            v = half.to(torch.int16).view(torch.bfloat16)
-                            frag[2 * t + 8 * reg_no + h] = v - 128
-                c = a.to(torch.float32) @ frag.reshape(16, -1).to(
-                    torch.float32)                  # columns in (w, q, n)
-                acc[:, col.reshape(-1)] += c
-        acc *= pw / splits_bits[p - 1][1] if p else pw
-    y, maxq = acc[:B, :m_p], float(2 ** (code_bits or bits) - 1)
+                        halves = torch.stack((reg & 0xFFFF, reg >> 16), -1)
+                        a = halves.to(torch.int16).view(torch.bfloat16) - 128
+                        # k-index 8hi + 2t + half; column (lane, q) in order
+                        frag = a.permute(1, 0, 4, 2, 3).reshape(16, ncol)
+                        acc += box[:, 16 * v:16 * v + 16].to(
+                            torch.float32) @ frag.to(torch.float32)
+            acc *= pw / sb[p - 1][1] if p else pw
+        total = acc if total is None else total + acc
+    y, maxq = total[:B, :m_p], float(2 ** (code_bits or bits) - 1)
     if qfn == "b":
         return (torch.as_tensor(scale, dtype=torch.float32)
                 * ((2.0 / maxq) * y - xsum))
@@ -428,18 +476,20 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
             launches += 1
             launches_decode += 1
         return out
-    bm, nwarps, splits = _tile_plan(B, d, m_p, bits,
-                                    _build.sm_count(x.get_device()))
-    xb = (x if x.dtype == torch.bfloat16 else
-          torch.empty((B, d), dtype=torch.bfloat16, device=x.device))
+    n_tok, splits = _tile_plan(B, d, m_p, bits,
+                               _build.sm_count(x.get_device()))
+    # x in each plane's stage order (dm_prep), one copy per field width
+    widths = {fb for fb, _ in splits_bits}
+    xp = torch.empty((B, 128 * sum(_tile_stages(d, fb) for fb in widths)),
+                     dtype=torch.bfloat16, device=x.device)
     work = torch.empty(-(-B // 4) * 4
                        + (splits * B * m_p if splits > 1 else 0),
                        dtype=torch.float32, device=x.device)
     err = _entry_tile()(
         x.data_ptr(), int(x.dtype == torch.bfloat16), B, d,
         planes[0].data_ptr(), splits_bits[0][0], p1.data_ptr(), fb1,
-        nplanes, float(splits_bits[0][1]), float(pw1), m_p, bm, nwarps,
-        splits, xb.data_ptr(), work.data_ptr(), int(qfn == "b"), maxq,
+        nplanes, float(splits_bits[0][1]), float(pw1), m_p, n_tok, splits,
+        xp.data_ptr(), work.data_ptr(), int(qfn == "b"), maxq,
         sc.data_ptr(), ze.data_ptr(), out.data_ptr(), stream)
     _build.check(err, "dequant_matmul (tile)")
     launches += 1

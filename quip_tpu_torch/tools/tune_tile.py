@@ -1,21 +1,31 @@
-"""What binds K1-tile, and which block plan is fastest (run on the H100):
+"""What binds K1-tile, and which plan is fastest (run on the H100):
 
-    python -m quip_tpu_torch.tools.tune_tile
+    python -m quip_tpu_torch.tools.tune_tile [--part ablation|plans|stages]
 
 Part 1, ablation: ``csrc/dequant_matmul_tile.cu`` is compiled as it is and
-in copies with one part taken out (their results are wrong, only their
-times mean something): the exact bf16 subtraction, the whole unpack (raw
-words as operands), the x copies after a block's first stage, both, and
-the products themselves. Each is timed at three of the 2-bit Llama-2-7B
-shapes, 600 and 32 rows, through the wrapper (CUDA-graph replay, plane
-copies cycling past the L2).
+in copies with parts taken out (their results are wrong, only their times
+mean something): the products (every ``wgmma.mma_async`` commented out of
+its PTX), the unpack (raw words as the A operand), the exact bf16
+subtraction alone, both products and unpack (copies only: dm_prep, the TMA
+ring and the epilogue), the copies (the producer completes each stage's
+barrier with no bytes: products alone), and all three (what is left: the
+launches, dm_prep, the barriers and the epilogue). Each is timed at three
+of the 2-bit Llama-2-7B shapes at 32, 600 and 2048 rows through the
+wrapper (CUDA-graph replay, plane copies cycling past the L2).
 
-Part 2, plans: ``_tile_plan``'s choice (rows per block, warps, fan-in
-splits) against its neighbours at the five shapes, B = 600, 128, 32, 16.
+Part 2, plans: ``_tile_plan``'s choice (tokens a block N, fan-in splits)
+against its neighbours (N one step either way, 64 and 128; splits 1, half
+and twice the rule's) at the five shapes, B = 16, 32, 128, 600, 2048.
 Every plan's result is held against the plain version first.
+
+Part 3, stages: the ring's depth, compiled with a shared-memory budget of
+100, 150 (the source's) and 200 KB, at the rule's plans, B = 32, 600 and
+2048 over the five shapes.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
 import ctypes
 import math
 import subprocess
@@ -30,10 +40,7 @@ from quip_tpu_torch.utils.timing import time_ms
 
 SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
           "wd": (4096, 11008), "lm_head": (32000, 4096)}
-PLANS = {600: [(64, 8, 1), (64, 4, 1), (64, 8, 2)],
-         128: [(64, 8, 1), (64, 4, 1), (64, 4, 2), (64, 8, 2), (64, 4, 4)],
-         32: [(32, 4, 2), (32, 4, 4), (32, 4, 8), (32, 8, 1), (32, 8, 2)],
-         16: [(16, 4, 2), (16, 4, 4), (16, 4, 8), (16, 8, 2)]}
+BUDGET = "constexpr int kSmemBudget = 150 * 1024;"
 
 
 def _rep(src: str, old: str, new: str) -> str:
@@ -42,26 +49,66 @@ def _rep(src: str, old: str, new: str) -> str:
 
 
 def variants(src: str) -> dict:
-    no_unpack = _rep(_rep(src, "bf[q][0] = code_pair<MP>(w[r][0][q], sh);",
-                          "bf[q][0] = w[r][0][q];"),
-                     "bf[q][1] = code_pair<MP>(w[r][1][q], sh);",
-                     "bf[q][1] = w[r][1][q];")
-    first_x = lambda s: _rep(  # noqa: E731
-        s, "    for (int e = tid; e < BM * 16; e += NT) {",
-        "    if (s == s_begin) for (int e = tid; e < BM * 16; e += NT) {")
+    no_mma = lambda s: _rep(  # noqa: E731
+        s, '"wgmma.mma_async.sync.aligned.m64n',
+        '"// wgmma.mma_async.sync.aligned.m64n')
+    pair = "  uint32_t v = ((w >> sh) & MP) | 0x43004300u;\n"
+    no_unpack = lambda s: _rep(s, pair, "  return w;\n" + pair)  # noqa: E731
+
+    def no_copies(s):
+        s = _rep(s, "mbar_expect_tx(&full[slot], bytes);",
+                 "mbar_expect_tx(&full[slot], 0);")
+        s = _rep(s, "for (int j = 0; j < 2; ++j)\n",
+                 "for (int j = 0; j < 0; ++j)\n")
+        return _rep(s, "tma_load(base + x_bytes(N), wmap,",
+                    "if (0) tma_load(base + x_bytes(N), wmap,")
     return {
         "as it is": src,
+        "no products": no_mma(src),
+        "no unpack": no_unpack(src),
         "no subtraction": _rep(src, "  const uint32_t magic = 0x43004300u;\n",
                                "  return v;\n"
                                "  const uint32_t magic = 0x43004300u;\n"),
-        "no unpack": no_unpack,
-        "x copied in the first stage only": first_x(src),
-        "no unpack, x in the first stage only": first_x(no_unpack),
-        "no products": _rep(
-            src, '"mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "\n'
-            '      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"',
-            '"// %0 %1 %2 %3 %4 %5 %6 %7 %8 %9\\n"'),
+        "copies only": no_mma(no_unpack(src)),
+        "no copies": no_copies(src),
+        "none of the three": no_copies(no_mma(no_unpack(src))),
     }
+
+
+def _build_variants(texts: dict) -> dict:
+    """Compile each source text at once; name -> C entry (the genuine
+    entry's argument types)."""
+    DM._entry_tile()
+    argtypes = DM._fn_tile.argtypes
+    tmp = Path(tempfile.mkdtemp())
+    jobs = {}
+    for i, (name, text) in enumerate(texts.items()):
+        cu, so = tmp / f"v{i}.cu", tmp / f"v{i}.so"
+        cu.write_text(text)
+        jobs[name] = (so, subprocess.Popen(
+            [_build.nvcc(), *_build._FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
+    fns = {}
+    for name, (so, proc) in jobs.items():
+        assert proc.wait() == 0, name
+        f = ctypes.CDLL(str(so)).quip_dequant_matmul_tile
+        f.argtypes, f.restype = argtypes, ctypes.c_int
+        fns[name] = f
+    return fns
+
+
+@contextlib.contextmanager
+def _using(fn=None, plan=None):
+    """K1-tile's entry and plan swapped for the block's duration."""
+    entry, rule = DM._fn_tile, DM._tile_plan
+    if fn is not None:
+        DM._fn_tile = fn
+    if plan is not None:
+        DM._tile_plan = lambda *a: plan
+    try:
+        yield
+    finally:
+        DM._fn_tile, DM._tile_plan = entry, rule
 
 
 def _planes(m, d, gen, dev):
@@ -76,70 +123,89 @@ def _time(x, copies, scale):
                     for c in copies], 10)
 
 
+def _src() -> str:
+    return (Path(_build.__file__).parent / "csrc"
+            / "dequant_matmul_tile.cu").read_text()
+
+
 def ablate(gen, dev, scale):
-    src = (Path(_build.__file__).parent / "csrc"
-           / "dequant_matmul_tile.cu").read_text()
-    DM._entry_tile()
-    genuine, argtypes = DM._fn_tile, DM._fn_tile.argtypes
-    with tempfile.TemporaryDirectory() as tmp:
-        jobs = {}
-        for i, (name, text) in enumerate(variants(src).items()):
-            cu, so = Path(tmp) / f"v{i}.cu", Path(tmp) / f"v{i}.so"
-            cu.write_text(text)
-            jobs[name] = (so, subprocess.Popen(
-                [_build.nvcc(), *_build._FLAGS, "-o", str(so), str(cu)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-        fns = {}
-        for name, (so, proc) in jobs.items():
-            assert proc.wait() == 0, name
-            f = ctypes.CDLL(str(so)).quip_dequant_matmul_tile
-            f.argtypes, f.restype = argtypes, ctypes.c_int
-            fns[name] = f
-        try:
-            for sname in ("wqkv", "wo", "wd"):
-                m, d = SHAPES[sname]
-                copies = _planes(m, d, gen, dev)
-                for B in (600, 32):
-                    x = torch.randn(B, d, device=dev,
-                                    generator=gen).bfloat16()
-                    row = []
-                    for name, f in fns.items():
-                        DM._fn_tile = f
-                        row.append(f"{name} {_time(x, copies, scale) * 1e3:.1f}")
-                    print(f"ablation {sname} B={B}, us: " + " | ".join(row),
-                          flush=True)
-        finally:
-            DM._fn_tile = genuine
+    fns = _build_variants(variants(_src()))
+    for sname in ("wqkv", "wo", "wd"):
+        m, d = SHAPES[sname]
+        copies = _planes(m, d, gen, dev)
+        for B in (32, 600, 2048):
+            x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
+            row = []
+            for name, f in fns.items():
+                with _using(fn=f):
+                    row.append(f"{name} {_time(x, copies, scale) * 1e3:.1f}")
+            print(f"ablation {sname} B={B} plan "
+                  f"{DM._tile_plan(B, d, m, 2, 132)}, us: " + " | ".join(row),
+                  flush=True)
+        del copies
+        torch.cuda.empty_cache()
+
+
+def _neighbours(plan, B, d):
+    n, s = plan
+    top = -(-B // 16) * 16
+    depth = DM._tile_stages(d, 2) // 4
+    ns = {n, n - 16, n + 16, 64, 128}
+    ss = {s, 1, max(1, s // 2), s * 2}
+    return [plan] + sorted((a, b) for a in ns for b in ss
+                           if 16 <= a <= min(128, top) and 1 <= b <= depth
+                           and (a, b) != plan)
 
 
 def plans(gen, dev, scale):
-    rule = DM._tile_plan
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    try:
-        for sname, (m, d) in SHAPES.items():
-            copies = _planes(m, d, gen, dev)
-            for B, cands in PLANS.items():
-                x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
-                want = DM.dequant_matmul_ref(x.float(), copies[0], scale,
-                                             None, bits=2)
-                chosen = rule(B, d, m, 2, sms)
-                row = []
-                for plan in [chosen] + [p for p in cands if p != chosen]:
-                    DM._tile_plan = lambda *a, plan=plan: plan
-                    got = DM.dequant_matmul(x.float(), copies[0], scale, None,
-                                            bits=2)
-                    rel = ((got - want).abs().max() / want.abs().max()).item()
+    for sname, (m, d) in SHAPES.items():
+        copies = _planes(m, d, gen, dev)
+        for B in (16, 32, 128, 600, 2048):
+            x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
+            want = DM.dequant_matmul_ref(x.float(), copies[0], scale, None,
+                                         bits=2)
+            row = []
+            for plan in _neighbours(DM._tile_plan(B, d, m, 2, sms), B, d):
+                with _using(plan=plan):
+                    got = DM.dequant_matmul(x.float(), copies[0], scale,
+                                            None, bits=2)
+                    rel = ((got - want).abs().max()
+                           / want.abs().max()).item()
                     assert rel <= 1e-3, (sname, B, plan, rel)
                     row.append(f"{plan} {_time(x, copies, scale) * 1e3:.1f}")
-                print(f"plans {sname} B={B}, us, the rule's first: "
-                      + " | ".join(row), flush=True)
-            del copies
-            torch.cuda.empty_cache()
-    finally:
-        DM._tile_plan = rule
+            print(f"plans {sname} B={B}, us, the rule's first: "
+                  + " | ".join(row), flush=True)
+        del copies
+        torch.cuda.empty_cache()
 
 
-def main():
+def stages(gen, dev, scale):
+    src = _src()
+    fns = _build_variants({
+        f"{kb} KB": _rep(src, BUDGET,
+                         f"constexpr int kSmemBudget = {kb} * 1024;")
+        for kb in (100, 150, 200)})
+    sums = {(k, B): 0.0 for k in fns for B in (32, 600, 2048)}
+    for sname, (m, d) in SHAPES.items():
+        copies = _planes(m, d, gen, dev)
+        for B in (32, 600, 2048):
+            x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
+            for k, f in fns.items():
+                with _using(fn=f):
+                    sums[k, B] += _time(x, copies, scale)
+        del copies
+        torch.cuda.empty_cache()
+    for B in (32, 600, 2048):
+        print(f"stages, five shapes B={B}, ms: " + " | ".join(
+            f"{k} {sums[k, B]:.4f}" for k in fns), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--part", choices=("ablation", "plans", "stages"),
+                    action="append")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tune_tile: needs a CUDA card")
     dev = torch.device("cuda")
@@ -149,8 +215,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
-    ablate(gen, dev, scale)
-    plans(gen, dev, scale)
+    parts = args.part or ["ablation", "plans", "stages"]
+    for part, fn in (("ablation", ablate), ("plans", plans),
+                     ("stages", stages)):
+        if part in parts:
+            fn(gen, dev, scale)
 
 
 if __name__ == "__main__":

@@ -65,13 +65,15 @@ def test_k1_matches_plain(cuda, bits, qfn, code_bits, B):
 @pytest.mark.parametrize("bits,qfn,code_bits", [
     (2, "b", None), (3, "b", None), (4, "b", None), (8, "b", None),
     (4, "b", 3), (2, "a", None), (4, "a", None)])
-@pytest.mark.parametrize("B", [9, 17, 600])
+@pytest.mark.parametrize("B", [9, 17, 600, 2048])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_tile_matches_plain(cuda, bits, qfn, code_bits, B, dtype):
-    """The tensor-core path: m = 328 leaves a ragged warp of columns,
-    d = 1408 a ragged group of word rows in the 1-bit plane of 3-bit."""
-    g = torch.Generator(device=cuda).manual_seed(bits * 100 + B)
-    m, d = 328, 1408
+@pytest.mark.parametrize("m", [328, 72])
+def test_k1_tile_matches_plain(cuda, bits, qfn, code_bits, B, dtype, m):
+    """The tensor-core path: m = 328 leaves a ragged block of 256 columns,
+    m = 72 a block of the cluster's two with no columns at all, d = 1408 a
+    ragged group of word rows in the 1-bit plane of 3-bit."""
+    g = torch.Generator(device=cuda).manual_seed(bits * 100 + B + m)
+    d = 1408
     planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
                                  dtype=torch.int32, generator=g, device=cuda)
                    for fb, _ in PLANE_SPLITS[bits])

@@ -8,8 +8,12 @@ Tolerances: f32 vs f32 1e-5; vs the kernel 1e-3 (its accumulation order
 around the folded 128-offset, as in tests/test_pack.py). ``tile_walk_ref``,
 the plain-PyTorch walk of the planes that the tensor-core kernel makes
 (slices, lane -> word map, 128 + c operands), is held against the plain
-version to 1e-5 of max |y|: exact bf16 operands, f32 sums in another
-order. ``decode_walk_ref``, the walk of the decode kernel (codes as the A
+version to 1e-5 of max |y| at the rule's plan and at a forced split of the
+fan-in (exact bf16 operands, f32 sums in another order), and against the
+Pallas kernel ``_dequant_matmul_local`` in interpret mode to within 1e-5
+of max |y| beyond the plain version's own distance from it (the Pallas
+kernel takes its 128 offset off after an f32 sum of 128 + c products,
+which costs it up to ~2.3e-5 of max |y| at 3 bits, d = 256). ``decode_walk_ref``, the walk of the decode kernel (codes as the A
 operand, masked in place with x scaled to match, the 128 offsets taken off
 once, splits added in order), is held to 1e-3 of max |y| against the plain
 version and the Pallas kernel: its offsets cancel in f32."""
@@ -23,6 +27,8 @@ import torch
 
 from quip_tpu.kernels.dequant_matmul import dequant_matmul as j_dm
 from quip_tpu.kernels.dequant_matmul import dequant_matmul_ref as j_dm_ref
+from quip_tpu.kernels.dequant_matmul import (
+    _dequant_matmul_local as j_dm_local)
 from quip_tpu.ops.qlinear import qlinear_apply as j_qlinear
 from quip_tpu.pack import format as JF
 from quip_tpu_torch import convert as TC
@@ -109,9 +115,10 @@ def _case(rng, B, m, d, bits, qfn, code_bits):
 @pytest.mark.parametrize("B", [9, 33])
 @pytest.mark.parametrize("bits,qfn,code_bits", _FORMATS)
 def test_tile_walk_matches_plain(bits, qfn, code_bits, B, d):
-    """K1-tile's fragment map (1408 = 11 * 128: the 1-bit plane of 3-bit
-    has 44 word rows, a ragged last group of 8; m = 72 leaves a ragged
-    warp of 32 columns)."""
+    """K1-tile's fragment map, stage order and split order (1408 = 11 *
+    128: the 1-bit plane of 3-bit has 44 word rows, a ragged last group of
+    8; m = 72 leaves a block of 256 columns mostly empty), at the rule's
+    plan and with the fan-in in 3 splits of 16-token tiles."""
     rng = np.random.default_rng(bits * 1000 + B + d)
     m = 72
     _, x_bf, _, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
@@ -120,13 +127,38 @@ def test_tile_walk_matches_plain(bits, qfn, code_bits, B, d):
     tscale = torch.from_numpy(np.asarray(scale))
     tzero = None if zero is None else torch.from_numpy(zero)
     kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
-    got = TDM.tile_walk_ref(torch.from_numpy(x_bf), tplanes, tscale, tzero,
-                            **kw)
     want = TDM.dequant_matmul_ref(torch.from_numpy(x_bf), tplanes, tscale,
                                   tzero, **kw)
-    assert got.shape == want.shape == (B, m)
-    err = (got - want).abs().max() / want.abs().max()
-    assert err.item() <= 1e-5
+    for plan in (None, (16, 3)):
+        got = TDM.tile_walk_ref(torch.from_numpy(x_bf), tplanes, tscale,
+                                tzero, plan=plan, **kw)
+        assert got.shape == want.shape == (B, m)
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-5, plan
+
+
+@pytest.mark.parametrize("B", [33, 130])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+def test_tile_walk_matches_pallas_kernel(bits, B):
+    """The walk against quip_tpu's ``_dequant_matmul_local`` in interpret
+    mode on the same bf16-cast x, f32 out: within 1e-5 of max |y| beyond
+    the plain version's distance from the Pallas kernel (its f32 fold of
+    the 128 offset)."""
+    rng = np.random.default_rng(bits * 100 + B)
+    m, d = 256, 256
+    _, x_bf, jplanes, tplanes, scale, _ = _case(rng, B, m, d, bits, "b",
+                                                None)
+    want = np.asarray(j_dm_local(jnp.asarray(x_bf), jplanes,
+                                 jnp.asarray(scale), None, bits=bits,
+                                 tile_m=128, tile_b=B, interpret=True))
+    kw = dict(bits=bits)
+    xt, st = torch.from_numpy(x_bf), torch.tensor(float(scale))
+    got = TDM.tile_walk_ref(xt, tplanes, st, None, **kw).numpy()
+    plain = TDM.dequant_matmul_ref(xt, tplanes, st, None, **kw).numpy()
+    top = np.abs(want).max()
+    assert np.abs(got - want).max() <= (1e-5 * top
+                                        + np.abs(plain - want).max())
+    assert np.abs(plain - want).max() <= 1e-4 * top
 
 
 @pytest.mark.parametrize("B", [33, 130])
@@ -153,19 +185,31 @@ def test_plain_dequant_matmul_matches_batched(bits, qfn, code_bits, B):
 
 def test_tile_dispatch_rule():
     """B <= 8 stays with the single-row kernel; K1-tile takes the shapes
-    whose copies are 16 bytes; its plan fills the card."""
+    whose tensor maps have 16-byte strides; its plan (tokens a block,
+    fan-in splits) is the least modelled cost on a card of 132 SMs."""
     assert TDM.TILE_MIN_B > 8
     assert TDM.tile_takes(4096, 12288, 2) and TDM.tile_takes(11008, 4096, 2)
     assert TDM.tile_takes(1408, 640, 3) and not TDM.tile_takes(96, 256, 3)
     assert not TDM.tile_takes(4096, 100, 2)
     assert TDM._tile_stages(4096, 2) == 32 and TDM._tile_stages(11008, 2) == 86
     assert TDM._tile_stages(1408, 1) == 12      # 6 row groups x 16 fields / 8
-    # (rows per block, warps, fan-in splits) on a card of 132 SMs
-    assert TDM._tile_plan(600, 4096, 12288, 2, 132) == (64, 8, 1)
-    assert TDM._tile_plan(600, 11008, 4096, 2, 132) == (64, 8, 2)
-    assert TDM._tile_plan(32, 4096, 4096, 2, 132) == (32, 4, 8)
-    assert TDM._tile_plan(9, 4096, 32000, 2, 132) == (16, 4, 2)
-    assert TDM._tile_plan(33, 1024, 640, 3, 132) == (64, 4, 2)
+    assert TDM._tile_stages(4096, 4) == 32      # two groups of 8 a stage
+    # (tokens a block, fan-in splits) on 132 SMs; the first five 2-bit
+    # Llama-2-7B plans were the fastest of their neighbours in
+    # tools/tune_tile.py's plan sweep on the H100
+    assert TDM._tile_plan(600, 4096, 12288, 2, 132) == (128, 1)
+    assert TDM._tile_plan(600, 4096, 4096, 2, 132) == (80, 1)   # one wave
+    assert TDM._tile_plan(2048, 4096, 22528, 2, 132) == (128, 1)
+    assert TDM._tile_plan(32, 4096, 4096, 2, 132) == (32, 8)
+    assert TDM._tile_plan(16, 11008, 4096, 2, 132) == (16, 8)
+    assert TDM._tile_plan(9, 4096, 32000, 2, 132) == (16, 1)
+    for B, d, m, bits in [(9, 4096, 32000, 2), (600, 4096, 4096, 3),
+                          (130, 1408, 72, 3)]:
+        n, s = TDM._tile_plan(B, d, m, bits, 132)
+        assert n in TDM.TILE_NS and n <= -(-B // 16) * 16
+        depth = min(TDM._tile_stages(d, fb) for fb, _ in
+                    TDM.PLANE_SPLITS[bits])
+        assert 1 <= s <= max(1, min(16, depth // 4))
 
 
 @pytest.mark.parametrize("d", [256, 1408])

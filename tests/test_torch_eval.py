@@ -169,4 +169,5 @@ def test_window_rows_take_unsplit_k1_tile(B):
                  (32000, 4096)]:
         m_p = padded_m(m, d, 2)
         assert DM.route(B, d, m_p, 2) == "tile"
-        assert DM._tile_plan(B, d, m_p, 2, 132) == (64, 8, 1), (m, d)
+        n_tok, splits = DM._tile_plan(B, d, m_p, 2, 132)
+        assert splits == 1 and n_tok == 128, (m, d)
