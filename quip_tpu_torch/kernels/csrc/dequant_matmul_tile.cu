@@ -68,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int NCONS = 256;                 // consumer threads
@@ -88,78 +90,6 @@ __host__ __device__ constexpr int smem_for(int n) {
   return stages_for(n) * slot_bytes(n) + 1024;   // + alignment slack
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one box of a 2-D tensor map at (column c, row r), global -> shared,
-// completing on `bar`'s transaction count
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c, int r, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
-      "r"(r)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int K>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(K) : "memory");
-}
-// keep a register's value where it is until this point (wgmma reads its A
-// registers and writes its accumulators asynchronously)
-__device__ __forceinline__ void pin(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-__device__ __forceinline__ void pin(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile of rows of 128 bytes
-// (64 bf16) with the 128-byte swizzle, 8-row groups 1024 bytes apart
-// (leading offset 1: unused for this layout). A 16-deep slice at byte
-// 32 j of the rows starts 32 j bytes on from the tile's (1024-aligned)
-// base; the swizzle is applied to the address the hardware forms.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 // D (64 x N, f32) += A (64 x 16, bf16, registers) . B (16 x N, bf16, the
 // descriptor's tile); one specialisation a token width, written out.
 template <int N>
@@ -689,28 +619,6 @@ dm_prep(const T* __restrict__ x, int d, __nv_bfloat16* __restrict__ xp0,
     for (int i = 0; i < 8; ++i) tot += red[i];
     xsum[b] = tot;
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A row-major (rows, cols) matrix as a 2-D tensor map with boxes of

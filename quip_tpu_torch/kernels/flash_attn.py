@@ -5,11 +5,12 @@
 wrapper ``flash_prefill_bshd``) with the hand-written CUDA kernel in
 ``csrc/flash_attn.cu``. It reads the model's (B, S, H, hd) layout in
 place and masks the ragged last tile itself, so any S works without the
-256-padding. The kernel is bound by its two products, which run on the
-tensor cores (``mma.sync``, bf16 operands staged by ``cp.async``, P packed
-to bf16 in registers); its design note is in the source, and
-``flash_prefill_tiled_ref`` walks the key tiles the same way in plain
-PyTorch.
+256-padding. The kernel is bound by its two products, which run on
+``wgmma`` (Q.K^T from shared memory, P.V with P in registers, packed to
+bf16), with K/V tiles of 128 keys brought by TMA and two consumer
+warpgroups taking turns on the tensor cores; its design note is in the
+source, and ``flash_prefill_tiled_ref`` walks the key tiles the same way
+in plain PyTorch.
 
 Semantics: key j is valid for query i iff j <= i and j < plen[b]; GQA head
 h reads KV head h // (H // KV); output acc / max(l, 1e-30) (padded query
@@ -21,6 +22,7 @@ tensors take ``flash_prefill_ref``, a dense f32 masked softmax.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -28,6 +30,7 @@ import torch
 from quip_tpu_torch.kernels import _build
 
 launches = 0          # kernel launches, read by callers
+KEY_TILE = 128        # keys of a tile in csrc/flash_attn.cu (TK)
 
 _fn = None
 
@@ -67,12 +70,13 @@ def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_prefill_tiled_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, plen: Optional[torch.Tensor], *,
-                            scale: float, tk: int = 64) -> torch.Tensor:
+                            scale: float, tk: int = KEY_TILE) -> torch.Tensor:
     """For tests only: the kernel's arithmetic in plain PyTorch. bf16 q, k
-    and v, key tiles of ``tk``, online softmax with f32 m / l / acc, l from
-    the unrounded weights, the weights rounded to bf16 before the PV
-    product, out = acc / max(l, 1e-30) in bf16. Tiles past the causal
-    diagonal of the last query are skipped."""
+    and v, key tiles of ``tk``, online softmax with f32 m / l / acc: m the
+    max of the raw scores, each weight 2^(s c - m c) with c = scale
+    log2(e), l from the unrounded weights, the weights rounded to bf16
+    before the PV product, out = acc / max(l, 1e-30) in bf16. Tiles past
+    the causal diagonal of the last query are skipped."""
     B, S, H, hd = q.shape
     rep = H // k.shape[2]
     qf = q.to(torch.bfloat16).to(torch.float32)
@@ -80,20 +84,22 @@ def flash_prefill_tiled_ref(q: torch.Tensor, k: torch.Tensor,
     vf = v.to(torch.bfloat16).to(torch.float32).repeat_interleave(rep, dim=2)
     if plen is None:
         plen = torch.full((B,), S, dtype=torch.int32)
+    scale_log2 = scale * math.log2(math.e)
     i = torch.arange(S)
     m = torch.full((B, H, S), -1e30)
     l = torch.zeros((B, H, S))
     acc = torch.zeros((B, H, S, hd))
     for kt in range(0, S, tk):
         j = torch.arange(kt, min(kt + tk, S))
-        s = torch.einsum("bshd,blhd->bhsl", qf, kf[:, j]) * scale
+        s = torch.einsum("bshd,blhd->bhsl", qf, kf[:, j])
         valid = ((j[None, :] <= i[:, None])[None]
                  & (j[None, None, :] < plen[:, None, None]))[:, None]
         s = torch.where(valid, s, torch.full_like(s, -1e30))
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(valid, torch.exp(s - m_new[..., None]),
+        p = torch.where(valid, torch.exp2(s * scale_log2
+                                          - (m_new * scale_log2)[..., None]),
                         torch.zeros_like(s))
-        alpha = torch.exp(m - m_new)
+        alpha = torch.exp2((m - m_new) * scale_log2)
         l = l * alpha + p.sum(dim=-1)
         pv = torch.einsum("bhsl,blhd->bhsd",
                           p.to(torch.bfloat16).to(torch.float32), vf[:, j])
@@ -101,6 +107,13 @@ def flash_prefill_tiled_ref(q: torch.Tensor, k: torch.Tensor,
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernel's tensor
+    maps need it; a view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -122,15 +135,16 @@ def flash_prefill_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (B, S, KV, hd) or tuple(v.shape) != (B, S, KV, hd):
         raise ValueError(f"flash_prefill: k/v {tuple(k.shape)} / "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if hd != 128 or H % KV:
-        raise ValueError(f"flash_prefill: needs hd == 128 and H % KV == 0, "
-                         f"got hd={hd}, H={H}, KV={KV}")
+    if hd != 128 or H % KV or not scale > 0:
+        raise ValueError(f"flash_prefill: needs hd == 128, H % KV == 0 and "
+                         f"scale > 0, got hd={hd}, H={H}, KV={KV}, "
+                         f"scale={scale}")
     if plen is None:
         plen = torch.full((B,), S, dtype=torch.int32, device=q.device)
     plen = plen.to(device=q.device, dtype=torch.int32).contiguous()
     if tuple(plen.shape) != (B,):
         raise ValueError(f"flash_prefill: plen must be ({B},)")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty_like(q)
     err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), plen.data_ptr(),
                    out.data_ptr(), B, S, H, KV, hd, float(scale),

@@ -297,11 +297,13 @@ def _flash_eligible(cfg: ModelConfig, S: int, x: torch.Tensor,
     """Flash prefill gate: ``QUIP_FLASH_PREFILL`` not turned off (read at
     call time, default on, as in quip_tpu), CUDA tensors, prefill from
     position 0 (plen given), S >= 512 (below it the dense logits are
-    small), hd % 128 == 0, no ALiBi."""
+    small), hd == 128 (the only width K2 takes; quip_tpu admits any
+    multiple of 128, and every other width here takes dense attention,
+    the same function), no ALiBi."""
     if os.environ.get("QUIP_FLASH_PREFILL", "1") != "1":
         return False
     return (plen is not None and x.is_cuda and cfg.positions != "alibi"
-            and S >= 512 and cfg.hd % 128 == 0)
+            and S >= 512 and cfg.hd == 128)
 
 
 def take_slots(slots: Optional[Tuple[int, int]], *ts: torch.Tensor):

@@ -19,16 +19,12 @@ against 4 and 8 warps at fixed numbers of splits, at the five shapes, B = 1,
 """
 from __future__ import annotations
 
-import ctypes
 import math
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-from quip_tpu_torch.kernels import _build
 from quip_tpu_torch.kernels import dequant_matmul as DM
+from quip_tpu_torch.tools.variants import build, card, rep, source
 from quip_tpu_torch.utils.timing import time_ms
 
 SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
@@ -37,17 +33,12 @@ SPLITS = (1, 2, 3, 4, 5, 6, 8)
 ROWS = (1, 8)
 
 
-def _rep(src: str, old: str, new: str) -> str:
-    assert old in src, old
-    return src.replace(old, new)
-
-
 def variants(src: str) -> dict:
-    no_unpack = _rep(
+    no_unpack = rep(
         src, "return (w_run & (MP << (FB * r))) | 0x43004300u;",
         "return w_run;")
     # keep the loaded words alive without the tensor cores: XOR them in
-    no_mma = lambda s: _rep(  # noqa: E731
+    no_mma = lambda s: rep(  # noqa: E731
         s, '      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "\n'
         '      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\\n"',
         '      "{ .reg .b32 v; xor.b32 v, %4, %5; xor.b32 v, v, %6; "\n'
@@ -63,7 +54,7 @@ def variants(src: str) -> dict:
                 ("(splits > 1 ? cluster.map_shared_rank(red, y0 + u) : red)",
                  "red"),
                 ("if (splits > 1) cluster.sync();      // nobody", "// nobody")):
-            s = _rep(s, old, new)
+            s = rep(s, old, new)
         return s
 
     return {
@@ -72,12 +63,12 @@ def variants(src: str) -> dict:
         "no products": no_mma(src),
         "copies only": no_mma(no_unpack),
         "no reduction": no_cluster(src),
-        "2 groups in flight": _rep(src, "constexpr int DEPTH = 4;",
-                                   "constexpr int DEPTH = 2;"),
-        "8 groups in flight": _rep(src, "constexpr int DEPTH = 4;",
-                                   "constexpr int DEPTH = 8;"),
-        "one chain of products": _rep(src, "(k & 1) ? odd[q] : acc[q]",
-                                      "acc[q]"),
+        "2 groups in flight": rep(src, "constexpr int DEPTH = 4;",
+                                  "constexpr int DEPTH = 2;"),
+        "8 groups in flight": rep(src, "constexpr int DEPTH = 4;",
+                                  "constexpr int DEPTH = 8;"),
+        "one chain of products": rep(src, "(k & 1) ? odd[q] : acc[q]",
+                                     "acc[q]"),
     }
 
 
@@ -95,46 +86,31 @@ def _time(x, copies, scale):
 
 
 def ablate(gen, dev, scale):
-    src = (Path(_build.__file__).parent / "csrc"
-           / "dequant_matmul_decode.cu").read_text()
+    src = source("dequant_matmul_decode.cu")
     DM._entry_decode()
     genuine, argtypes = DM._fn_decode, DM._fn_decode.argtypes
-    with tempfile.TemporaryDirectory() as tmp:
-        jobs = {}
-        for i, (name, text) in enumerate(variants(src).items()):
-            cu, so = Path(tmp) / f"v{i}.cu", Path(tmp) / f"v{i}.so"
-            cu.write_text(text)
-            jobs[name] = (so, subprocess.Popen(
-                [_build.nvcc(), *_build._FLAGS, "-o", str(so), str(cu)],
-                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-        fns = {}
-        for name, (so, proc) in jobs.items():
-            assert proc.wait() == 0, name
-            f = ctypes.CDLL(str(so)).quip_dequant_matmul_decode
-            f.argtypes, f.restype = argtypes, ctypes.c_int
-            fns[name] = f
-        sums = {(name, B): 0.0 for name in fns for B in ROWS}
-        try:
-            for sname, (m, d) in SHAPES.items():
-                copies = _planes(m, d, gen, dev)
-                for B in ROWS:
-                    x = torch.randn(B, d, device=dev,
-                                    generator=gen).bfloat16()
-                    row = []
-                    for name, f in fns.items():
-                        DM._fn_decode = f
-                        us = _time(x, copies, scale) * 1e3
-                        sums[name, B] += us
-                        row.append(f"{name} {us:.1f}")
-                    print(f"ablation {sname} B={B}, us: " + " | ".join(row),
-                          flush=True)
-                del copies
-                torch.cuda.empty_cache()
-        finally:
-            DM._fn_decode = genuine
-        for B in ROWS:
-            print(f"ablation sum of the five shapes B={B}, us: " + " | ".join(
-                f"{name} {sums[name, B]:.1f}" for name in fns), flush=True)
+    fns = build(variants(src), "quip_dequant_matmul_decode", argtypes)
+    sums = {(name, B): 0.0 for name in fns for B in ROWS}
+    try:
+        for sname, (m, d) in SHAPES.items():
+            copies = _planes(m, d, gen, dev)
+            for B in ROWS:
+                x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
+                row = []
+                for name, f in fns.items():
+                    DM._fn_decode = f
+                    us = _time(x, copies, scale) * 1e3
+                    sums[name, B] += us
+                    row.append(f"{name} {us:.1f}")
+                print(f"ablation {sname} B={B}, us: " + " | ".join(row),
+                      flush=True)
+            del copies
+            torch.cuda.empty_cache()
+    finally:
+        DM._fn_decode = genuine
+    for B in ROWS:
+        print(f"ablation sum of the five shapes B={B}, us: " + " | ".join(
+            f"{name} {sums[name, B]:.1f}" for name in fns), flush=True)
 
 
 def plans(gen, dev, scale):
@@ -174,10 +150,7 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     scale = torch.tensor(0.02, device=dev)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(card())
     ablate(gen, dev, scale)
     plans(gen, dev, scale)
 

@@ -25,17 +25,12 @@ Part 3, stages: the ring's depth, compiled with a shared-memory budget of
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import math
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-from quip_tpu_torch.kernels import _build
 from quip_tpu_torch.kernels import dequant_matmul as DM
+from quip_tpu_torch.tools.variants import build, card, rep, source, swapped
 from quip_tpu_torch.utils.timing import time_ms
 
 SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
@@ -43,72 +38,37 @@ SHAPES = {"wqkv": (12288, 4096), "wo": (4096, 4096), "wgu": (22528, 4096),
 BUDGET = "constexpr int kSmemBudget = 150 * 1024;"
 
 
-def _rep(src: str, old: str, new: str) -> str:
-    assert old in src, old
-    return src.replace(old, new)
-
-
 def variants(src: str) -> dict:
-    no_mma = lambda s: _rep(  # noqa: E731
+    no_mma = lambda s: rep(  # noqa: E731
         s, '"wgmma.mma_async.sync.aligned.m64n',
         '"// wgmma.mma_async.sync.aligned.m64n')
     pair = "  uint32_t v = ((w >> sh) & MP) | 0x43004300u;\n"
-    no_unpack = lambda s: _rep(s, pair, "  return w;\n" + pair)  # noqa: E731
+    no_unpack = lambda s: rep(s, pair, "  return w;\n" + pair)  # noqa: E731
 
     def no_copies(s):
-        s = _rep(s, "mbar_expect_tx(&full[slot], bytes);",
-                 "mbar_expect_tx(&full[slot], 0);")
-        s = _rep(s, "for (int j = 0; j < 2; ++j)\n",
-                 "for (int j = 0; j < 0; ++j)\n")
-        return _rep(s, "tma_load(base + x_bytes(N), wmap,",
-                    "if (0) tma_load(base + x_bytes(N), wmap,")
+        s = rep(s, "mbar_expect_tx(&full[slot], bytes);",
+                "mbar_expect_tx(&full[slot], 0);")
+        s = rep(s, "for (int j = 0; j < 2; ++j)\n",
+                "for (int j = 0; j < 0; ++j)\n")
+        return rep(s, "tma_load(base + x_bytes(N), wmap,",
+                   "if (0) tma_load(base + x_bytes(N), wmap,")
     return {
         "as it is": src,
         "no products": no_mma(src),
         "no unpack": no_unpack(src),
-        "no subtraction": _rep(src, "  const uint32_t magic = 0x43004300u;\n",
-                               "  return v;\n"
-                               "  const uint32_t magic = 0x43004300u;\n"),
+        "no subtraction": rep(src, "  const uint32_t magic = 0x43004300u;\n",
+                              "  return v;\n"
+                              "  const uint32_t magic = 0x43004300u;\n"),
         "copies only": no_mma(no_unpack(src)),
         "no copies": no_copies(src),
         "none of the three": no_copies(no_mma(no_unpack(src))),
     }
 
 
-def _build_variants(texts: dict) -> dict:
-    """Compile each source text at once; name -> C entry (the genuine
-    entry's argument types)."""
+def _build(texts: dict) -> dict:
+    """Each source text compiled; name -> C entry."""
     DM._entry_tile()
-    argtypes = DM._fn_tile.argtypes
-    tmp = Path(tempfile.mkdtemp())
-    jobs = {}
-    for i, (name, text) in enumerate(texts.items()):
-        cu, so = tmp / f"v{i}.cu", tmp / f"v{i}.so"
-        cu.write_text(text)
-        jobs[name] = (so, subprocess.Popen(
-            [_build.nvcc(), *_build._FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT))
-    fns = {}
-    for name, (so, proc) in jobs.items():
-        assert proc.wait() == 0, name
-        f = ctypes.CDLL(str(so)).quip_dequant_matmul_tile
-        f.argtypes, f.restype = argtypes, ctypes.c_int
-        fns[name] = f
-    return fns
-
-
-@contextlib.contextmanager
-def _using(fn=None, plan=None):
-    """K1-tile's entry and plan swapped for the block's duration."""
-    entry, rule = DM._fn_tile, DM._tile_plan
-    if fn is not None:
-        DM._fn_tile = fn
-    if plan is not None:
-        DM._tile_plan = lambda *a: plan
-    try:
-        yield
-    finally:
-        DM._fn_tile, DM._tile_plan = entry, rule
+    return build(texts, "quip_dequant_matmul_tile", DM._fn_tile.argtypes)
 
 
 def _planes(m, d, gen, dev):
@@ -123,13 +83,8 @@ def _time(x, copies, scale):
                     for c in copies], 10)
 
 
-def _src() -> str:
-    return (Path(_build.__file__).parent / "csrc"
-            / "dequant_matmul_tile.cu").read_text()
-
-
 def ablate(gen, dev, scale):
-    fns = _build_variants(variants(_src()))
+    fns = _build(variants(source("dequant_matmul_tile.cu")))
     for sname in ("wqkv", "wo", "wd"):
         m, d = SHAPES[sname]
         copies = _planes(m, d, gen, dev)
@@ -137,7 +92,7 @@ def ablate(gen, dev, scale):
             x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
             row = []
             for name, f in fns.items():
-                with _using(fn=f):
+                with swapped(DM, _fn_tile=f):
                     row.append(f"{name} {_time(x, copies, scale) * 1e3:.1f}")
             print(f"ablation {sname} B={B} plan "
                   f"{DM._tile_plan(B, d, m, 2, 132)}, us: " + " | ".join(row),
@@ -167,7 +122,7 @@ def plans(gen, dev, scale):
                                          bits=2)
             row = []
             for plan in _neighbours(DM._tile_plan(B, d, m, 2, sms), B, d):
-                with _using(plan=plan):
+                with swapped(DM, _tile_plan=lambda *a, p=plan: p):
                     got = DM.dequant_matmul(x.float(), copies[0], scale,
                                             None, bits=2)
                     rel = ((got - want).abs().max()
@@ -181,10 +136,10 @@ def plans(gen, dev, scale):
 
 
 def stages(gen, dev, scale):
-    src = _src()
-    fns = _build_variants({
-        f"{kb} KB": _rep(src, BUDGET,
-                         f"constexpr int kSmemBudget = {kb} * 1024;")
+    src = source("dequant_matmul_tile.cu")
+    fns = _build({
+        f"{kb} KB": rep(src, BUDGET,
+                        f"constexpr int kSmemBudget = {kb} * 1024;")
         for kb in (100, 150, 200)})
     sums = {(k, B): 0.0 for k in fns for B in (32, 600, 2048)}
     for sname, (m, d) in SHAPES.items():
@@ -192,7 +147,7 @@ def stages(gen, dev, scale):
         for B in (32, 600, 2048):
             x = torch.randn(B, d, device=dev, generator=gen).bfloat16()
             for k, f in fns.items():
-                with _using(fn=f):
+                with swapped(DM, _fn_tile=f):
                     sums[k, B] += _time(x, copies, scale)
         del copies
         torch.cuda.empty_cache()
@@ -211,10 +166,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     scale = torch.tensor(0.02, device=dev)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip())
+    print(card())
     parts = args.part or ["ablation", "plans", "stages"]
     for part, fn in (("ablation", ablate), ("plans", plans),
                      ("stages", stages)):

@@ -1,0 +1,75 @@
+"""Compiled copies of a kernel source, for the tuning tools (tune_decode,
+tune_tile, tune_flash, tune_slabdot): a text edit that must apply, every
+copy built at once by nvcc with the kernels' own flags, and a module's
+attributes (its C entry, its plan rule) swapped for a block."""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import re
+import subprocess
+import tempfile
+from pathlib import Path
+
+from quip_tpu_torch.kernels import _build
+
+
+def rep(src: str, old: str, new: str) -> str:
+    """``src`` with ``old`` replaced by ``new``; ``old`` must be there."""
+    assert old in src, old
+    return src.replace(old, new)
+
+
+def source(name: str) -> str:
+    """The text of ``kernels/csrc/<name>``."""
+    return (_build._CSRC / name).read_text()
+
+
+def build(texts: dict, entry: str, argtypes, ptxas: bool = False) -> dict:
+    """Compile each source text at once (csrc on the include path, so the
+    copies find its headers); name -> the C function ``entry`` of each,
+    with ``argtypes`` and an int result. With ``ptxas``, prints each
+    copy's registers, spills and serialised wgmma (C7513)."""
+    fns = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = {}
+        for i, (name, text) in enumerate(texts.items()):
+            cu, so = Path(tmp) / f"v{i}.cu", Path(tmp) / f"v{i}.so"
+            cu.write_text(text)
+            jobs[name] = (so, subprocess.Popen(
+                [_build.nvcc(), *_build._FLAGS, "-I", str(_build._CSRC),
+                 "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (so, proc) in jobs.items():
+            log = proc.communicate()[0]
+            assert proc.returncode == 0, (name, log[-2000:])
+            if ptxas:
+                regs = re.findall(r"Used (\d+) registers", log)
+                spill = re.findall(r"(\d+) bytes spill stores", log)
+                print(f"  ptxas {name}: {regs} registers, {spill} bytes "
+                      f"spilled, C7513 x{log.count('C7513')}", flush=True)
+            f = getattr(ctypes.CDLL(str(so)), entry)
+            f.argtypes, f.restype = argtypes, ctypes.c_int
+            fns[name] = f
+    return fns
+
+
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """``module``'s attributes set to ``attrs`` for the block's duration."""
+    old = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(module, k, v)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()

@@ -188,7 +188,9 @@ def test_k1_dispatch_by_shape(cuda):
                                            (1, 8, 2, 77, [77]),
                                            (2, 8, 8, 513, [513, 1]),
                                            (1, 8, 2, 2048, [2048]),
-                                           (2, 4, 1, 64, [64, 63])])
+                                           (2, 4, 1, 64, [64, 63]),
+                                           (2, 16, 2, 1000, [1000, 613]),
+                                           (1, 4, 4, 4096, [4096])])
 def test_k2_matches_plain(cuda, B, H, KV, S, plen):
     g = torch.Generator(device=cuda).manual_seed(S)
     q = torch.randn(B, S, H, 128, generator=g, device=cuda).bfloat16()
@@ -201,6 +203,22 @@ def test_k2_matches_plain(cuda, B, H, KV, S, plen):
     want = FA.flash_prefill_ref(q.float(), k.float(), v.float(), pl,
                                 scale=1 / math.sqrt(128))
     assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= 2e-2
+
+
+def test_k2_takes_an_unaligned_view(cuda):
+    """q, k and v as contiguous views at a 2-byte offset: the wrapper
+    copies them to the aligned addresses the tensor maps need."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    n = 2 * 600 * 4 * 128
+    buf = torch.randn(3 * n + 1, generator=g, device=cuda).bfloat16()
+    q, k, v = (buf[1 + i * n:1 + (i + 1) * n].view(2, 600, 4, 128)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    pl = torch.tensor([600, 517], dtype=torch.int32, device=cuda)
+    got = FA.flash_prefill_bshd(q, k, v, pl, scale=1 / math.sqrt(128))
+    want = FA.flash_prefill_ref(q.float(), k.float(), v.float(), pl,
+                                scale=1 / math.sqrt(128))
     assert (got.float() - want).abs().max().item() <= 2e-2
 
 
