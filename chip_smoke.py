@@ -6,25 +6,28 @@ Needs one CUDA card (written for an H100, sm_90a) and nvcc. It builds the
 port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
   1. the card's name and power limit, and the kernel build (all five nvcc
-     runs started together), with each K1-tile and K2 kernel's registers,
-     shared memory and spills from the ``-Xptxas -v`` log (no wgmma
-     serialised; K2 spills nothing);
+     runs started together), with each K1-tile, K1-decode and K2 kernel's
+     registers, shared memory and spills from the ``-Xptxas -v`` log (no
+     wgmma serialised; K1-decode and K2 spill nothing);
   2. K1 (dequant_matmul: the decode kernel K1-decode up to B = 8, the
      tile kernel K1-tile above, both on the tensor cores) against its plain
      version at the five 2-bit Llama-2-7B projection shapes (B = 1..4, 7, 8,
      9, 12, 16, 17, 24, 32, 128, 600, 1000, 2048: the last one perplexity
      window's rows) and at small 3/4/8-bit, qfn-a and code_bits=3 shapes
      (B up to 2048), three of them ragged and one that only K1-decode
-     takes, f32 and bf16 x, each kernel forced past its threshold too, with
+     takes (m = 330: no tensor map, K1-decode's cp.async ring, counted),
+     f32 and bf16 x, each kernel forced past its threshold too, with
      kernel, plain, bound and library (torch.matmul of the dequantised bf16
      weight) times, and both kernels' times at B = 1, 2, 4, 8, 9, 12, 16,
      24, 32 (the crossover); then OPT-6.7B's four shapes (fc2 at d = 16384)
-     at B = 1, 4, 8, 9, 16, 32, 37, 128, 600 and 2048, timed at all but 37
-     and 128; K1-tile's sums at B = 16, 32, 600, 2048 beside their bounds,
-     torch.matmul and the mma.sync kernel's earlier times; then 3-bit codes
+     at B = 1, 2, 4, 8, 9, 16, 32, 37, 128, 600 and 2048, timed at all but
+     37 and 128; K1-decode's and K1-tile's sums beside their bounds,
+     torch.matmul and the mma.sync kernels' earlier times; then 3-bit codes
      at the five Llama-2-7B shapes as two planes and widened to 4-bit
-     fields (code_bits=3, by ``widen_3bit``), each against its plain version and against the other at
-     B = 1 (K1-decode) and 600 (K1-tile), timed beside their bounds;
+     fields (code_bits=3, by ``widen_3bit``), each against its plain
+     version and against the other at B = 1 (K1-decode) and 600
+     (K1-tile), the widened layout also at B = 2, 4, 8, timed beside their
+     bounds;
   3. K2 (flash_prefill) against its plain version, by the largest error
      and by each output row's largest error over that row's rms (B=2,
      H=32, S=600, plen=[600, 431]; GQA H=64, KV=8 and H=32, KV=8; S = 513
@@ -67,8 +70,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      holds); warmup's seconds, graphs and pool bytes; then b1 and b4 decode
      through the serial step and through the pump, un-fused and with
      QUIP_FUSED_RHT=1: ms a step on the host clock (the pump's the median
-     of 3 windows of 48 tokens a slot), kernel ms and launches a step by
-     the profiler, and the device's busy share;
+     of 3 windows of 48 tokens a slot; the serial step over 32 / 12 steps
+     at b1 / b4), kernel ms and launches a step by the profiler, K1-decode's
+     ms a step among them, and the device's busy share;
  11. (run right after phase 8, on the first SPEC_LAYERS of phase 7's
      blocks, a depth cut for the script's limit) speculative serving:
      phase 7's 4 greedy requests through ``warmup()`` and
@@ -148,7 +152,7 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
  17. (after phase 16) parallelism, ranks sharing the card over gloo
      (``parallel/mesh.py::run_ranks``; the collectives gloo lacks for CUDA
      tensors staged through the host by parallel/comm.py): 17a K1-decode
-     (B = 1, 4) and K1-tile (B = 600) on the column shards of Llama-2-7B's
+     (B = 1, 2, 4, 8) and K1-tile (B = 600) on the column shards of Llama-2-7B's
      four stacked linears at tp = 2 and 4, joined against the unsharded
      call, times beside bounds; 17b tp = 2 at full depth, phase 7's four
      requests (16 new tokens) through the serial ``Engine(mesh=).run``,
@@ -257,17 +261,29 @@ def phase_device():
         log(f"  ptxas dequant_matmul_tile {k['kernel']}: {k['registers']} "
             f"registers, {k['smem']} bytes static smem, {k['spill']} bytes "
             f"spilled")
-    serial = logs["dequant_matmul_tile"].count("C7513")
+    from quip_tpu_torch.tools.variants import serialised
+    serial = serialised(logs["dequant_matmul_tile"])
     log(f"  ptxas dequant_matmul_tile: {serial} kernels with wgmma "
-        f"serialised (C7513)")
+        f"serialised (C7513 / C7515)")
     assert serial == 0, "ptxas serialised K1-tile's wgmma"
+    RESULTS["ptxas_decode"] = _ptxas_kernels(logs["dequant_matmul_decode"])
+    for k in RESULTS["ptxas_decode"]:
+        log(f"  ptxas dequant_matmul_decode {k['kernel']}: {k['registers']} "
+            f"registers, {k['smem']} bytes static smem, {k['spill']} bytes "
+            f"spilled")
+    serial = serialised(logs["dequant_matmul_decode"])
+    log(f"  ptxas dequant_matmul_decode: {serial} kernels with wgmma "
+        f"serialised (C7513 / C7515)")
+    assert serial == 0, "ptxas serialised K1-decode's wgmma"
+    assert RESULTS["ptxas_decode"] and not any(
+        k["spill"] for k in RESULTS["ptxas_decode"]), RESULTS["ptxas_decode"]
     RESULTS["ptxas_flash"] = _ptxas_kernels(logs["flash_attn"])
     for k in RESULTS["ptxas_flash"]:
         log(f"  ptxas flash_attn {k['kernel']}: {k['registers']} registers, "
             f"{k['smem']} bytes static smem, {k['spill']} bytes spilled")
-    serial = logs["flash_attn"].count("C7513")
+    serial = serialised(logs["flash_attn"])
     log(f"  ptxas flash_attn: {serial} kernels with wgmma serialised "
-        f"(C7513)")
+        f"(C7513 / C7515)")
     assert serial == 0, "ptxas serialised K2's wgmma"
     assert RESULTS["ptxas_flash"] and not any(
         k["spill"] for k in RESULTS["ptxas_flash"]), RESULTS["ptxas_flash"]
@@ -277,16 +293,21 @@ def phase_device():
 def _ptxas_kernels(text: str) -> list:
     """Each kernel's registers, static shared memory and spilled bytes from
     an ``nvcc -Xptxas -v`` log (kernel names demangled to their templates:
-    ``dm_tile<128>``, ``flash_fwd``)."""
+    ``dm_tile<128>``, ``dm_decode<1, false>``, ``flash_fwd``)."""
     import re
     out, kernel, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw, spill = m.group(1), 0
-            t = re.search(r"(\d+)(dm_\w+?)I(?:Li)?(\w+?)EE", raw)
-            kernel = (f"{t.group(2)}<{re.sub(r'^\d+(?=\D)', '', t.group(3))}>"
+            t = re.search(r"\d+(dm_[a-z_]+)I((?:L[ib]\d+E)+)E", raw)
+            u = re.search(r"(\d+)(dm_\w+?)I(\w+?)EE", raw)
+            kernel = (t.group(1) + "<" + ", ".join(
+                v if k == "i" else ("true" if v == "1" else "false")
+                for k, v in re.findall(r"L([ib])(\d+)E", t.group(2))) + ">"
                       if t else
+                      f"{u.group(2)}<{re.sub(r'^\d+(?=\D)', '', u.group(3))}>"
+                      if u else
                       re.sub(r"^.*?\d+((?:dm|flash)_\w+?)E.*$", r"\1", raw))
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -312,6 +333,10 @@ BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, prefill_ms=437.4,
                      (1, 32, 32, 4096): 0.7963, (1, 64, 8, 2048): 0.4246},
               # B -> (the CUDA-core K1, K1-tile), sums of the five shapes
               k1_sums_ms={1: (0.1327, 0.1059), 8: (0.3652, 0.1090)},
+              # K1-decode on mma.sync before its wgmma redesign (PR 4-16):
+              # B -> ms, sums of the five Llama-2-7B (four OPT-6.7B) shapes
+              k1d_ms={1: 0.0865, 2: 0.0894, 4: 0.0958, 8: 0.1053},
+              k1d_opt_ms={1: 0.0646, 4: 0.0732, 8: 0.0806},
               k3_sum_ms=0.1271,
               # K1' before its redesign: five shapes, B = 1, best tile_m
               k1p_sum_ms=0.1178,
@@ -377,6 +402,7 @@ def phase_k1(name: str):
 
     worst = {"decode": 0.0, "tile": 0.0}
     worst_rel = {"decode": 0.0, "tile": 0.0}
+    ragged = {"decode": 0, "tile": 0}
 
     def check(x, pl, scale, zero, what, path=None, **kw):
         """Kernel against plain: f32 x holding bf16 values, so both see the
@@ -387,11 +413,16 @@ def phase_k1(name: str):
         B, d = x.shape
         want_path = path or DM.route(B, d, pl[0].shape[-1], kw["bits"])
         t0, d0 = DM.launches_tile, DM.launches_decode
+        r0 = DM.launches_decode_ragged
         xf = x.float()
         got = DM.dequant_matmul(xf, pl, scale, zero, path=path, **kw)
         took = (DM.launches_tile - t0, DM.launches_decode - d0)
         assert took == ((1, 0) if want_path == "tile" else
                         (0, -(-B // DM.DECODE_MAX_B))), (what, want_path, took)
+        # planes with no tensor map take K1-decode's cp.async ring, by shape
+        ragged[want_path] += DM.launches_decode_ragged - r0
+        assert DM.launches_decode_ragged - r0 == (
+            took[1] if DM.decode_ragged(pl) else 0), (what, took)
         want = DM.dequant_matmul_ref(xf, pl, scale, zero, **kw)
         got16 = DM.dequant_matmul(x, pl, scale, zero, path=path, **kw)
         torch.cuda.synchronize()
@@ -439,7 +470,9 @@ def phase_k1(name: str):
     log(f"K1 small formats (2/3/4/8-bit, qfn a/b, code_bits=3; 640x1024, "
         f"328x1408, 72x1408 and 330x96; B = 1..8 and 9..2048, f32 and bf16 "
         f"x): max rel err K1-decode {worst_rel['decode']:.2e}, K1-tile "
-        f"{worst_rel['tile']:.2e} <= 1e-3")
+        f"{worst_rel['tile']:.2e} <= 1e-3; K1-decode's cp.async ring (m = "
+        f"330, no tensor map) {ragged['decode']} launches")
+    assert ragged["decode"] > 0 and ragged["tile"] == 0, ragged
     # 2048: the rows of one 2048-token perplexity window (phase 10)
     timed = (1, 2, 4, 8, 9, 12, 16, 24, 32, 128, 600, 2048)
     crossed = (1, 2, 4, 8, 9, 12, 16, 24, 32)
@@ -517,11 +550,11 @@ def phase_k1(name: str):
     # reads d = 16384, the widest fan-in yet; the tied head is dense. Also
     # checked at the other row counts phase 12 gives K1-tile: the 37- and
     # 128-token prompts and the 32-row admission windows
-    opt_timed = (1, 4, 8, 9, 16, 32, 600, 2048)
+    opt_timed = (1, 2, 4, 8, 9, 16, 32, 600, 2048)
     opt_rows, opt_sums, _, opt_by = sweep(
         "opt-6.7b", {"wqkv": (12288, 4096), "wo": (4096, 4096),
                      "fc1": (16384, 4096), "fc2": (4096, 16384)},
-        (1, 4, 8, 9, 16, 32, 37, 128, 600, 2048), opt_timed)
+        (1, 2, 4, 8, 9, 16, 32, 37, 128, 600, 2048), opt_timed)
     w3 = _k1_widened(name, dev, g, scale, planes_for, check)
     for B in opt_timed:
         t = opt_sums[B]
@@ -529,13 +562,19 @@ def phase_k1(name: str):
             f"bound {t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.0%}), "
             f"plain {t['plain_ms']:.3f}, torch.matmul bf16 "
             f"{t['library_ms']:.4f}")
-    for B in (1, 4, 8):
+    for B in (1, 2, 4, 8):
         assert opt_sums[B]["ms"] < opt_sums[B]["library_ms"], (B, opt_sums)
     for B in timed:
         t = sums[B]
         log(f"K1 sum of the five shapes, B={B:4d}: {t['ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ({t['bound_ms'] / t['ms']:.0%}), "
             f"torch.matmul bf16 {t['library_ms']:.4f}")
+    for B in (1, 2, 4, 8):
+        log(f"K1-decode on wgmma, B={B}: five Llama-2-7B shapes "
+            f"{sums[B]['ms']:.4f} ms (mma.sync, PR 4-16: "
+            f"{BEFORE['k1d_ms'][B]}), OPT-6.7B's four "
+            f"{opt_sums[B]['ms']:.4f} ms (mma.sync: "
+            f"{BEFORE['k1d_opt_ms'].get(B, '-')})")
     for B, c in cross.items():
         b = BEFORE["k1_sums_ms"].get(B)
         log(f"K1 crossover, B={B:2d}, sum of the five shapes: K1-decode "
@@ -567,10 +606,13 @@ def phase_k1(name: str):
         assert len(opt_by[B]) == 1, (B, opt_by[B])
     k1 = dict(sums[1], max_rel_err=worst_rel["decode"],
               max_abs_err=worst["decode"], bound_by=bound_by[1].pop(),
-              ms_b8=sums[8]["ms"], bound_ms_b8=sums[8]["bound_ms"],
-              library_ms_b8=sums[8]["library_ms"],
-              **{f"{k}_opt_b1": v for k, v in opt_sums[1].items()},
-              bound_by_opt_b1=opt_by[1].pop(), **w3[1])
+              launches_ragged_checks=ragged["decode"],
+              **{f"{k}_b{B}": v for B in (2, 4, 8)
+                 for k, v in sums[B].items()},
+              **{f"{k}_opt_b{B}": v for B in (1, 2, 4, 8)
+                 for k, v in opt_sums[B].items()},
+              bound_by_opt_b1=opt_by[1].pop(),
+              **{k: v for B in (1, 2, 4, 8) for k, v in w3[B].items()})
     for B in (16, 32, 600, 2048):
         for model, t in (("Llama-2-7B five", sums[B]),
                          ("OPT-6.7B four", opt_sums[B])):
@@ -602,19 +644,24 @@ def _k1_widened(name: str, dev, g, scale, planes_for, check) -> dict:
     shapes as quip_tpu's two planes (2 + 1 bits) and widened to one plane
     of 4-bit fields (``code_bits=3``, Engine's default at load), each
     through ``check`` (its plain version, at B = 1 for K1-decode and 600
-    for K1-tile) and the widened output against the two planes' (the same
-    codes: 1e-3 of max |y|, the summation order). Kernel,
-    plain, bound and torch.matmul times of both. Returns, by B, the sums
-    as the ``kernels`` line's ``*_w3_b{B}`` (widened) and ``*_3bit_b{B}``
-    (two planes) keys."""
+    for K1-tile; the widened layout, Engine's, at B = 2, 4 and 8 too) and
+    the widened output against the two planes' (the same codes: 1e-3 of
+    max |y|, the summation order). Kernel, plain, bound and torch.matmul
+    times. Returns, by B, the sums as the ``kernels`` line's
+    ``*_w3_b{B}`` (widened) and ``*_3bit_b{B}`` (two planes) keys."""
     from quip_tpu_torch.kernels import dequant_matmul as DM
     from quip_tpu_torch.pack import format as PF
     from quip_tpu_torch.utils.timing import time_ms
 
     lays = {"3bit": dict(bits=3), "w3": dict(bits=4, code_bits=3)}
-    sums = {B: {f"{k}_{lay}_b{B}": 0.0 for lay in lays
+    both = (1, 600)
+
+    def lays_at(B):
+        return lays if B in both else {"w3": lays["w3"]}
+
+    sums = {B: {f"{k}_{lay}_b{B}": 0.0 for lay in lays_at(B)
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-            for B in (1, 600)}
+            for B in (1, 2, 4, 8, 600)}
     rows, worst = [], 0.0
     for sname, (m, d) in LLAMA_SHAPES.items():
         pbytes = {"3bit": d * 3 * m // 8, "w3": d * 4 * m // 8}
@@ -625,22 +672,25 @@ def _k1_widened(name: str, dev, g, scale, planes_for, check) -> dict:
             out_features=m, in_features=d)).planes for c in copies["3bit"]]
         W = DM.dequant_weight(copies["3bit"][0], scale, None, bits=3,
                               d=d).to(torch.bfloat16)
-        for B in (1, 600):
+        for B in sums:
             x = torch.randn(B, d, device=dev, generator=g).bfloat16()
-            for lay, kw in lays.items():
+            for lay, kw in lays_at(B).items():
                 check(x, copies[lay][0], scale, None, (lay, sname, B), **kw)
-            ys = [DM.dequant_matmul(x.float(), copies[lay][0], scale, None,
-                                    **kw) for lay, kw in lays.items()]
-            _, rel = rel_err(ys[1], ys[0])
-            assert rel <= 1e-3, (sname, B, rel)
-            worst = max(worst, rel)
+            row = dict(shape=sname, m=m, d=d, B=B)
+            if B in both:
+                ys = [DM.dequant_matmul(x.float(), copies[lay][0], scale,
+                                        None, **kw)
+                      for lay, kw in lays.items()]
+                _, rel = rel_err(ys[1], ys[0])
+                assert rel <= 1e-3, (sname, B, rel)
+                worst = max(worst, rel)
+                row["widened_vs_two_planes"] = rel
             lib = time_ms([lambda: torch.matmul(x, W.t())], 20)
-            row = dict(shape=sname, m=m, d=d, B=B, widened_vs_two_planes=rel,
-                       library_ms=lib)
-            for lay, kw in lays.items():
+            row["library_ms"] = lib
+            for lay, kw in lays_at(B).items():
                 ms = time_ms([lambda c=c: DM.dequant_matmul(
                     x, c, scale, None, **kw) for c in copies[lay]],
-                    20 if B == 1 else 5)
+                    5 if B == 600 else 20)
                 plain = time_ms([lambda: DM.dequant_matmul_ref(
                     x, copies[lay][0], scale, None, **kw)], 2)
                 bms, by = bound_ms(B * d * 2 + pbytes[lay] + B * m * 2,
@@ -651,21 +701,25 @@ def _k1_widened(name: str, dev, g, scale, planes_for, check) -> dict:
                              ("bound_ms", bms), ("library_ms", lib)):
                     sums[B][f"{k}_{lay}_b{B}"] += v
             rows.append(row)
-            log(f"K1 3-bit {sname:8s} {m}x{d} B={B:4d}: two planes "
-                f"{row['ms_3bit']:.4f} ms (bound {row['bound_ms_3bit']:.4f}"
-                f" {row['bound_by_3bit']}), widened {row['ms_w3']:.4f} ms "
-                f"(bound {row['bound_ms_w3']:.4f} {row['bound_by_w3']}); "
-                f"torch.matmul bf16 {lib:.4f} ms; widened vs two planes "
-                f"{rel:.1e}")
+            log(f"K1 3-bit {sname:8s} {m}x{d} B={B:4d}: "
+                + (f"two planes {row['ms_3bit']:.4f} ms (bound "
+                   f"{row['bound_ms_3bit']:.4f} {row['bound_by_3bit']}), "
+                   if B in both else "")
+                + f"widened {row['ms_w3']:.4f} ms (bound "
+                f"{row['bound_ms_w3']:.4f} {row['bound_by_w3']}); "
+                f"torch.matmul bf16 {lib:.4f} ms"
+                + (f"; widened vs two planes {row['widened_vs_two_planes']:.1e}"
+                   if B in both else ""))
         del copies, W
         torch.cuda.empty_cache()
     for B, t in sums.items():
-        log(f"K1 3-bit sum of the five shapes, B={B:4d}: two planes "
-            f"{t[f'ms_3bit_b{B}']:.4f} ms (bound "
-            f"{t[f'bound_ms_3bit_b{B}']:.4f}), widened "
-            f"{t[f'ms_w3_b{B}']:.4f} ms (bound {t[f'bound_ms_w3_b{B}']:.4f});"
-            f" plain {t[f'plain_ms_3bit_b{B}']:.3f} / "
-            f"{t[f'plain_ms_w3_b{B}']:.3f} ms, torch.matmul bf16 "
+        log(f"K1 3-bit sum of the five shapes, B={B:4d}: "
+            + (f"two planes {t[f'ms_3bit_b{B}']:.4f} ms (bound "
+               f"{t[f'bound_ms_3bit_b{B}']:.4f}), " if B in both else "")
+            + f"widened {t[f'ms_w3_b{B}']:.4f} ms (bound "
+            f"{t[f'bound_ms_w3_b{B}']:.4f}); plain "
+            + (f"{t[f'plain_ms_3bit_b{B}']:.3f} / " if B in both else "")
+            + f"{t[f'plain_ms_w3_b{B}']:.3f} ms, torch.matmul bf16 "
             f"{t[f'library_ms_w3_b{B}']:.4f} ms")
     RESULTS["k1_3bit"] = dict(rows=rows, sums={str(B): t for B, t in
                                                sums.items()},
@@ -1189,6 +1243,7 @@ def _zero_counts():
     from quip_tpu_torch.kernels import rht as K3
     from quip_tpu_torch.kernels import slabdot as SD
     DM.launches = DM.launches_tile = DM.launches_decode = 0
+    DM.launches_decode_ragged = 0
     FA.launches = K3.launches = SD.launches = 0
 
 
@@ -1353,7 +1408,8 @@ def _serial_decode(model, cfg, rng, B=1, n_steps=48, n_prof=4):
     return dict(ms_per_step=ms, tok_s=B * 1e3 / ms, device_ms=dev_ms,
                 kernel_launches=launches, aten_ops=aten,
                 busy=dev_ms / ms if dev_ms else None, top=top,
-                per_step=_kernels_named(prof, n_prof))
+                per_step=_kernels_named(prof, n_prof),
+                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n_prof)
 
 
 def _kernels_named(prof, n: int, names=("dm_decode", "rht_mma")):
@@ -1415,7 +1471,8 @@ def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
                 kernel_launches=launches, aten_ops=aten,
                 busy=dev_ms / short if dev_ms else None, top=top,
                 per_step=_kernels_named(prof, n), graphs=len(e._graphs),
-                first_run_s=build_s)
+                first_run_s=build_s,
+                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n)
 
 
 def phase_serve(name: str, smi: str):
@@ -1658,7 +1715,7 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     dec = {}
     for fused in (False, True):
         with fused_rht(fused):
-            for B, n_steps in ((1, 48), (4, 24)):
+            for B, n_steps in ((1, 32), (4, 12)):
                 dec[(fused, B)] = dict(
                     serial=_serial_decode(model, cfg, rng, B, n_steps),
                     pump=_pump_decode(model, cfg, rng, B))
@@ -1676,7 +1733,8 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
                    if how == "pump" else "")
                 + f"; profiled: {x['device_ms']:.2f} ms of kernels a step, "
                 f"{x['kernel_launches']:.0f} kernel launches (K1-decode "
-                f"{x['per_step']['dm_decode']:.0f}, K3 "
+                f"{x['per_step']['dm_decode']:.0f} in "
+                f"{x['k1_decode_ms']:.3f} ms, K3 "
                 f"{x['per_step']['rht_mma']:.0f}), {x['aten_ops']:.0f} aten "
                 f"ops; device busy share "
                 + (f"{x['busy']:.1%}" if x["busy"] else "not measured"))
@@ -4147,19 +4205,25 @@ def _p17_shards(name: str) -> dict:
         copies = [torch.randint(-2 ** 31, 2 ** 31, words, dtype=torch.int32,
                                 generator=g, device=dev)
                   for _ in range(ncopy)]
-        for B in (1, 4, 600):
-            x = torch.randn(B, d, device=dev, generator=g).bfloat16()
-            path = DM.route(B, d, m, 2)
-            whole = DM.dequant_matmul(x.float(), (copies[0],), scale, None,
-                                      bits=2)
-            it = 20 if B <= 128 else 5
-            whole_ms = time_ms([lambda c=c: DM.dequant_matmul(
-                x, (c,), scale, None, bits=2) for c in copies], it)
-            for tp in (2, 4):
-                axes = [Axis("tp", tp, r, tuple(range(tp)))
-                        for r in range(tp)]
-                parts = [_part(copies[0], -1, a, sname) for a in axes]
-                mp = m // tp
+        xs = {B: torch.randn(B, d, device=dev, generator=g).bfloat16()
+              for B in (1, 2, 4, 8, 600)}
+        whole, whole_ms = {}, {}
+        for B, x in xs.items():
+            whole[B] = DM.dequant_matmul(x.float(), (copies[0],), scale, None,
+                                         bits=2)
+            whole_ms[B] = time_ms([lambda c=c: DM.dequant_matmul(
+                x, (c,), scale, None, bits=2) for c in copies],
+                20 if B <= 128 else 5)
+        for tp in (2, 4):
+            axes = [Axis("tp", tp, r, tuple(range(tp))) for r in range(tp)]
+            parts = [_part(copies[0], -1, a, sname) for a in axes]
+            mp = m // tp
+            shard_copies = [torch.randint(
+                -2 ** 31, 2 ** 31, (words[0], mp), dtype=torch.int32,
+                generator=g, device=dev) for _ in range(max(
+                    1, math.ceil(120e6 / (words[0] * mp * 4))))]
+            for B, x in xs.items():
+                path = DM.route(B, d, m, 2)
                 assert DM.route(B, d, mp, 2) == path, (sname, tp, B)
                 t0, d0 = DM.launches_tile, DM.launches_decode
                 got = torch.cat([DM.dequant_matmul(x.float(), (p,), scale,
@@ -4168,16 +4232,13 @@ def _p17_shards(name: str) -> dict:
                 took = (DM.launches_tile - t0, DM.launches_decode - d0)
                 assert took == ((tp, 0) if path == "tile" else (0, tp)), took
                 torch.cuda.synchronize()
-                err, rel = rel_err(got, whole)
+                err, rel = rel_err(got, whole[B])
                 assert rel <= SHARD_TOL, (sname, tp, B, rel)
                 worst[path] = max(worst[path], rel)
                 worst_abs[path] = max(worst_abs[path], err)
-                shard_copies = [torch.randint(
-                    -2 ** 31, 2 ** 31, (words[0], mp), dtype=torch.int32,
-                    generator=g, device=dev) for _ in range(max(
-                        1, math.ceil(120e6 / (words[0] * mp * 4))))]
                 ms = time_ms([lambda c=c: DM.dequant_matmul(
-                    x, (c,), scale, None, bits=2) for c in shard_copies], it)
+                    x, (c,), scale, None, bits=2) for c in shard_copies],
+                    20 if B <= 128 else 5)
                 bms, by = bound_ms(B * d * 2 + words[0] * mp * 4
                                    + B * mp * 2, 2 * B * d * mp, name)
                 s = sums.setdefault((tp, B), dict(
@@ -4185,12 +4246,13 @@ def _p17_shards(name: str) -> dict:
                     path=path))
                 s["ms"] += ms
                 s["bound_ms"] += bms
-                s["whole_ms"] += whole_ms
+                s["whole_ms"] += whole_ms[B]
                 s["by"].add(by)
                 log(f"17a K1 {sname:5s} tp={tp} shard {mp}x{d} B={B:3d} "
                     f"[{path}]: {ms:.4f} ms (bound {bms:.4f} {by}, "
-                    f"{bms / ms:.0%}); whole {m}x{d} {whole_ms:.4f} ms; "
+                    f"{bms / ms:.0%}); whole {m}x{d} {whole_ms[B]:.4f} ms; "
                     f"joined shards vs whole rel err {rel:.1e}")
+            del shard_copies
         del copies
         torch.cuda.empty_cache()
     out = {}
@@ -4491,18 +4553,23 @@ def main():
              max_abs_err=k1["max_abs_err"],
              ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=k1["library_ms"],
-             max_rel_err=k1["max_rel_err"], ms_b8=k1["ms_b8"],
-             bound_ms_b8=k1["bound_ms_b8"], library_ms_b8=k1["library_ms_b8"],
-             ms_opt_b1=k1["ms_opt_b1"], plain_ms_opt_b1=k1["plain_ms_opt_b1"],
-             bound_ms_opt_b1=k1["bound_ms_opt_b1"],
-             library_ms_opt_b1=k1["library_ms_opt_b1"],
-             **{k: v for k, v in k1.items() if "_w3_" in k or "_3bit_" in k},
-             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (and B=8); "
-                   "_opt: OPT-6.7B's wqkv, wo, fc1, fc2 at B=1; _w3: 3-bit "
+             max_rel_err=k1["max_rel_err"],
+             launches_ragged_checks=k1["launches_ragged_checks"],
+             **{k: v for k, v in k1.items()
+                if k.endswith(("_b2", "_b4", "_b8", "_opt_b1"))
+                or "_w3_" in k or "_3bit_" in k},
+             ms_per_step_pump_b1=dec[(False, 1)]["pump"]["k1_decode_ms"],
+             ms_per_step_pump_b4=dec[(False, 4)]["pump"]["k1_decode_ms"],
+             ms_per_step_serial_b1=dec[(False, 1)]["serial"]["k1_decode_ms"],
+             shape="sum over wqkv, wo, wgu, wd, lm_head at B=1 (_bB: B "
+                   "rows); _opt: OPT-6.7B's wqkv, wo, fc1, fc2; _w3: 3-bit "
                    "codes widened to 4-bit fields, _3bit: as two planes; "
                    "_tpN_bB: phase 17a, the sum over wqkv, wo, wgu, wd of "
                    "one column shard at tp = N, B rows (whole_ms: the "
-                   "unsharded calls)"),
+                   "unsharded calls); ms_per_step_*: the device ms of its "
+                   "launches in a profiled un-fused decode step (phase 8); "
+                   "launches_ragged_checks: phase 2's launches of the "
+                   "cp.async ring (m = 330)"),
         dict(name="dequant_matmul_tile", route="cuda",
              source="quip_tpu_torch/kernels/csrc/dequant_matmul_tile.cu",
              replaces="quip_tpu/kernels/dequant_matmul.py:183",

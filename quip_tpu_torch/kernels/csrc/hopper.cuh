@@ -1,14 +1,19 @@
 // Hopper (sm_90a) device helpers shared by the kernels that run on wgmma
-// and TMA: dequant_matmul_tile.cu (K1-tile) and flash_attn.cu (K2), and
-// slabdot_matmul.cu (K1', its mbarriers and TMA copies).
+// and TMA: dequant_matmul_tile.cu (K1-tile), dequant_matmul_decode.cu
+// (K1-decode) and flash_attn.cu (K2), and slabdot_matmul.cu (K1', its
+// mbarriers and TMA copies).
 //   * mbarriers: init, arrive, arrive with expected transaction bytes, a
 //     parity wait;
 //   * TMA: one box of a 2-D or 4-D tensor map, global -> shared, completing
 //     on an mbarrier's transaction count; the driver's
 //     cuTensorMapEncodeTiled, found through the runtime (no link against
 //     libcuda);
-//   * wgmma: fence, commit, wait, a register pin, and the shared-memory
-//     descriptor of a tile under the 128-byte swizzle.
+//   * wgmma: fence, commit, wait, a register pin, the shared-memory
+//     descriptor of a tile under the 128-byte swizzle and of one without
+//     swizzle, and the fence that makes ordinary shared-memory stores
+//     visible to wgmma's reads;
+//   * programmatic dependent launch: wait for the grids this one depends
+//     on, and let the dependent grid start.
 #pragma once
 
 #include <cuda.h>
@@ -100,6 +105,34 @@ __device__ __forceinline__ void pin(float& r) {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Shared-memory matrix descriptor of a K-major tile without swizzle: core
+// matrices of 8 rows of 16 bytes (rows 16 bytes apart), the two of a
+// 16-deep slice `lbo` bytes apart along K; one 8-row group along N (the
+// stride field, set to 2 lbo, is not read).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(((2 * lbo) & 0x3FFFF) >> 4) << 32);
+}
+// ordinary shared-memory stores of this thread, visible to wgmma and TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+// programmatic dependent launch: block until the grids this one depends on
+// have completed and their writes are visible (a no-op without them) ...
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+// ... and let the grid that depends on this one start launching
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled from the driver, found through the runtime (no

@@ -78,6 +78,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "decode_common.cuh"
 #include "hopper.cuh"
 
 namespace cg = cooperative_groups;
@@ -115,33 +116,6 @@ template <int FB>
 __device__ __forceinline__ uint32_t slab(uint32_t w, int k) {
   constexpr uint32_t MASK = ((1u << FB) - 1u) * 0x00010001u;
   return ((w >> (FB * k)) & MASK) | 0x43004300u;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t ld_pair(const float* p) {
-  const float2 v = *reinterpret_cast<const float2*>(p);
-  return pack_bf16(v.x, v.y);
-}
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// 8 neighbouring elements as four bf16 pairs (p is 16-byte aligned for bf16,
-// 32-byte for f32)
-__device__ __forceinline__ uint4 ld_eight(const float* p) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
-                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
-}
-__device__ __forceinline__ uint4 ld_eight(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-__device__ __forceinline__ float pair_sum(uint32_t v) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-  return f.x + f.y;
 }
 
 // Words per staged row of x for `ng` groups with `fph` fields per half-word:
@@ -405,23 +379,8 @@ sd_kernel(const void* __restrict__ x, int is_bf16, int B, int d,
     const int e_end = all * (split + 1) / splits;
     for (int e = all * split / splits + tid; e < e_end; e += NC) {
       const int b = e / q4, cc = (e - b * q4) * 4;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int y0 = 0; y0 < splits; y0 += 8) {
-        float4 pv[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)         // eight remote reads in flight
-          if (y0 + u < splits)
-            pv[u] = *reinterpret_cast<const float4*>(
-                cluster.map_shared_rank(red, y0 + u) + b * chunk_cols + cc);
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (y0 + u < splits) {
-            v[0] += pv[u].x;
-            v[1] += pv[u].y;
-            v[2] += pv[u].z;
-            v[3] += pv[u].w;
-          }
-      }
+      const float4 pv = split_sum4(cluster, red, b * chunk_cols + cc, splits);
+      float v[4] = {pv.x, pv.y, pv.z, pv.w};
       const float xb = xsum[b], off = 128.f * pwsum * xb;
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = s0 * (two_q * (v[j] - off) - xb);

@@ -7,14 +7,19 @@ accumulation and never builds the dense W. It replaces the Pallas kernel
 
 * K1-decode, ``csrc/dequant_matmul_decode.cu`` (``dm_decode``), for B <= 8
   rows: the decode GEMV, bound by the bytes of the packed planes.
-  ``mma.sync`` with the plane words as the A operand (one logic instruction
-  per operand register and one shift per run of fields; the 128 offset
-  taken off once in the epilogue) and the rows of x as the B operand; the
-  words go from device memory straight into registers; one launch, the
-  fan-in splits added through a thread-block cluster's distributed shared
-  memory in a fixed order. Shapes K1-tile does not take go through it 8
-  rows at a time. Design note in the source;
-  ``decode_walk_ref`` below walks the planes the same way in plain PyTorch.
+  ``wgmma.m64n8k16`` with the codes as the A operand from registers
+  (masked in place, one logic instruction per operand register and one
+  shift per run of fields; the 128 offset taken off once in the epilogue)
+  and the rows of x as the 8-wide B operand in shared memory; one producer
+  warp streams the plane words into an ``mbarrier`` ring by TMA while the
+  consumer warpgroups unpack one batch of fields ahead of the products in
+  flight; one launch, programmatic dependent launch, the fan-in splits added
+  through a thread-block cluster's distributed shared memory in a fixed
+  order. Planes with no tensor map (m_p % 4 != 0, or not 16-byte aligned)
+  take the same kernel with its ring filled by ``cp.async`` copies
+  (``decode_ragged``). Shapes K1-tile does not take go through it 8 rows
+  at a time. Design note in the source; ``decode_walk_ref`` below walks
+  the planes the same way in plain PyTorch.
 * K1-tile, ``csrc/dequant_matmul_tile.cu`` (``dm_tile``), for B >= 9 rows:
   prefill, admission windows, the speculative verify and perplexity, bound
   by the products. ``wgmma`` with the unpacked plane words as the A operand
@@ -36,7 +41,6 @@ with x @ qᵀ = Σ_p weight_p · (x @ q_pᵀ) over the planes of PLANE_SPLITS.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional, Sequence
 
 import torch
@@ -47,6 +51,7 @@ from quip_tpu_torch.pack.format import PLANE_SPLITS, unpack_codes
 launches = 0          # kernel launches, read by callers
 launches_tile = 0     # those of them that went to K1-tile
 launches_decode = 0   # those of them that went to K1-decode
+launches_decode_ragged = 0  # those of K1-decode's without a tensor map
 
 # The dispatch rule (``route``) and its measurements, NVIDIA H100 80GB HBM3,
 # 700 W, sum of the five 2-bit Llama-2-7B shapes (chip_smoke.py, K1 phase,
@@ -58,10 +63,20 @@ launches_decode = 0   # those of them that went to K1-decode
 # / 0.3053; 32: 0.1191 / 0.4051).
 TILE_MIN_B = 9
 
-DECODE_MAX_B = 8      # rows of x one mma n-tile holds
+DECODE_MAX_B = 8      # rows of x one wgmma n-tile holds
 DECODE_MAX_SPLITS = 8  # blocks of one thread-block cluster (portable size)
-DECODE_WARPS_PER_SM = 12
-DECODE_WIDE_B = 4
+# K1-decode's constants (csrc/dequant_matmul_decode.cu): 256 output columns
+# a block (two consumer warpgroups); ring slots, each a TMA box of
+# 8·DECODE_GPS word rows by DECODE_SROW words a warpgroup; the dynamic
+# shared memory a block may take
+DECODE_BN = 256
+DECODE_STAGES = 4
+DECODE_GPS = 2
+DECODE_SROW = 136
+DECODE_SMEM_MAX = 220 * 1024
+# the most splits the plan takes: clusters of 8 blocks, one block an SM,
+# did not all fit one wave on the H100 (tools/tune_decode.py's plans)
+DECODE_RULE_SPLITS = 6
 
 _fn_tile = None
 _fn_decode = None
@@ -158,45 +173,61 @@ def route(B: int, d: int, m_p: int, bits: int) -> str:
     return "decode"
 
 
-def _row_words(ng: int, fph: int) -> int:
-    """32-bit words of shared memory K1-decode keeps per row of x for ``ng``
-    groups of 8 word rows: 8 per group and field, padded to 4 mod 32."""
-    w = ng * fph * 8
-    return w + (4 - w % 32) % 32
-
-
-def _decode_groups(d: int, fb: int) -> int:
+def decode_groups(d: int, fb: int) -> int:
     """Groups of 8 word rows in a plane of ``fb``-bit fields."""
     return -(-(d * fb // 32) // 8)
 
 
-def _decode_plan(B: int, d: int, m_p: int, bits: int, sms: int):
-    """(warps per block, fan-in splits) of K1-decode on a card of ``sms``
-    SMs. A warp owns 32 columns; a block is 8 warps from ``DECODE_WIDE_B``
-    rows on, where every block's copy of its x columns starts to count, else
-    4. The splits (the blocks of one cluster,
-    at most 8) put about ``DECODE_WARPS_PER_SM`` warps an SM in flight; a
-    count that divides the groups of 8 word rows evenly is taken when one
-    lies within a factor 1.5; each split holds at least one group of every
-    plane, and x's staged rows stay within 48 KB of shared memory."""
-    nwarps = 8 if B >= DECODE_WIDE_B else 4
-    col_blocks = -(-m_p // (32 * nwarps))
-    groups = [_decode_groups(d, fb) for fb, _ in PLANE_SPLITS[bits]]
+def _pad_rows(B: int) -> int:
+    """Rows a core matrix of K1-decode's staged x holds: B rounded up to a
+    power of two."""
+    return 1 if B <= 1 else 2 if B <= 2 else 4 if B <= 4 else 8
+
+
+def _decode_smem(B: int, d: int, bits: int, splits: int) -> int:
+    """Dynamic shared memory of a K1-decode block (``smem_bytes`` in the
+    source): alignment slack, the ring, the partials of 8 rows by the
+    block's columns, and x staged once a distinct field width for the
+    widest split (a core matrix of 8 fan-in columns by ``_pad_rows(B)``
+    rows of 16 bytes, and 16 bytes more from 2 rows on, for every 8
+    columns a field spans), with 128 bytes past it."""
+    s = (128 + DECODE_STAGES * 2 * 8 * DECODE_GPS * DECODE_SROW * 4
+         + 8 * DECODE_BN * 4 + 128)
+    bp = _pad_rows(B)
+    core = 16 if bp == 1 else 16 * bp + 16
+    for fb in dict.fromkeys(fb for fb, _ in PLANE_SPLITS[bits]):
+        s += (16 // fb) * 2 * -(-decode_groups(d, fb) // splits) * core
+    return s
+
+
+def _decode_plan(B: int, d: int, m_p: int, bits: int, sms: int) -> int:
+    """Fan-in splits of K1-decode (the blocks of one cluster) on a card of
+    ``sms`` SMs: one block of 256 columns an SM, so the most that keep the
+    grid within one wave, at most ``DECODE_RULE_SPLITS`` and the groups of
+    8 word rows of the shortest plane; a count that divides the groups
+    evenly is taken when one lies within a factor 1.5 below; then more
+    until the block's shared memory fits ``DECODE_SMEM_MAX``."""
+    col_blocks = -(-m_p // DECODE_BN)
+    groups = [decode_groups(d, fb) for fb, _ in PLANE_SPLITS[bits]]
     most = min(DECODE_MAX_SPLITS, min(groups))
-    want = DECODE_WARPS_PER_SM * sms / nwarps / col_blocks
-    s = max(1, min(most, round(want)))
-    even = [c for c in range(1, most + 1)
-            if all(g % c == 0 for g in groups) and want / 1.5 <= c <= want * 1.5]
+    s = max(1, min(most, DECODE_RULE_SPLITS, sms // col_blocks))
+    even = [c for c in range(1, s + 1)
+            if all(g % c == 0 for g in groups) and c >= s / 1.5]
     if even:
-        s = min(even, key=lambda c: abs(math.log(c / want)))
-
-    def smem(s):
-        return max(B * _row_words(-(-g // s), 16 // fb) * 4
-                   for g, (fb, _) in zip(groups, PLANE_SPLITS[bits]))
-
-    while smem(s) > 48 * 1024 and s < most:
+        s = max(even)
+    while _decode_smem(B, d, bits, s) > DECODE_SMEM_MAX and s < most:
         s += 1
-    return nwarps, s
+    if _decode_smem(B, d, bits, s) > DECODE_SMEM_MAX:
+        raise ValueError(f"dequant_matmul: d={d} at {bits} bits with {B} "
+                         f"rows does not fit K1-decode's shared memory")
+    return s
+
+
+def decode_ragged(planes: Sequence[torch.Tensor]) -> bool:
+    """Whether K1-decode fills its ring by cp.async copies instead of TMA:
+    a tensor map needs 16-byte rows (m_p % 4 == 0) and a 16-byte aligned
+    plane."""
+    return any(p.shape[-1] % 4 or p.data_ptr() % 16 for p in planes)
 
 
 def dequant_weight(planes: Sequence[torch.Tensor], scale, zero, *, bits: int,
@@ -305,90 +336,87 @@ def decode_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
                     code_bits: Optional[int] = None,
                     splits: Optional[int] = None) -> torch.Tensor:
     """For tests only: the index algebra of K1-decode in plain PyTorch, f32
-    out, B <= 8. Per split of the fan-in and plane (heavier first) it stages
-    bf16(x) as ``dm_decode`` does: word (b, group, field k, pair u) holds the
-    columns k·2nw + 16·group + 2u, +1 (zero past the field's span) scaled by
-    2^-(f·r), r = k mod (7 // f) the field's place in its run. For every
-    slice (group rg, field k) it builds the A operand of each warp (32
-    columns, two m-tiles q; row r16 is column 4(r16 % 8) + 2q + r16 // 8)
-    from the words (8rg + t + 4hh, column), shifted once per run and masked
-    in place under the exponent of 128: two bf16 values 128 + c·2^(f·r) at
-    k-index 2t + 8hh + h; and the B operand from the staged words t and
-    t + 4 of rows g < B. C's (row r16, column n) is output column of r16,
-    row n of x. The splits' partials add in split order, 128·Σ_p pw_p·Σ
-    (scaled operands) comes off once, then the fix-up with Σ bf16(x)."""
+    out, B <= 8. ``splits`` of the fan-in, ``_decode_plan``'s on 132 SMs by
+    default. Output columns go in blocks of 256, 128 a consumer warpgroup
+    c; row R = 16w + g + 8h of the warpgroup's m-tile mt (lane (g, t) of
+    warp w) is column 256y + 128c + 32w + 4g + 2mt + h of block y (columns
+    >= m_p read zero words). Per split of the
+    fan-in (groups [G·split / splits, G·(split + 1) / splits) of 8 word
+    rows of each plane) and plane (heavier first) x is staged as
+    ``dm_decode`` does: slice (group, field k) holds x's columns k·2nw +
+    16·group + (0..15), zero past the field's span. Group by group, in
+    batches of 4 fields (2 at 4 bits), field by field, each m-tile's A is
+    built from the words (8·group + t + 4hh, column), shifted once a run
+    and masked in place, at bit f·r with r = k mod (7 // f) its place in
+    the run, under the exponent of 2^(7 - f·r): two bf16 values 2^(7 - f·r)
+    + c at k-index 2t + 8hh + h (word row 8·group + j at k-index 2j + h);
+    D (64 x 8 rows of x) += A · (the slice's staged 16 x B), in f32, each
+    plane into accumulators of its own; a split's partial is Σ_p
+    pw_p·acc_p. The splits' partials add in split order, 128·Σ_p pw_p·Σ_k
+    2^-(f·r)·Σ (field k's staged x) comes off once, then the fix-up with
+    Σ bf16(x)."""
     B, d = x.shape
     assert 1 <= B <= DECODE_MAX_B
     m_p = planes[0].shape[-1]
     sb = PLANE_SPLITS[bits]
-    if splits is None:
-        splits = _decode_plan(B, d, m_p, bits, 132)[1]
-    mp32 = -(-m_p // 32) * 32
+    splits = splits or _decode_plan(B, d, m_p, bits, 132)
+    ncol = -(-m_p // DECODE_BN) * DECODE_BN
+    # tile u = (block column base 128·(u // 2), m-tile u % 2), row R
+    R, u = torch.arange(64), torch.arange(ncol // 64)[:, None]
+    colmap = (128 * (u // 2) + 32 * (R // 16) + 4 * (R % 8) + 2 * (u % 2)
+              + (R % 16) // 8).reshape(-1)
     xb = x.to(torch.bfloat16)
-    r16 = torch.arange(16)
-    colmap = (32 * torch.arange(mp32 // 32)[:, None, None]
-              + 2 * torch.arange(2)[None, :, None]
-              + (4 * (r16 % 8) + r16 // 8)[None, None, :])   # (warp, q, r16)
-    partial = torch.zeros((splits, 8, mp32), dtype=torch.float32)
-    sums_part = torch.zeros((splits, 2, 8), dtype=torch.float32)
     as_bf16 = lambda v: v.to(torch.int16).view(torch.bfloat16)  # noqa: E731
+    partial = torch.zeros((splits, B, ncol), dtype=torch.float32)
+    sums_part = torch.zeros((splits, 2, B), dtype=torch.float32)
     for s in range(splits):
-        acc = torch.zeros((8, mp32), dtype=torch.float32)
+        part = torch.zeros((ncol, B), dtype=torch.float32)   # tile order
         for p in reversed(range(len(planes))):
+            acc = torch.zeros((ncol, B), dtype=torch.float32)  # D
             fb, pw = sb[p]
             fph, nw, fg = 16 // fb, d * fb // 32, 7 // fb
-            groups = _decode_groups(d, fb)
+            groups = decode_groups(d, fb)
             rg0, rg1 = groups * s // splits, groups * (s + 1) // splits
-            per_row = (rg1 - rg0) * fph * 8
-            xs = torch.zeros((B, _row_words(rg1 - rg0, fph), 2),
-                             dtype=torch.bfloat16)          # (b, word, half)
-            e = torch.arange(B * per_row)
-            b, rr = e // per_row, e % per_row
-            u, k, rgl = rr & 7, (rr >> 3) % fph, (rr >> 3) // fph
-            off = 16 * (rg0 + rgl) + 2 * u
+            # staged x: (slice, 16, B), zero past each field's span
+            L = torch.arange((rg1 - rg0) * fph)
+            k, rgl = L % fph, L // fph
+            off = (16 * (rg0 + rgl))[:, None] + torch.arange(16)
             ok = off < 2 * nw
-            src = torch.where(ok, k * 2 * nw + off, 0)
-            down = torch.pow(2.0, -fb * (k % fg)).to(torch.bfloat16)
-            for h in (0, 1):
-                xs[b, rr, h] = torch.where(ok, xb[b, src + h] * down,
-                                           torch.zeros((), dtype=xb.dtype))
-            staged = xs[:, :per_row].to(torch.float32).sum(2)   # (B, word)
-            up = torch.pow(2.0, fb * ((torch.arange(per_row) >> 3) % fph
-                                      % fg).to(torch.float32))
+            src = torch.where(ok, (k * 2 * nw)[:, None] + off, 0)
+            xs = torch.where(ok[..., None], xb.t()[src],
+                             torch.zeros((), dtype=xb.dtype))
+            staged = xs.to(torch.float32)                # (slice, 16, B)
+            down = torch.pow(2.0, -fb * (k % fg).to(torch.float32))
             if p == 0:
-                sums_part[s, 0, :B] = (staged * up).sum(1)
-            sums_part[s, 1, :B] += pw * staged.sum(1)
-            words = torch.zeros((8 * groups, mp32), dtype=torch.int64)
+                sums_part[s, 0] = staged.sum((0, 1))
+            sums_part[s, 1] += pw * (staged * down[:, None, None]).sum((0, 1))
+            words = torch.zeros((8 * groups, ncol), dtype=torch.int64)
             words[:nw, :m_p] = planes[p].to(torch.int64) & 0xFFFFFFFF
+            words = words[:, colmap]                # columns in tile order
             pair_mask = ((1 << fb) - 1) * 0x00010001
+            fpb = 2 if fb == 4 else 4
             for rg in range(rg0, rg1):
-                for k in range(fph):
-                    A = torch.zeros(colmap.shape + (16,), dtype=torch.bfloat16)
-                    Bm = torch.zeros((16, 8), dtype=torch.bfloat16)
-                    base = ((rg - rg0) * fph + k) * 8
-                    sh, r = fb * fg * (k // fg), k % fg
-                    for t in range(4):
-                        for hh in (0, 1):
-                            w = words[8 * rg + t + 4 * hh][colmap]
-                            reg = (((w >> sh) & (pair_mask << (fb * r)))
-                                   | 0x43004300)
-                            A[..., 2 * t + 8 * hh] = as_bf16(reg & 0xFFFF)
-                            A[..., 2 * t + 8 * hh + 1] = as_bf16(reg >> 16)
-                            # register b0 (hh = 0) or b1 of lanes (g < B, t)
-                            Bm[2 * t + 8 * hh, :B] = xs[:, base + t + 4 * hh, 0]
-                            Bm[2 * t + 8 * hh + 1, :B] = xs[:, base + t + 4 * hh,
-                                                          1]
-                    c = A.to(torch.float32) @ Bm.to(torch.float32)
-                    acc[:, colmap.reshape(-1)] += c.reshape(-1, 8).t()
-            acc *= pw / sb[p - 1][1] if p else pw
-        partial[s] = acc
-    total = torch.zeros((8, mp32), dtype=torch.float32)
-    sums = torch.zeros((2, 8), dtype=torch.float32)
-    for s in range(splits):                     # the last block's order
+                w8 = words[8 * rg:8 * rg + 8]       # (j, tile row)
+                for q in range(fph // fpb):         # a batch of fields
+                    for v in range(fpb):
+                        kk = q * fpb + v
+                        sh, r = fb * fg * (kk // fg), kk % fg
+                        er = 0x43004300 - fb * r * 0x00800080
+                        reg = ((w8 >> sh) & (pair_mask << (fb * r))) | er
+                        A = torch.stack((as_bf16(reg & 0xFFFF),
+                                         as_bf16(reg >> 16)), -1)
+                        A = A.permute(1, 0, 2).reshape(ncol, 16)  # 2j + h
+                        acc += (A.to(torch.float32)
+                                @ staged[(rg - rg0) * fph + kk])
+            part += pw * acc
+        partial[s][:, colmap] = part.t()
+    total = torch.zeros((B, ncol), dtype=torch.float32)
+    sums = torch.zeros((2, B), dtype=torch.float32)
+    for s in range(splits):                     # split order
         total += partial[s]
         sums += sums_part[s]
-    xsum = sums[0, :B, None]
-    y = total[:B, :m_p] - 128.0 * sums[1, :B, None]
+    xsum = sums[0, :, None]
+    y = total[:, :m_p] - 128.0 * sums[1, :, None]
     maxq = float(2 ** (code_bits or bits) - 1)
     if qfn == "b":
         return (torch.as_tensor(scale, dtype=torch.float32)
@@ -410,7 +438,7 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return dequant_matmul_ref(x, planes, scale, zero, bits=bits, qfn=qfn,
                                   code_bits=code_bits)
-    global launches, launches_tile, launches_decode
+    global launches, launches_tile, launches_decode, launches_decode_ragged
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul: unsupported device {x.device}")
     splits_bits = PLANE_SPLITS.get(bits)
@@ -461,20 +489,22 @@ def dequant_matmul(x: torch.Tensor, planes: Sequence[torch.Tensor],
     if x.data_ptr() % 32:
         x = x.clone()
     if path == "decode":
+        ragged = decode_ragged(planes)
         # more than 8 rows (a shape K1-tile does not take): 8 at a time
         for b0 in range(0, B, DECODE_MAX_B):
             rows = min(DECODE_MAX_B, B - b0)
-            nwarps, splits = _decode_plan(rows, d, m_p, bits,
-                                          _build.sm_count(x.get_device()))
+            splits = _decode_plan(rows, d, m_p, bits,
+                                  _build.sm_count(x.get_device()))
             err = _entry_decode()(
                 x[b0:].data_ptr(), int(x.dtype == torch.bfloat16), rows, d,
                 planes[0].data_ptr(), splits_bits[0][0], p1.data_ptr(), fb1,
-                nplanes, float(splits_bits[0][1]), float(pw1), m_p, nwarps,
-                splits, int(qfn == "b"), maxq, sc.data_ptr(), ze.data_ptr(),
-                out[b0:].data_ptr(), stream)
+                nplanes, float(splits_bits[0][1]), float(pw1), m_p,
+                int(ragged), splits, int(qfn == "b"), maxq, sc.data_ptr(),
+                ze.data_ptr(), out[b0:].data_ptr(), stream)
             _build.check(err, "dequant_matmul (decode)")
             launches += 1
             launches_decode += 1
+            launches_decode_ragged += int(ragged)
         return out
     n_tok, splits = _tile_plan(B, d, m_p, bits,
                                _build.sm_count(x.get_device()))

@@ -29,7 +29,7 @@ from typing import Sequence, Tuple
 import torch
 
 from quip_tpu_torch.kernels import _build
-from quip_tpu_torch.kernels.dequant_matmul import _decode_groups, _row_words
+from quip_tpu_torch.kernels.dequant_matmul import decode_groups
 from quip_tpu_torch.pack.format import PLANE_SPLITS
 
 launches = 0          # kernel launches, read by callers
@@ -48,6 +48,14 @@ BLOCKS_PER_SM = 4     # the splits rule keeps to this many blocks an SM
 _fn = None
 
 
+def row_words(ng: int, fph: int) -> int:
+    """32-bit words of shared memory the kernel keeps per row of x for
+    ``ng`` groups of 8 word rows: 8 per group and field, padded to 4 mod
+    32 (``row_words`` in the source)."""
+    w = ng * fph * 8
+    return w + (4 - w % 32) % 32
+
+
 def _smem_bytes(B: int, d: int, fbs: Sequence[int], splits: int,
                 chunk_cols: int) -> int:
     """Dynamic shared memory of one block: 128 bytes to align the ring, the
@@ -56,7 +64,7 @@ def _smem_bytes(B: int, d: int, fbs: Sequence[int], splits: int,
     rows = min(8, B)
     s = 128 + 4 * STAGES * RPS * SROW + 4 * rows * chunk_cols
     for fb in fbs:
-        s += 4 * rows * _row_words(-(-_decode_groups(d, fb) // splits),
+        s += 4 * rows * row_words(-(-decode_groups(d, fb) // splits),
                                    16 // fb)
     return s
 
@@ -72,7 +80,7 @@ def _plan(m: int, tile_m: int, B: int, d: int, fbs: Sequence[int],
     shared memory fits."""
     rows = min(8, B)
     chunk_cols = CG * max(1, min(tile_m // CG, RED_BYTES // (rows * CG * 4)))
-    most = min(MAX_SPLITS, min(_decode_groups(d, fb) for fb in fbs))
+    most = min(MAX_SPLITS, min(decode_groups(d, fb) for fb in fbs))
     col_blocks = (m // tile_m) * -(-B // 8)
     want = max(1, min(most, math.ceil(BLOCKS_PER_SM * sms / col_blocks)))
     splits = 1 << (want.bit_length() - 1)
@@ -171,7 +179,7 @@ def slabdot_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor], scale,
 
     def geometry(p, split):
         fb, pw = sb[p]
-        nw, ng_all = d * fb // 32, _decode_groups(d, fb)
+        nw, ng_all = d * fb // 32, decode_groups(d, fb)
         rg0, rg1 = ng_all * split // splits, ng_all * (split + 1) // splits
         return dict(fb=fb, pw=pw, nw=nw, fph=16 // fb, rg0=rg0, rg1=rg1,
                     nst=-(-(rg1 - rg0) // GPS))

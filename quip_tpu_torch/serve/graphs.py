@@ -43,7 +43,8 @@ from quip_tpu_torch.kernels import rht as K3
 from quip_tpu_torch.parallel import comm
 
 _COUNTERS = ((DM, "launches"), (DM, "launches_decode"),
-             (DM, "launches_tile"), (FA, "launches"), (K3, "launches"))
+             (DM, "launches_decode_ragged"), (DM, "launches_tile"),
+             (FA, "launches"), (K3, "launches"))
 
 
 def _counts() -> List[float]:

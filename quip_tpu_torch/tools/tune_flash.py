@@ -26,7 +26,7 @@ version first.
 
 Each part times B=2 H=32 S=600 (plen 600, 431), B=1 H=32 S=2048 and B=1
 H=32 S=4096 through the wrapper (CUDA-graph replay), and prints each
-copy's registers, spills and serialised wgmma (C7513) from ptxas.
+copy's registers, spills and serialised wgmma (C7513 / C7515) from ptxas.
 
 With ``--against OTHER.cu`` (another source of the same C entry, e.g. an
 earlier commit's ``flash_attn.cu`` from ``git show``), both are checked

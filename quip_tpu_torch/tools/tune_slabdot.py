@@ -52,8 +52,8 @@ def variants(src: str) -> dict:
         "no products": no_mma(src),
         "copies only": no_mma(no_unpack(src)),
         "own partials only": rep(
-            src, "cluster.map_shared_rank(red, y0 + u) + b * chunk_cols",
-            "red + b * chunk_cols"),
+            src, "split_sum4(cluster, red, b * chunk_cols + cc, splits)",
+            "split_sum4(cluster, red, b * chunk_cols + cc, 1)"),
         "6 stages": stages(6),
         "16-row stages": rep(src, "constexpr int GPS = 4;",
                              "constexpr int GPS = 2;"),

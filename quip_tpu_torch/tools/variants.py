@@ -25,11 +25,19 @@ def source(name: str) -> str:
     return (_build._CSRC / name).read_text()
 
 
+def serialised(log: str) -> int:
+    """ptxas's notes in a ``-Xptxas -v`` log that it serialised a kernel's
+    wgmma (C7513, C7515, ...: "wgmma.mma_async instructions are
+    serialized")."""
+    return log.count("wgmma.mma_async instructions are serialized")
+
+
 def build(texts: dict, entry: str, argtypes, ptxas: bool = False) -> dict:
     """Compile each source text at once (csrc on the include path, so the
     copies find its headers); name -> the C function ``entry`` of each,
-    with ``argtypes`` and an int result. With ``ptxas``, prints each
-    copy's registers, spills and serialised wgmma (C7513)."""
+    with ``argtypes`` and an int result (its library as ``.lib``). With
+    ``ptxas``, prints each copy's registers, spills and serialised wgmma
+    (ptxas's "serialized" notes: C7513, C7515)."""
     fns = {}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
@@ -47,9 +55,12 @@ def build(texts: dict, entry: str, argtypes, ptxas: bool = False) -> dict:
                 regs = re.findall(r"Used (\d+) registers", log)
                 spill = re.findall(r"(\d+) bytes spill stores", log)
                 print(f"  ptxas {name}: {regs} registers, {spill} bytes "
-                      f"spilled, C7513 x{log.count('C7513')}", flush=True)
-            f = getattr(ctypes.CDLL(str(so)), entry)
+                      f"spilled, wgmma serialised x{serialised(log)}",
+                      flush=True)
+            lib = ctypes.CDLL(str(so))
+            f = getattr(lib, entry)
             f.argtypes, f.restype = argtypes, ctypes.c_int
+            f.lib = lib                 # the copy's other entries
             fns[name] = f
     return fns
 

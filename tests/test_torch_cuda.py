@@ -143,14 +143,16 @@ def test_k1_decode_matches_plain(cuda, bits, qfn, code_bits, B, dtype):
 @pytest.mark.parametrize("bits", [2, 3, 4])
 @pytest.mark.parametrize("B", [1, 8, 20])
 def test_k1_decode_takes_any_shape(cuda, bits, B):
-    """m no multiple of 4 (words loaded one by one) and d·f no multiple of
-    64 (x staged pair by pair); 20 rows go 8 at a time."""
+    """m no multiple of 4 (no tensor map: the ring filled by cp.async,
+    counted as such) and d·f no multiple of 64 (x staged pair by pair); 20
+    rows go 8 at a time."""
     m, d = 330, 96
     x, planes, scale, zero = _k1_case(cuda, bits, "b", None, m, d, B,
                                       bits * 10 + B)
-    before = DM.launches_decode
+    before = DM.launches_decode, DM.launches_decode_ragged
     got = DM.dequant_matmul(x.float(), planes, scale, zero, bits=bits)
-    assert DM.launches_decode == before + -(-B // 8)
+    assert (DM.launches_decode, DM.launches_decode_ragged) == (
+        before[0] + -(-B // 8), before[1] + -(-B // 8))
     want = DM.dequant_matmul_ref(x.float(), planes, scale, zero, bits=bits)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3
 
@@ -171,10 +173,11 @@ def test_k1_dispatch_by_shape(cuda):
     plane = torch.randint(-2 ** 31, 2 ** 31, (d * 2 // 32, m),
                           dtype=torch.int32, generator=g, device=cuda)
     x = torch.randn(40, d, generator=g, device=cuda).bfloat16().float()
-    before = DM.launches_tile, DM.launches_decode
+    before = DM.launches_tile, DM.launches_decode, DM.launches_decode_ragged
     got = DM.dequant_matmul(x, (plane,), 0.03, None, bits=2)
-    assert (DM.launches_tile, DM.launches_decode) == (before[0],
-                                                      before[1] + 5)
+    assert (DM.launches_tile, DM.launches_decode,
+            DM.launches_decode_ragged) == (before[0], before[1] + 5,
+                                           before[2])   # a tensor map
     want = DM.dequant_matmul_ref(x, (plane,), torch.tensor(0.03, device=cuda),
                                  None, bits=2)
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-3

@@ -216,10 +216,11 @@ def test_tile_dispatch_rule():
 @pytest.mark.parametrize("B", [1, 3, 8])
 @pytest.mark.parametrize("bits,qfn,code_bits", _FORMATS)
 def test_decode_walk_matches_plain(bits, qfn, code_bits, B, d):
-    """K1-decode's fragment map, scaled staging and split order (1408: the
-    1-bit plane of 3-bit has 44 word rows, a ragged last group of 8; m = 76
-    leaves a ragged warp of 32 columns; the rule's splits and a number that
-    does not divide the groups). 1e-3 of max |y| on f32-held bf16 inputs."""
+    """K1-decode's tile map, scaled staging, batches and split order (1408:
+    the 1-bit plane of 3-bit has 44 word rows, a ragged last group of 8;
+    m = 76 leaves a ragged m-tile of 64 columns; the rule's splits, a
+    number that does not divide the groups, and two). 1e-3 of max |y| on
+    f32-held bf16 inputs."""
     rng = np.random.default_rng(bits * 1000 + B + d)
     m = 76
     _, x_bf, _, tplanes, scale, zero = _case(rng, B, m, d, bits, qfn,
@@ -229,7 +230,7 @@ def test_decode_walk_matches_plain(bits, qfn, code_bits, B, d):
     kw = dict(bits=bits, qfn=qfn, code_bits=code_bits)
     want = TDM.dequant_matmul_ref(torch.from_numpy(x_bf), tplanes, tscale,
                                   tzero, **kw)
-    for splits in (None, 3):
+    for splits in (None, 3, 2):
         got = TDM.decode_walk_ref(torch.from_numpy(x_bf), tplanes, tscale,
                                   tzero, splits=splits, **kw)
         assert got.shape == want.shape == (B, m)
@@ -259,8 +260,9 @@ def test_decode_walk_matches_pallas_kernel(bits, qfn, code_bits, B):
 
 def test_decode_dispatch_rule():
     """K1-decode up to 8 rows, K1-tile above where it takes the shape, else
-    K1-decode again; the decode plan (warps a block, splits <= 8 = one
-    cluster) on a card of 132 SMs."""
+    K1-decode again; the decode plan (splits <= 6 of the 8 a cluster holds,
+    one block of 256 columns an SM) on a card of 132 SMs; the ring only
+    where a plane has a tensor map."""
     assert TDM.DECODE_MAX_B == 8 and TDM.DECODE_MAX_SPLITS == 8
     for B in range(1, 9):
         assert TDM.route(B, 4096, 12288, 2) == "decode"
@@ -268,21 +270,28 @@ def test_decode_dispatch_rule():
     assert TDM.route(600, 11008, 4096, 2) == "tile"
     assert TDM.route(40, 96, 100, 2) == "decode"      # K1-tile refuses it
     assert TDM.route(3, 96, 100, 2) == "decode"
-    assert TDM._decode_plan(1, 4096, 12288, 2, 132) == (4, 4)
-    assert TDM._decode_plan(1, 4096, 4096, 2, 132) == (4, 8)
-    assert TDM._decode_plan(1, 4096, 22528, 2, 132) == (4, 2)
-    assert TDM._decode_plan(1, 11008, 4096, 2, 132) == (4, 8)
-    assert TDM._decode_plan(1, 4096, 32000, 2, 132) == (4, 2)
-    assert TDM._decode_plan(8, 4096, 32000, 2, 132) == (8, 2)
-    assert TDM._decode_plan(4, 4096, 4096, 2, 132) == (8, 8)
-    assert TDM._decode_plan(1, 96, 100, 3, 132) == (4, 1)
-    # 8 rows of a 28672-wide x at 4 bits: all 8 splits, and x's staged rows
-    # within the 160 KB the kernel asks for at most
-    nwarps, splits = TDM._decode_plan(8, 28672, 8192, 4, 132)
-    assert splits == 8
-    assert 8 * TDM._row_words(-(-TDM._decode_groups(28672, 4) // splits),
-                              4) * 4 <= 160 * 1024
-    assert TDM._row_words(4, 8) % 32 == 4 and TDM._row_words(1, 16) % 32 == 4
+    assert TDM._decode_plan(1, 4096, 12288, 2, 132) == 2
+    assert TDM._decode_plan(1, 4096, 4096, 2, 132) == 4   # 4 divides 32
+    assert TDM._decode_plan(1, 4096, 22528, 2, 132) == 1
+    assert TDM._decode_plan(1, 11008, 4096, 2, 132) == 6  # 86 groups
+    assert TDM._decode_plan(1, 4096, 32000, 2, 132) == 1
+    assert TDM._decode_plan(8, 4096, 32000, 2, 132) == 1
+    assert TDM._decode_plan(4, 16384, 4096, 2, 132) == 4
+    assert TDM._decode_plan(1, 96, 100, 3, 132) == 1
+    # 8 rows of a 28672-wide x at 4 bits: splits until x's staged copy
+    # fits the block's shared memory
+    splits = TDM._decode_plan(8, 56320, 8192, 4, 132)
+    assert (TDM._decode_smem(8, 56320, 4, splits) <= TDM.DECODE_SMEM_MAX
+            < TDM._decode_smem(8, 56320, 4, splits - 1))
+    # x's staged rows: B rounded up to a power of two
+    assert [TDM._pad_rows(B) for B in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8,
+                                                       8]
+    assert TDM.decode_groups(1408, 1) == 6 and TDM.decode_groups(96, 1) == 1
+    ok = torch.zeros((64, 256), dtype=torch.int32)
+    assert not TDM.decode_ragged((ok,))
+    assert TDM.decode_ragged((torch.zeros((64, 330), dtype=torch.int32),))
+    shifted = torch.zeros(64 * 256 + 1, dtype=torch.int32)[1:].view(64, 256)
+    assert TDM.decode_ragged((ok, shifted))          # not 16-byte aligned
 
 
 @pytest.mark.parametrize("name", ["packed_from_numpy", "kvcache_from_numpy",
