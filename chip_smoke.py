@@ -41,7 +41,11 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      (1, 5, 32, 70), both directions, bf16 and f32, with a scaleWH fold,
      and a right-factor-free case; the round trip; times at B = 1, 2, 8,
      32 beside the un-fused apply_rht and beside an empty kernel's (the
-     launch floor), summed over each model's pairs of a decode step;
+     launch floor), summed over each model's pairs of a decode step; a
+     Llama-2-7B layer's four fused linears (K3 -> K1-decode -> K3 each) in
+     one graph at B = 1 and 4, its outputs against the eager chain's, timed
+     with K3 as it is and without programmatic dependent launch (a copy
+     built in phase 1), in turns, and un-fused;
   5. K1' (slabdot_matmul) against its plain version and against K1 for
      bits 2/3/4, B = 1, 5, 8, 13 and every legal tile_m at two small shapes
      (one ragged), one device kernel per call (profiler), then through the
@@ -70,9 +74,12 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      holds); warmup's seconds, graphs and pool bytes; then b1 and b4 decode
      through the serial step and through the pump, un-fused and with
      QUIP_FUSED_RHT=1: ms a step on the host clock (the pump's the median
-     of 3 windows of 48 tokens a slot; the serial step over 32 / 12 steps
+     of 3 windows of 48 tokens a slot; the serial step over 16 / 12 steps
      at b1 / b4), kernel ms and launches a step by the profiler, K1-decode's
-     ms a step among them, and the device's busy share;
+     and K3's ms a step among them (K3's also as the time it alone
+     covers), the device's busy share (the union of its kernels' spans:
+     kernels that overlap under programmatic dependent launch count once)
+     and its idle ms a step (the unprofiled step's ms less the busy ms);
  11. (run right after phase 8, on the first SPEC_LAYERS of phase 7's
      blocks, a depth cut for the script's limit) speculative serving:
      phase 7's 4 greedy requests through ``warmup()`` and
@@ -241,8 +248,14 @@ def phase_device():
         timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
     t = time.time()
+    # phase 4's K3 without programmatic dependent launch (a tools/variants.py
+    # copy, kept in kernels/_build by its hash), compiled beside the sources
+    import threading
+    nopdl = threading.Thread(target=_build_k3_nopdl)
+    nopdl.start()
     logs = _build.build_all(["dequant_matmul_decode", "dequant_matmul_tile",
                              "flash_attn", "rht", "slabdot_matmul"])
+    nopdl.join()
     build_s = time.time() - t
     log(f"card: {smi}")
     log(f"kernel build (parallel nvcc, sm_90a): {build_s:.1f} s")
@@ -287,7 +300,35 @@ def phase_device():
     assert serial == 0, "ptxas serialised K2's wgmma"
     assert RESULTS["ptxas_flash"] and not any(
         k["spill"] for k in RESULTS["ptxas_flash"]), RESULTS["ptxas_flash"]
+    RESULTS["ptxas_rht"] = [k for k in _ptxas_kernels(logs["rht"])
+                            if k["kernel"].startswith("rht_mma")]
+    for k in RESULTS["ptxas_rht"]:
+        log(f"  ptxas rht {k['kernel']}: {k['registers']} registers, "
+            f"{k['smem']} bytes static smem, {k['spill']} bytes spilled")
+    serial = serialised(logs["rht"])
+    log(f"  ptxas rht: {serial} kernels with wgmma serialised (C7513 / "
+        f"C7515)")
+    assert serial == 0, "ptxas serialised K3's wgmma"
+    assert RESULTS["ptxas_rht"] and not any(
+        k["spill"] for k in RESULTS["ptxas_rht"]), RESULTS["ptxas_rht"]
+    assert "entry" in K3_NOPDL, K3_NOPDL.get("error")
     return name, smi
+
+
+# phase 4's copy of rht.cu without programmatic dependent launch (the
+# bf16 entry), built by phase 1
+K3_NOPDL: dict = {}
+
+
+def _build_k3_nopdl():
+    from quip_tpu_torch.tools.tune_rht import ARGS, no_pdl
+    from quip_tpu_torch.tools.variants import build, source
+    try:
+        K3_NOPDL["entry"] = build({"no PDL": no_pdl(source("rht.cu"))},
+                                  "quip_rht_apply_bf16", ARGS,
+                                  cached=True)["no PDL"]
+    except Exception as e:          # reported by phase 1's assertion
+        K3_NOPDL["error"] = repr(e)[-2000:]
 
 
 def _ptxas_kernels(text: str) -> list:
@@ -300,7 +341,8 @@ def _ptxas_kernels(text: str) -> list:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw, spill = m.group(1), 0
-            t = re.search(r"\d+(dm_[a-z_]+)I((?:L[ib]\d+E)+)E", raw)
+            t = re.search(r"\d+((?:dm|rht)_[a-z_]+)I((?:L[ib]\d+E)+)E",
+                          raw)
             u = re.search(r"(\d+)(dm_\w+?)I(\w+?)EE", raw)
             kernel = (t.group(1) + "<" + ", ".join(
                 v if k == "i" else ("true" if v == "1" else "false")
@@ -338,6 +380,11 @@ BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, prefill_ms=437.4,
               k1d_ms={1: 0.0865, 2: 0.0894, 4: 0.0958, 8: 0.1053},
               k1d_opt_ms={1: 0.0646, 4: 0.0732, 8: 0.0806},
               k3_sum_ms=0.1271,
+              # K3 on mma.sync, before its wgmma redesign: B -> ms, the
+              # six pairs of a Llama-2-7B decode step; OPT-6.7B's five at
+              # B = 1
+              k3_mma_sync_ms={1: 0.0482, 2: 0.0471, 8: 0.0494, 32: 0.0644},
+              k3_opt_mma_sync_ms=0.0332,
               # K1' before its redesign: five shapes, B = 1, best tile_m
               k1p_sum_ms=0.1178,
               # K1-tile on mma.sync before its wgmma redesign (PR 3-14):
@@ -908,16 +955,19 @@ def phase_k3(name: str):
     sums["bound_by"] = bound_by.pop()
     for B, t in by_B.items():
         log(f"K3 sum of the six (n, direction) pairs of a decode step, bf16, "
-            f"B={B:2d}: {t['ms']:.4f} ms, un-fused apply_rht "
+            f"B={B:2d}: {t['ms']:.4f} ms (mma.sync: "
+            f"{BEFORE['k3_mma_sync_ms'][B]}), un-fused apply_rht "
             f"{t['library_ms']:.4f} ms")
-    log(f"K3 at B=1: {sums['ms']:.4f} ms (second slice "
+    log(f"K3 at B=1: {sums['ms']:.4f} ms (mma.sync: "
+        f"{BEFORE['k3_mma_sync_ms'][1]}; second slice "
         f"{BEFORE['k3_sum_ms']}); bound {sums['bound_ms']:.5f} ms; launch "
         f"floor: an empty kernel replayed alone {empty_ms * 1e3:.2f} us a "
         f"launch ({6 * empty_ms:.4f} ms for six), ten to a graph "
         f"{empty10_ms * 1e3:.2f} us")
     opt_sums["bound_by"] = opt_bound_by.pop()
     log(f"K3 at B=1, OPT-6.7B's five (n, direction) pairs: "
-        f"{opt_sums['ms']:.4f} ms, bound {opt_sums['bound_ms']:.5f} ms "
+        f"{opt_sums['ms']:.4f} ms (mma.sync: "
+        f"{BEFORE['k3_opt_mma_sync_ms']}), bound {opt_sums['bound_ms']:.5f} ms "
         f"{opt_sums['bound_by']}, plain {opt_sums['plain_ms']:.4f}, "
         f"un-fused apply_rht {opt_sums['library_ms']:.4f}; n = 16384 "
         f"forward + transpose {n16k['ms']:.4f} ms (apply_rht "
@@ -936,7 +986,70 @@ def phase_k3(name: str):
     RESULTS["k3"] = rows
     sums["max_rel_err_bf16"] = worst[torch.bfloat16]
     sums["max_rel_err_f32"] = worst[torch.float32]
+    sums["chain"] = _k3_chain()
     return worst_abs, sums
+
+
+def _k3_chain() -> dict:
+    """Phase 4's layer chain: the four packed linears of a Llama-2-7B
+    layer (wqkv, wo, wgu, wd; random codes, 'rht' rotations) through
+    ``qlinear_apply`` at B = 1 and 4, one CUDA graph a chain, replayed:
+    fused (K3(V) -> K1-decode -> K3(U) a linear, 12 launches; the graph's
+    outputs equal to the eager chain's) with K3 as it is and with its copy
+    without programmatic dependent launch (phase 1's), in turns, and
+    un-fused (apply_rht's multiply and matmuls around K1-decode)."""
+    from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.kernels import rht as K3
+    from quip_tpu_torch.models.build import random_packed
+    from quip_tpu_torch.ops.qlinear import qlinear_apply
+    from quip_tpu_torch.tools.variants import swapped
+    from quip_tpu_torch.utils.timing import time_ms
+
+    dev = torch.device("cuda")
+    words = torch.Generator(device=dev).manual_seed(18)
+    rots = torch.Generator().manual_seed(18)
+    layers = [random_packed(m, d, 2, words=words, rots=rots, device=dev)
+              for m, d in ((12288, 4096), (4096, 4096), (22016, 4096),
+                           (4096, 11008))]
+    out = {}
+    for B in (1, 4):
+        xs = {d: torch.randn(B, d, device=dev, generator=words).bfloat16()
+              for d in (4096, 11008)}
+
+        def chain():
+            return [qlinear_apply(q, xs[q.in_features]) for q in layers]
+
+        with fused_rht(True):
+            k3, k1 = K3.launches, DM.launches_decode
+            eager = chain()
+            assert (K3.launches - k3, DM.launches_decode - k1) == (8, 4)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                chain()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = chain()
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(u, v) for u, v in zip(got, eager))
+            del graph
+            ms = dict(pdl=[], nopdl=[])
+            for how in ("pdl", "nopdl", "nopdl", "pdl"):
+                fn = K3._fn_bf16 if how == "pdl" else K3_NOPDL["entry"]
+                with swapped(K3, _fn_bf16=fn):
+                    ms[how].append(time_ms([chain], 200))
+        with fused_rht(False):
+            unfused = time_ms([chain], 200)
+        out[f"b{B}"] = dict(ms_pdl=ms["pdl"], ms_nopdl=ms["nopdl"],
+                            ms_unfused=unfused)
+        log(f"K3 layer chain B={B} (wqkv, wo, wgu, wd: K3 -> K1-decode -> "
+            f"K3 each, one graph; its outputs equal the eager chain's): "
+            f"PDL {ms['pdl'][0]:.4f} / {ms['pdl'][1]:.4f} ms, without PDL "
+            f"{ms['nopdl'][0]:.4f} / {ms['nopdl'][1]:.4f} ms (in turns); "
+            f"un-fused {unfused:.4f} ms")
+    return out
 
 
 def _kernels_per_call(fn, sessions: int = 3) -> int:
@@ -1355,6 +1468,42 @@ def _launch_seq(prof) -> list:
         and re.search(r"Launch\w*Kernel", e.get("name", "")))]
 
 
+def _spans(prof) -> list:
+    """(start, end) µs and name of every device activity (kernels, copies)
+    in a torch.profiler (CUPTI) run, in order of start."""
+    from torch.autograd import DeviceType
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _union_ms(spans) -> float:
+    """ms covered by at least one of ``spans`` (sorted by start): kernels
+    that overlap, as a kernel launched with programmatic dependent launch
+    does the one before it, count once."""
+    total, end = 0.0, -math.inf
+    for a, b, _ in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def _busy(prof, n: int, step_ms: float) -> dict:
+    """Per step of a profiled run of ``n`` steps: ``busy_ms``, the device
+    time covered by at least one kernel; ``idle_ms``, ``step_ms`` (the
+    same steps' host ms unprofiled: the profiler's own work widens the
+    gaps of the run it records) less ``busy_ms``; ``k3_own_ms``, the time
+    only K3 (``rht_mma``) covers, which its summed spans (``k3_ms``)
+    overcount by what they overlap under programmatic dependent launch."""
+    spans = _spans(prof)
+    if not spans:
+        return dict(busy_ms=None, idle_ms=None, k3_own_ms=None)
+    busy = _union_ms(spans)
+    rest = _union_ms([x for x in spans if "rht_mma" not in x[2]])
+    return dict(busy_ms=busy / n, idle_ms=step_ms - busy / n,
+                k3_own_ms=(busy - rest) / n)
+
+
 def _kernel_table(prof, n: int, n_top: int = 6):
     """From a torch.profiler (CUPTI) run of ``n`` steps: kernels' device ms,
     kernel launches and aten ops per step, and the ``n_top`` kernels by
@@ -1377,8 +1526,9 @@ def _serial_decode(model, cfg, rng, B=1, n_steps=48, n_prof=4):
     settings at ``B`` slots (37-token prompts): host ms per step over
     ``n_steps`` (crosses a hot-ring flush), then ``n_prof`` steps of a fresh
     engine under torch.profiler (CUPTI): kernels' device ms, kernel
-    launches and aten ops per step; busy share = device ms over the
-    unprofiled step time."""
+    launches and aten ops per step; busy share = the device's busy ms (the
+    union of its kernels' spans, ``_busy``) over the unprofiled step
+    time."""
     from torch.profiler import ProfilerActivity, profile
     from quip_tpu_torch.serve.engine import Engine
 
@@ -1405,11 +1555,13 @@ def _serial_decode(model, cfg, rng, B=1, n_steps=48, n_prof=4):
             e.step()
         torch.cuda.synchronize()
     dev_ms, launches, aten, top = _kernel_table(prof, n_prof)
+    busy = _busy(prof, n_prof, ms)
     return dict(ms_per_step=ms, tok_s=B * 1e3 / ms, device_ms=dev_ms,
                 kernel_launches=launches, aten_ops=aten,
-                busy=dev_ms / ms if dev_ms else None, top=top,
-                per_step=_kernels_named(prof, n_prof),
-                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n_prof)
+                busy=busy["busy_ms"] / ms if busy["busy_ms"] else None,
+                top=top, per_step=_kernels_named(prof, n_prof),
+                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n_prof,
+                k3_ms=_device_ms(prof, "rht_mma")[0] / n_prof, **busy)
 
 
 def _kernels_named(prof, n: int, names=("dm_decode", "rht_mma")):
@@ -1429,8 +1581,9 @@ def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
     windows of one chunk (16 steps at one page: the profiler's own work
     grows with the events it records), ``reps`` timed and one under
     torch.profiler (CUPTI sees the kernels of a replayed graph): kernels'
-    device ms, kernel launches and aten ops per step; busy share = device
-    ms over the median step time of the same window unprofiled."""
+    device ms, kernel launches and aten ops per step; busy share = the
+    device's busy ms (the union of its kernels' spans, ``_busy``) over the
+    median step time of the same window unprofiled."""
     import statistics
     from torch.profiler import ProfilerActivity, profile
     from quip_tpu_torch.serve.engine import Engine
@@ -1464,15 +1617,17 @@ def _pump_decode(model, cfg, rng, B=1, n_new=64, reps=3):
     _, n, prof = window(32, lambda: profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     dev_ms, launches, aten, top = _kernel_table(prof, n)
+    busy = _busy(prof, n, short)
     med = statistics.median(ms)
     return dict(ms_per_step=med, ms_reps=ms, tok_s=B * 1e3 / med,
                 steps_per_window=n_win, steps_profiled=n,
                 ms_per_step_profiled_window=short, device_ms=dev_ms,
                 kernel_launches=launches, aten_ops=aten,
-                busy=dev_ms / short if dev_ms else None, top=top,
-                per_step=_kernels_named(prof, n), graphs=len(e._graphs),
-                first_run_s=build_s,
-                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n)
+                busy=busy["busy_ms"] / short if busy["busy_ms"] else None,
+                top=top, per_step=_kernels_named(prof, n),
+                graphs=len(e._graphs), first_run_s=build_s,
+                k1_decode_ms=_device_ms(prof, "dm_decode")[0] / n,
+                k3_ms=_device_ms(prof, "rht_mma")[0] / n, **busy)
 
 
 def phase_serve(name: str, smi: str):
@@ -1715,7 +1870,7 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     dec = {}
     for fused in (False, True):
         with fused_rht(fused):
-            for B, n_steps in ((1, 32), (4, 12)):
+            for B, n_steps in ((1, 16), (4, 12)):
                 dec[(fused, B)] = dict(
                     serial=_serial_decode(model, cfg, rng, B, n_steps),
                     pump=_pump_decode(model, cfg, rng, B))
@@ -1735,9 +1890,15 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
                 f"{x['kernel_launches']:.0f} kernel launches (K1-decode "
                 f"{x['per_step']['dm_decode']:.0f} in "
                 f"{x['k1_decode_ms']:.3f} ms, K3 "
-                f"{x['per_step']['rht_mma']:.0f}), {x['aten_ops']:.0f} aten "
-                f"ops; device busy share "
-                + (f"{x['busy']:.1%}" if x["busy"] else "not measured"))
+                f"{x['per_step']['rht_mma']:.0f} in {x['k3_ms']:.3f} ms of "
+                f"spans"
+                + (f", {x['k3_own_ms']:.3f} ms covered by K3 alone"
+                   if x["k3_own_ms"] is not None else "")
+                + f"), {x['aten_ops']:.0f} aten ops; device busy share "
+                + (f"{x['busy']:.1%} ({x['busy_ms']:.3f} ms a step covered "
+                   f"by a kernel), idle {x['idle_ms']:.3f} ms a step (the "
+                   f"unprofiled step less that)"
+                   if x["busy"] else "not measured"))
             for key, ms, cnt in x["top"]:
                 log(f"    {key[:60]:60s} {ms:.3f} ms/step, {cnt:.0f} "
                     f"launches/step")
@@ -4187,8 +4348,11 @@ def _p17_shards(name: str) -> dict:
     (the rule of parallel/mesh.py::shard_packed) at tp = 2 and 4: the
     shards' outputs joined against the unsharded call, f32 x; each shard's
     ms (rank 0's shard, bf16 x) beside its bound and beside the whole
-    call's."""
+    call's, and at B = 1 and 600 beside torch.matmul of the dequantised
+    bf16 shard (the library yardstick; 64 MB or more of copies cycled past
+    the 50 MB L2)."""
     from quip_tpu_torch.kernels import dequant_matmul as DM
+    from quip_tpu_torch.pack.format import unpack_codes
     from quip_tpu_torch.parallel.comm import Axis
     from quip_tpu_torch.parallel.mesh import _part
     from quip_tpu_torch.utils.timing import time_ms
@@ -4222,6 +4386,11 @@ def _p17_shards(name: str) -> dict:
                 -2 ** 31, 2 ** 31, (words[0], mp), dtype=torch.int32,
                 generator=g, device=dev) for _ in range(max(
                     1, math.ceil(120e6 / (words[0] * mp * 4))))]
+            codes = unpack_codes((shard_copies[0],), 2, d).float()
+            w = (((codes / 3) * 2 - 1) * scale).bfloat16()
+            del codes
+            dense = [w] + [w.clone() for _ in range(
+                max(1, math.ceil(64e6 / w.numel() / 2) - 1))]
             for B, x in xs.items():
                 path = DM.route(B, d, m, 2)
                 assert DM.route(B, d, mp, 2) == path, (sname, tp, B)
@@ -4242,17 +4411,23 @@ def _p17_shards(name: str) -> dict:
                 bms, by = bound_ms(B * d * 2 + words[0] * mp * 4
                                    + B * mp * 2, 2 * B * d * mp, name)
                 s = sums.setdefault((tp, B), dict(
-                    ms=0.0, bound_ms=0.0, whole_ms=0.0, by=set(),
-                    path=path))
+                    ms=0.0, bound_ms=0.0, whole_ms=0.0, library_ms=0.0,
+                    by=set(), path=path))
                 s["ms"] += ms
                 s["bound_ms"] += bms
                 s["whole_ms"] += whole_ms[B]
                 s["by"].add(by)
+                lib = ""
+                if B in (1, 600):
+                    lms = time_ms([lambda v=v: torch.matmul(x, v.t())
+                                   for v in dense], 20 if B <= 128 else 5)
+                    s["library_ms"] += lms
+                    lib = f"; torch.matmul of the bf16 shard {lms:.4f} ms"
                 log(f"17a K1 {sname:5s} tp={tp} shard {mp}x{d} B={B:3d} "
                     f"[{path}]: {ms:.4f} ms (bound {bms:.4f} {by}, "
                     f"{bms / ms:.0%}); whole {m}x{d} {whole_ms[B]:.4f} ms; "
-                    f"joined shards vs whole rel err {rel:.1e}")
-            del shard_copies
+                    f"joined shards vs whole rel err {rel:.1e}{lib}")
+            del shard_copies, dense, w
         del copies
         torch.cuda.empty_cache()
     out = {}
@@ -4264,10 +4439,14 @@ def _p17_shards(name: str) -> dict:
             f"ms_{tag}": s["ms"], f"bound_ms_{tag}": s["bound_ms"],
             f"bound_by_{tag}": s["by"].pop(),
             f"whole_ms_{tag}": s["whole_ms"]})
+        if B in (1, 600):
+            out[kern][f"library_ms_{tag}"] = s["library_ms"]
         log(f"17a K1 sum of the four shards, tp={tp} B={B:3d} "
             f"[{s['path']}]: {s['ms']:.4f} ms a rank (bound "
             f"{s['bound_ms']:.4f}, {s['bound_ms'] / s['ms']:.0%}); the "
-            f"whole calls {s['whole_ms']:.4f} ms")
+            f"whole calls {s['whole_ms']:.4f} ms"
+            + (f"; torch.matmul of the dequantised bf16 shards "
+               f"{s['library_ms']:.4f} ms" if B in (1, 600) else ""))
     out["k1_decode"]["max_rel_err_shards"] = worst["decode"]
     out["k1_tile"]["max_rel_err_shards"] = worst["tile"]
     out["k1_decode"]["max_abs_err_shards"] = worst_abs["decode"]
@@ -4566,7 +4745,9 @@ def main():
                    "codes widened to 4-bit fields, _3bit: as two planes; "
                    "_tpN_bB: phase 17a, the sum over wqkv, wo, wgu, wd of "
                    "one column shard at tp = N, B rows (whole_ms: the "
-                   "unsharded calls); ms_per_step_*: the device ms of its "
+                   "unsharded calls; library_ms: torch.matmul of the "
+                   "dequantised bf16 shards, B = 1 and 600); "
+                   "ms_per_step_*: the device ms of its "
                    "launches in a profiled un-fused decode step (phase 8); "
                    "launches_ragged_checks: phase 2's launches of the "
                    "cp.async ring (m = 330)"),
@@ -4653,13 +4834,29 @@ def main():
              max_rel_err_f32=k3["max_rel_err_f32"],
              empty_kernel_ms=k3["empty_ms"],
              empty_kernel_in_graph_ms=k3["empty_in_graph_ms"],
+             **{k: v for k, v in k3.items() if k == "by_B"},
+             chain=k3["chain"],
+             ms_per_step_pump_b1=dec[(True, 1)]["pump"]["k3_ms"],
+             ms_per_step_pump_b4=dec[(True, 4)]["pump"]["k3_ms"],
+             ms_per_step_serial_b1=dec[(True, 1)]["serial"]["k3_ms"],
+             idle_ms_per_step_pump_b1=dec[(True, 1)]["pump"]["idle_ms"],
+             idle_ms_per_step_pump_b4=dec[(True, 4)]["pump"]["idle_ms"],
+             own_ms_per_step_pump_b1=dec[(True, 1)]["pump"]["k3_own_ms"],
+             own_ms_per_step_pump_b4=dec[(True, 4)]["pump"]["k3_own_ms"],
              **{f"{k}_{w}_b1": k3[f"{k}_{w}_b1"] for w in ("opt", "n16384")
                 for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
              bound_by_opt_b1=k3["bound_by_opt_b1"],
              shape="sum over the six (n, direction) pairs of a b1 decode "
                    "step: 4096 fwd/T, 11008 fwd, 12288 T, 22016 T, 32000 T; "
                    "_opt: OPT-6.7B's five, 4096 fwd/T, 12288 T, 16384 "
-                   "fwd/T; _n16384: 16384 fwd + T; bf16"),
+                   "fwd/T; _n16384: 16384 fwd + T; bf16; by_B: the six "
+                   "at B = 1, 2, 8, 32; chain: a Llama-2-7B layer's four "
+                   "fused linears in one graph, with and without PDL, "
+                   "and un-fused; ms_per_step_*: its launches' summed "
+                   "device spans in a profiled fused decode step (phase "
+                   "8), own_ms_*: the time K3 alone covers there, "
+                   "idle_ms_*: the step's ms less the time some kernel "
+                   "covers"),
         dict(name="slabdot_matmul", route="cuda",
              source="quip_tpu_torch/kernels/csrc/slabdot_matmul.cu",
              replaces="scripts/bench_kernel.py:69",

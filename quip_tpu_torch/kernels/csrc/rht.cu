@@ -6,48 +6,58 @@
 // the same roundings, with T = x's dtype (bf16 or f32) and X = reshape_{a,b}:
 //   forward:    X <- T(X * T(vec));  Z = T(X . T(R)^T);  Y = T(T(L) . Z)
 //   transpose:  Z = T(X . T(R));  Y = T(T(L)^T . Z);  Y <- T(Y * T(vec))
-// Both products accumulate in f32. L, R and vec arrive f32 and are rounded
-// to T here. R == nullptr is the b == 1 case (n == a): the R product is
-// skipped. L and R are any square matrices: the products are dense.
+// Both products accumulate in f32. L and R are any square matrices: the
+// products are dense.
 //
-// Bound on this card: by the roofline its bytes (one row is at most 125 KB,
-// L and R at most 64 KB + 244 KB, shared by all rows through L2) and its
-// 2.a.b.(a + b) operations per row are both far below a microsecond, bytes
-// the larger. What sets its time is latency: the launch, one round of loads
-// from L2, and two dependent products. Two kernels:
+// Bound on this card: not bytes and not operations. One row is at most 64
+// KB of bf16, L and R at most 32 KB + 125 KB, and 2.a.b.(a + b) operations
+// a row, all far below a microsecond at 3.35 TB/s and 989 TFLOP/s. Its
+// time is the launch, one round trip to L2 for the row of x, and two
+// dependent products: in a decode step it sits between K1-decode launches,
+// so what counts is how much of that it can hide under its neighbours.
 //
-// rht_mma (T = bf16, the serving dtype). Every operand is a bf16 value, so
-// both products are exact tensor-core products (mma.sync.m16n8k16, f32
-// accumulators): the function is the same, only the order of the f32 sums
-// changes.
-//   * a block of 1024 threads owns 16 output columns q (two n-tiles) of one
-//     row of x, so the grid is (ceil(b / 16), rows): 4 to 16 blocks a row,
-//     twice the CUDA-core kernel's, and no sum crosses blocks. Every block of
-//     a row stages the whole X tile, so with many rows (B ceil(b / 64) at
-//     least half the SMs) a block owns 64 columns instead, and beyond two
-//     blocks an SM it takes several rows in turn (the wrapper's block_plan)
-//     and stages L and its slice of R once for them;
-//   * operands live in shared memory as bf16 (half the f32 kernel's bytes:
-//     X 128 x 250 is 66 KB, L 34 KB, the R slice 12 KB, Z 6 KB), rows padded
-//     by 16 bytes so that every ldmatrix is conflict-free; a, b and the
-//     block's columns are padded with zeros to multiples of 16;
-//   * L, R and vec are f32 in device memory and are rounded on the way in, so
-//     the staging goes through registers and cp.async is not used. Staged
-//     two elements a load from 256 threads, this alone took as long as the
-//     CUDA-core kernel; now x goes 8 elements and L and vec 4 a load, from
-//     1024 threads, and all three operands are requested before the first
-//     barrier, so one round of L2 latency covers them. One SM's L2 port then bounds a block: 190 KB of x and vec at
-//     n = 32000 forward;
-//   * the orientation is never materialised: T(R)^T is the R slice's rows as
-//     the "col" B operand, T(R) its columns by ldmatrix.trans; T(L)^T is L
-//     by ldmatrix.trans as the A operand; Z goes once through shared memory
-//     as bf16 (the rounding between the products is part of the function)
-//     and comes back by ldmatrix.trans;
-//   * a warp's task is one 16-row m-tile by 16 columns (8 tasks for a
-//     128-row factor at 16 columns, 32 at 64); vec folds in T on the way in
-//     (forward) or out (transpose).
-// It runs within a few microseconds of an empty kernel's replay, which
-// chip_smoke.py times beside it (quip_rht_empty).
+// rht_mma (T = bf16, the serving dtype; a <= 128, b <= 256):
+//   * programmatic dependent launch (cudaLaunchKernelEx with
+//     programmatic stream serialization): the launch and a block's set-up
+//     (its barriers, the zeros past x's row) run under the kernel before
+//     it; every copy (the operands, x) and every store of y come after
+//     griddepcontrol.wait. The block lets the next grid launch as soon as
+//     its copies of x are issued, so K1-decode's producer fills its plane
+//     ring under this kernel's products. Staging the operands before the
+//     wait measured no faster (tools/tune_rht.py, PERF.md section 6);
+//   * L, R and vec come as bf16 copies made once (kernels/rht.py's
+//     `operands`, cached by the source tensors), zero-padded and already in
+//     the layout the kernel reads: L and R as core matrices of 8 rows of
+//     16 bytes, k16 slice by k16 slice (desc_plain's: the two halves of a
+//     slice 128 bytes apart, 8-row groups 256 apart); vec as x is staged
+//     (forward) or as each block's slice (transpose). Each is one bulk
+//     copy (cp.async.bulk) and no thread rounds or moves a factor;
+//   * a block owns NQ = 32 output columns q of one row of x: one consumer
+//     warpgroup and one producer warp (160 threads, at most ~190 KB of
+//     shared memory, 120 KB on the serving path's widest U side). Each of
+//     the ceil(b / 32) blocks of a row stages the whole row, flat, by one
+//     bulk copy an m-tile (rows 0..63 and 64..127 land on mbarriers of
+//     their own), from L2 after the first block. A thread-block cluster
+//     sharing the row by multicast, and rows padded apart by tensor-map
+//     boxes against bank conflicts, both measured no faster;
+//   * Z = X . Rop is wgmma.m64n32k16 with X as the register A operand: a
+//     lane reads its A fragments straight from the staged row (and folds
+//     vec in, forward), 4 k16 slices a batch into one of two register sets
+//     while the batch before is in flight, the m-tiles' batches in turn;
+//     B is the R slice (K-major, zero-padded to whole batches). With one
+//     warp a scheduler every instruction's latency shows, so the even-b
+//     loads take no branch: they read a buffer whose rows >= a and tail
+//     are zero (past a row's end a read meets the next row's value
+//     and R's zero column);
+//   * Z is rounded to bf16 in registers and written once, transposed, by
+//     stmatrix (.trans) as the K-major B operand of Y = Lop . Z, itself
+//     wgmma.m64n32k16 with Lop from shared memory;
+//   * the epilogue rounds Y, multiplies the transpose's vec (its block's
+//     slice, staged with the operands, read while Y's products run) and
+//     stores pairs of y.
+// Rows of x that are not 16-byte pieces (n % 8 != 0) are copied by the
+// producer warp itself, element by element. What binds it:
+// tools/tune_rht.py (ablation, stage clocks; PERF.md section 6).
 //
 // rht_kernel (T = f32: the parity path, round trip at 1e-5). TF32 or bf16
 // tensor-core products would change the function, so it keeps the FMA route
@@ -68,6 +78,13 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
+
+// Stage stamps for tools/tune_rht.py's timed copy; nothing here.
+#ifndef RHT_STAMP
+#define RHT_STAMP(k)
+#endif
 
 namespace {
 
@@ -273,331 +290,460 @@ rht_kernel(const T* __restrict__ x, const float* __restrict__ vec,
   }
 }
 
-// ---- the bf16 kernel: both products on the tensor cores -------------------
 
-constexpr int kMT = 1024;       // threads of rht_mma
-constexpr int kMW = kMT / 32;
+// ---- the bf16 kernel: both products on wgmma -------------------------------
 
-__host__ __device__ inline int up16(int v) { return (v + 15) / 16 * 16; }
+constexpr int NQ = 32;            // output columns of a block: wgmma's N
+constexpr int NCT = 128;          // consumer threads: one warpgroup
+constexpr int NTH = NCT + 32;     // and one producer warp
+constexpr int BATCH = 4;          // k16 slices of x a batch of Z's products
+constexpr int SLICE = 256 * (NQ / 8);   // bytes of a k16 slice of 32 rows
+constexpr int VLD = NQ + 8;       // row stride of the transpose's vec slice
+constexpr int kMmaSmem = 220 * 1024;
 
-// NT n-tiles (8 output columns each) per block; rows of Z and of the
-// transposed R slice are 8 * NT + 8 elements long
-struct MmaSmem {
-  int ap, kb, ldx, ldl, ldz;
-  size_t xs, ls, rs, zs, bytes;   // offsets and total, in bytes
+__host__ __device__ inline int up8(int v) { return (v + 7) / 8 * 8; }
+// x's and vec's elements in shared memory: 64 mt rows of b, and the tail
+// that Z's last k16 slices read past the last row
+__host__ __device__ inline int x_len(int a, int b) {
+  return up8(64 * ((a + 63) / 64) * b + 64);
+}
+
+// The bf16 kernel's shape: mt m-tiles of 64 rows (a), nb batches of
+// BATCH k16 slices of b (Z's depth, R zero-padded to it), ks2 k16 slices
+// of a (Y's depth), nq blocks a row; dynamic
+// shared memory (byte offsets): L (64 mt rows, ks2 slices), this block's R
+// slice (32 rows, BATCH nb slices), Z^T (32 rows, ks2 slices), vec
+// (forward: as x; transpose: this block's a x 32 slice, rows VLD apart)
+// and x (x_len elements).
+struct Geo {
+  int mt, nb, ks2, nq;
+  int l_bytes, r_bytes, v_bytes, x_bytes;
+  int ls, rs, zs, vs, xs, bytes;
 };
-__host__ __device__ inline MmaSmem mma_smem(int a, int b, int has_right,
-                                            int nt) {
-  MmaSmem m;
-  const int cq = 8 * nt;
-  m.ap = up16(a);
-  m.kb = has_right ? up16(b) : 0;
-  m.ldx = m.kb + 8;
-  m.ldl = m.ap + 8;
-  m.ldz = cq + 8;
-  const size_t rfwd = (size_t)cq * m.ldx, rtr = (size_t)m.kb * m.ldz;
-  m.xs = 0;
-  m.ls = m.xs + (has_right ? (size_t)m.ap * m.ldx * 2 : 0);
-  m.rs = m.ls + (size_t)m.ap * m.ldl * 2;
-  m.zs = m.rs + (has_right ? (rfwd > rtr ? rfwd : rtr) * 2 : 0);
-  m.bytes = m.zs + (size_t)m.ap * m.ldz * 2;
-  return m;
+__host__ __device__ inline Geo geo(int a, int b, int transpose) {
+  Geo g;
+  g.mt = (a + 63) / 64;
+  g.nb = (b + 16 * BATCH - 1) / (16 * BATCH);
+  g.ks2 = (a + 15) / 16;
+  g.nq = (b + NQ - 1) / NQ;
+  g.l_bytes = g.ks2 * g.mt * 2048;
+  g.r_bytes = BATCH * g.nb * SLICE;
+  g.x_bytes = x_len(a, b) * 2;
+  g.v_bytes = transpose ? a * VLD * 2 : g.x_bytes;
+  g.ls = 0;
+  g.rs = g.ls + g.l_bytes;
+  g.zs = g.rs + g.r_bytes;
+  g.vs = g.zs + g.ks2 * SLICE;
+  g.xs = (g.vs + g.v_bytes + 127) / 128 * 128;
+  g.bytes = g.xs + g.x_bytes + 128;              // + the base's alignment
+  return g;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+// a 1-D bulk copy global -> shared, completing on `bar`'s transaction
+// count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCT) : "memory");
+}
+// four 8 x 8 bf16 matrices of the accumulator layout, each stored
+// transposed: row r of matrix m at the address lane 8 m + r gives
+__device__ __forceinline__ void stmatrix_t(uint32_t addr, uint32_t r0,
+                                           uint32_t r1, uint32_t r2,
+                                           uint32_t r3) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};"
+      "\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+
+#define ACC16(d)                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define REGS16                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// D (64 x 32, f32) (+)= A (64 x 16, bf16 registers) . B (16 x 32, K-major
+// in shared memory); acc = 0 overwrites D
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+// the same with A (64 x 16, K-major) from shared memory too
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da,
+                                         uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " REGS16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : ACC16(d)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ uint32_t bits2(__nv_bfloat162 v) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
-__device__ __forceinline__ uint32_t bf2_bits(float lo, float hi) {
-  return bf2_bits(__floats2bfloat162_rn(lo, hi));
-}
-__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
+__device__ __forceinline__ __nv_bfloat162 bf2(uint32_t v) {
   return *reinterpret_cast<const __nv_bfloat162*>(&v);
 }
-// two neighbouring f32 of a row-major matrix, rounded to bf16; (r, c) outside
-// (rows, cols) reads as zero. `even`: cols is even, so the pair is aligned
-// and inside together.
-__device__ __forceinline__ uint32_t ld_f32_pair(const float* __restrict__ m,
-                                                int r, int c, int rows,
-                                                int cols, bool even) {
-  if (r >= rows || c >= cols) return 0u;
-  const float* p = m + (size_t)r * cols + c;
-  if (even) {
-    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-    return bf2_bits(v.x, v.y);
+// Elements e and e + 1 of a bf16 row as one register, zero unless `in`
+// (and the second zero unless `two`), without a branch: the loads of a
+// batch stay in flight together.
+__device__ __forceinline__ uint32_t pair_at(const __nv_bfloat16* p, int e,
+                                            bool in, bool two) {
+  const int at = in ? e : 0;
+  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p + at);
+  const uint32_t hi =
+      *reinterpret_cast<const unsigned short*>(p + (in && two ? e + 1 : 0));
+  return in ? (lo | (two ? hi << 16 : 0u)) : 0u;
+}
+// A batch of A fragments of X (BATCH k16 slices; rows i0 and i0 + 8 of
+// this lane), vec folded in forward, for even b: xp and vp point at this
+// lane's first element (row i0, column 16 s0 + 2 t), ld8 is 8 rows. Every
+// position read is inside the buffers: past a row's end it is the next
+// row's value (Z's R slice is zero there) or zero (rows >= a and the tail
+// are zero-filled, vec's prepared so).
+__device__ __forceinline__ void x_batch_even(uint32_t (&aq)[BATCH][4],
+                                             const __nv_bfloat16* xp,
+                                             const __nv_bfloat16* vp,
+                                             int ld8, bool fwd) {
+#pragma unroll
+  for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      aq[u][r] = *reinterpret_cast<const uint32_t*>(
+          xp + (r & 1) * ld8 + 16 * u + 8 * (r >> 1));
+  if (fwd) {
+    uint32_t v[BATCH][4];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        v[u][r] = *reinterpret_cast<const uint32_t*>(
+            vp + (r & 1) * ld8 + 16 * u + 8 * (r >> 1));
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        aq[u][r] = bits2(__hmul2(bf2(aq[u][r]), bf2(v[u][r])));
   }
-  return bf2_bits(__ldg(p), c + 1 < cols ? __ldg(p + 1) : 0.f);
+}
+// the same for odd b: element by element, zero outside (a, b)
+__device__ __forceinline__ void x_batch_odd(uint32_t (&aq)[BATCH][4],
+                                        const __nv_bfloat16* xs,
+                                        const __nv_bfloat16* vs, int i0,
+                                        int s0, int t, int a, int b,
+                                        bool fwd) {
+#pragma unroll
+  for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + 8 * (r & 1), j = 16 * (s0 + u) + 2 * t + 8 * (r >> 1);
+      aq[u][r] = pair_at(xs, i * b + j, i < a && j < b, j + 1 < b);
+    }
+  if (fwd) {
+    uint32_t v[BATCH][4];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + 8 * (r & 1),
+                  j = 16 * (s0 + u) + 2 * t + 8 * (r >> 1);
+        v[u][r] = pair_at(vs, i * b + j, i < a && j < b, j + 1 < b);
+      }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        aq[u][r] = bits2(__hmul2(bf2(aq[u][r]), bf2(v[u][r])));
+  }
 }
 
-// grid (ceil(b / (8 NT)), ceil(B / rpb)); dynamic shared memory per mma_smem.
-template <int NT>
-__global__ void __launch_bounds__(kMT)
-rht_mma(const __nv_bfloat16* __restrict__ x, const float* __restrict__ vec,
-        const float* __restrict__ L, const float* __restrict__ R,
-        __nv_bfloat16* __restrict__ y, int B, int a, int b, int rpb,
-        int transpose) {
-  constexpr int CQ = 8 * NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const MmaSmem sm = mma_smem(a, b, R != nullptr, NT);
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.xs);
-  __nv_bfloat16* Ls = reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.ls);
-  __nv_bfloat16* Rs = reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.rs);
-  __nv_bfloat16* Zs = reinterpret_cast<__nv_bfloat16*>(smem_raw + sm.zs);
-  const int ap = sm.ap, kb = sm.kb, ldx = sm.ldx, ldl = sm.ldl, ldz = sm.ldz;
+// grid (nq, B): block qs of a row owns output columns 32 qs .. 32 qs + 31.
+// x, y (B, a*b) bf16; vp (forward: as x's buffer, x_len elements, zero
+// past a*b; transpose: by block, a rows of the block's 32 columns, VLD
+// apart), lp and rp bf16 in the layout above (kernels/rht.py::prepare). MT
+// and NB are the shape's (Geo's mt, nb). flat: x arrives by bulk copies
+// (x 16-byte aligned, n % 8 == 0), else element by element (the producer
+// warp).
+template <int MT, int NB>
+__global__ void __launch_bounds__(NTH)
+rht_mma(const __nv_bfloat16* __restrict__ x,
+        const __nv_bfloat16* __restrict__ vp,
+        const __nv_bfloat16* __restrict__ lp,
+        const __nv_bfloat16* __restrict__ rp, __nv_bfloat16* __restrict__ y,
+        int a, int b, int transpose, int flat) {
+  extern __shared__ __align__(128) unsigned char dsm_raw[];
+  __shared__ __align__(8) uint64_t fbar, xbar[MT];
+  const Geo G = geo(a, b, transpose);
+  unsigned char* dsm =
+      dsm_raw + ((128 - (smem_u32(dsm_raw) & 127)) & 127);
+  unsigned char* Ls = dsm + G.ls;
+  unsigned char* Rs = dsm + G.rs;
+  unsigned char* Zs = dsm + G.zs;
+  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(dsm + G.vs);
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(dsm + G.xs);
   const int n = a * b;
-  const int q0 = blockIdx.x * CQ;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const bool b_even = (b & 1) == 0, a_even = (a & 1) == 0;
-  // 16-byte loads over the flat row: pairs never straddle a row of X
-  const bool x_flat = b_even && n % 8 == 0;
+  const int qs = blockIdx.x, row = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  RHT_STAMP(0);
 
-  // the X tile of one row of x: Xs[i][j] = T(x[i][j] * T(vec[i][j])) (forward)
-  // or x[i][j], zero outside (a, b)
-  auto stage_x = [&](int row) {
+  if (tid == 0) {
+    mbar_init(&fbar, 1);
+    for (int m = 0; m < MT; ++m) mbar_init(&xbar[m], flat ? 1 : 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NCT / 32) {
+    // ---- producer ---------------------------------------------------------
+    grid_dep_wait();            // x belongs to the kernel before
+    if (lane == 0) {
+      mbar_expect_tx(&fbar, G.l_bytes + G.r_bytes + G.v_bytes);
+      bulk_load(Ls, lp, G.l_bytes, &fbar);
+      bulk_load(Rs, rp + (size_t)qs * (G.r_bytes / 2), G.r_bytes, &fbar);
+      bulk_load(Vs, vp + (transpose ? (size_t)qs * a * VLD : 0), G.v_bytes,
+                &fbar);
+    }
     const __nv_bfloat16* xr = x + (size_t)row * n;
-    if (x_flat) {
-#pragma unroll 2
-      for (int e = tid * 8; e < n; e += kMT * 8) {
-        const uint4 xv = *reinterpret_cast<const uint4*>(xr + e);
-        uint32_t v[4] = {xv.x, xv.y, xv.z, xv.w};
-        if (!transpose) {
-          const float4 s0 = __ldg(reinterpret_cast<const float4*>(vec + e));
-          const float4 s1 = __ldg(reinterpret_cast<const float4*>(vec + e + 4));
-          v[0] = bf2_bits(__hmul2(as_bf2(v[0]), as_bf2(bf2_bits(s0.x, s0.y))));
-          v[1] = bf2_bits(__hmul2(as_bf2(v[1]), as_bf2(bf2_bits(s0.z, s0.w))));
-          v[2] = bf2_bits(__hmul2(as_bf2(v[2]), as_bf2(bf2_bits(s1.x, s1.y))));
-          v[3] = bf2_bits(__hmul2(as_bf2(v[3]), as_bf2(bf2_bits(s1.z, s1.w))));
+    if (flat) {
+      if (lane == 0) {
+        for (int m = 0; m < MT; ++m) {
+          // rows 64 m .. of the flat row: 16-byte pieces
+          const int e0 = 64 * m * b, e1 = min(a, 64 * m + 64) * b;
+          mbar_expect_tx(&xbar[m], (e1 - e0) * 2);
+          bulk_load(Xs + e0, xr + e0, (e1 - e0) * 2, &xbar[m]);
         }
-        int i = e / b, j = e - i * b;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          *reinterpret_cast<uint32_t*>(Xs + i * ldx + j) = v[u];
-          j += 2;
-          if (j >= b) {
-            j -= b;
-            ++i;
-          }
-        }
-      }
-      return;
-    }
-    const int half = kb / 2;
-#pragma unroll 4
-    for (int e = tid; e < a * half; e += kMT) {
-      const int i = e / half, j = 2 * (e - i * half);
-      uint32_t v = 0u;
-      if (j < b) {
-        const size_t at = (size_t)i * b + j;
-        const bool two = j + 1 < b;
-        const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-        __nv_bfloat162 xv(xr[at], two ? xr[at + 1] : zero);
-        if (!transpose)
-          xv = __hmul2(xv, __floats2bfloat162_rn(
-                               __ldg(vec + at), two ? __ldg(vec + at + 1) : 0.f));
-        v = bf2_bits(xv);
-      }
-      *reinterpret_cast<uint32_t*>(Xs + i * ldx + j) = v;
-    }
-  };
-
-  const int row0 = blockIdx.y * rpb;
-  const int row_end = min(B, row0 + rpb);
-  if (R != nullptr) {
-    stage_x(row0);
-    // the pads of X that stage_x leaves alone: columns b.. of rows < a (flat
-    // staging only) and rows a..
-    if (x_flat) {
-      const int pc = (kb - b) / 2;
-      for (int e = tid; e < a * pc; e += kMT) {
-        const int i = e / pc, j = b + 2 * (e - i * pc);
-        *reinterpret_cast<uint32_t*>(Xs + i * ldx + j) = 0u;
-      }
-    }
-    for (int e = tid; e < (ap - a) * (kb / 2); e += kMT) {
-      const int i = a + e / (kb / 2), j = 2 * (e % (kb / 2));
-      *reinterpret_cast<uint32_t*>(Xs + i * ldx + j) = 0u;
-    }
-    if (!transpose) {
-      // Rs[ql][j] = T(R[q0 + ql][j]): the "col" B operand of Z = X . R^T
-      const int half = kb / 2;
-#pragma unroll 2
-      for (int e = tid; e < CQ * half; e += kMT) {
-        const int ql = e / half, j = 2 * (e - ql * half);
-        *reinterpret_cast<uint32_t*>(Rs + ql * ldx + j) =
-            ld_f32_pair(R, q0 + ql, j, b, b, b_even);
       }
     } else {
-      // Rs[j][ql] = T(R[j][q0 + ql]): read by ldmatrix.trans for Z = X . R
-#pragma unroll 2
-      for (int e = tid; e < kb * (CQ / 2); e += kMT) {
-        const int j = e / (CQ / 2), ql = 2 * (e - j * (CQ / 2));
-        *reinterpret_cast<uint32_t*>(Rs + j * ldz + ql) =
-            ld_f32_pair(R, j, q0 + ql, b, b, b_even);
-      }
+      for (int e = lane; e < n; e += 32) Xs[e] = xr[e];
+      for (int m = 0; m < MT; ++m) mbar_arrive(&xbar[m]);
     }
-  }
-  // Ls[r][c] = T(L[r][c]), zero outside (a, a)
-  if (a % 16 == 0) {
-#pragma unroll 4
-    for (int e = tid * 4; e < a * a; e += kMT * 4) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(L + e));
-      const int r = e / a, c = e - r * a;
-      *reinterpret_cast<uint2*>(Ls + r * ldl + c) =
-          make_uint2(bf2_bits(v.x, v.y), bf2_bits(v.z, v.w));
-    }
+    __syncwarp();
+    grid_dep_launch();          // x's last read is issued
   } else {
-    const int half = ap / 2;
-    for (int e = tid; e < ap * half; e += kMT) {
-      const int r = e / half, c = 2 * (e - r * half);
-      *reinterpret_cast<uint32_t*>(Ls + r * ldl + c) =
-          ld_f32_pair(L, r, c, a, a, a_even);
+    // ---- consumers --------------------------------------------------------
+    const int w = warp, g = lane >> 2, t = lane & 3;
+    const int q0 = qs * NQ;
+    const bool fwd = !transpose, even = (b & 1) == 0;
+    // zero what x's copies leave alone and Z's loads read: everything past
+    // the row (shared memory only: no need to wait for the kernel before)
+    const int xl = x_len(a, b);
+    {
+      const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+      for (int e = up8(n) + 8 * tid; e < xl; e += 8 * NCT)
+        *reinterpret_cast<uint4*>(Xs + e) = z;
+      for (int e = n + tid; e < up8(n); e += NCT)
+        Xs[e] = __float2bfloat16_rn(0.f);
+      consumers_sync();
     }
-  }
+    grid_dep_wait();            // y may alias what the kernel before used
+    RHT_STAMP(1);
+    mbar_wait(&fbar, 0);
+    RHT_STAMP(2);
 
-  // a warp's task: 16 rows (m-tile mt) by 16 columns (n-tiles 2 ng, 2 ng + 1)
-  const int tasks = (ap / 16) * (NT / 2);
-  for (int row = row0; row < row_end; ++row) {
-    if (R == nullptr) {
-      // b == 1: Z is the (vec-folded) row itself, in column 0
-      for (int e = tid; e < ap * (CQ / 2); e += kMT) {
-        const int i = e / (CQ / 2), c = 2 * (e - i * (CQ / 2));
-        uint32_t v = 0u;
-        if (c == 0 && i < a) {
-          __nv_bfloat16 xv = x[(size_t)row * n + i];
-          if (!transpose) xv = __hmul(xv, __float2bfloat16_rn(__ldg(vec + i)));
-          v = (uint32_t)(*reinterpret_cast<const unsigned short*>(&xv));
+    // Z[i][q] = T(sum_j X[i][j] RopT[q][j]): batches of BATCH k16 slices,
+    // the m-tiles' in turn (independent chains), in two register sets
+    float acc[MT][16];
+    uint32_t af[2][BATCH][4];
+    const uint32_t rs = smem_u32(Rs);
+    const int x0 = (16 * w + g) * b + 2 * t;
+#pragma unroll
+    for (int bt = 0; bt < NB; ++bt)
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (bt == 0) {
+          mbar_wait(&xbar[m], 0);
+          if (m == 0) RHT_STAMP(3);
         }
-        *reinterpret_cast<uint32_t*>(Zs + i * ldz + c) = v;
-      }
-    } else {
-      if (row != row0) stage_x(row);
-      __syncthreads();                     // Xs, Rs (and Ls) are written
-      // Z[i][q] = T(sum_j X[i][j] Rop[j][q])
-      for (int task = warp; task < tasks; task += kMW) {
-        const int mt = task % (ap / 16), ng = task / (ap / 16);
-        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-        const uint32_t a_base =
-            smem_u32(Xs + (mt * 16 + (lane & 15)) * ldx + (lane >> 4) * 8);
-        const uint32_t b_base = transpose
-            ? smem_u32(Rs + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldz +
-                       ng * 16 + (lane >> 4) * 8)
-            : smem_u32(Rs + (ng * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldx +
-                       ((lane >> 3) & 1) * 8);
-#pragma unroll 4
-        for (int k0 = 0; k0 < kb; k0 += 16) {
-          uint32_t af[4], bf[4];
-          ldmatrix_x4(af, a_base + k0 * 2);
-          if (transpose)
-            ldmatrix_x4_trans(bf, b_base + k0 * ldz * 2);
-          else
-            ldmatrix_x4(bf, b_base + k0 * 2);
-          mma_bf16(acc[0], af, bf[0], bf[1]);
-          mma_bf16(acc[1], af, bf[2], bf[3]);
+        const int set = (bt * MT + m) & 1;
+        uint32_t(&aq)[BATCH][4] = af[set];
+        // every load of the batch in flight before the first pin waits
+        if (even) {
+          const int at = x0 + 64 * m * b + 16 * BATCH * bt;
+          x_batch_even(aq, Xs + at, Vs + at, 8 * b, fwd);
+        } else {
+          x_batch_odd(aq, Xs, Vs, 64 * m + 16 * w + g, BATCH * bt, t, a, b,
+                      fwd);
         }
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          __nv_bfloat16* z = Zs + (mt * 16 + g) * ldz + ng * 16 + nt * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(z) = bf2_bits(acc[nt][0], acc[nt][1]);
-          *reinterpret_cast<uint32_t*>(z + 8 * ldz) =
-              bf2_bits(acc[nt][2], acc[nt][3]);
+        for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pin(aq[u][r]);
+        wgmma_fence();
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u) {
+          const int s = BATCH * bt + u;
+          wgmma_rs(acc[m], aq[u], desc_plain(rs + s * SLICE, 128), s > 0);
         }
+        wgmma_commit();
+        wgmma_wait<1>();
+        // the batch before is retired only now: its registers stay its own
+#pragma unroll
+        for (int u = 0; u < BATCH; ++u)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) pin(af[set ^ 1][u][r]);
+      }
+    wgmma_wait<0>();
+    grid_dep_launch();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) pin(acc[m][e]);
+    RHT_STAMP(4);
+
+    // Z^T as Y's K-major B operand: rows q, k16 slice s = 4 m + w of a
+    // warp's 16 rows i; matrix mm of a stmatrix is (half mm & 1 of the
+    // slice, column group c + mm / 2)
+    const uint32_t zs = smem_u32(Zs);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int s = 4 * m + w;
+      if (s >= G.ks2) continue;
+#pragma unroll
+      for (int c = 0; c < NQ / 8; c += 2) {
+        const int mm = lane >> 3;
+        stmatrix_t(
+            zs + s * SLICE + (c + (mm >> 1)) * 256 + (mm & 1) * 128 +
+                (lane & 7) * 16,
+            bits2(__floats2bfloat162_rn(acc[m][4 * c], acc[m][4 * c + 1])),
+            bits2(__floats2bfloat162_rn(acc[m][4 * c + 2], acc[m][4 * c + 3])),
+            bits2(__floats2bfloat162_rn(acc[m][4 * c + 4], acc[m][4 * c + 5])),
+            bits2(__floats2bfloat162_rn(acc[m][4 * c + 6], acc[m][4 * c + 7])));
       }
     }
-    __syncthreads();                       // Zs (and Ls) are written
-    // Y[p][q] = T(sum_i Lop[p][i] Z[i][q]), Lop = T(L) or T(L)^T
-    for (int task = warp; task < tasks; task += kMW) {
-      const int mt = task % (ap / 16), ng = task / (ap / 16);
-      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      const uint32_t a_base = transpose
-          ? smem_u32(Ls + ((lane & 7) + ((lane >> 4) & 1) * 8) * ldl +
-                     mt * 16 + ((lane >> 3) & 1) * 8)
-          : smem_u32(Ls + (mt * 16 + (lane & 15)) * ldl + (lane >> 4) * 8);
-      const uint32_t b_base =
-          smem_u32(Zs + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldz + ng * 16 +
-                   (lane >> 4) * 8);
-#pragma unroll 4
-      for (int k0 = 0; k0 < ap; k0 += 16) {
-        uint32_t af[4], bf[4];
-        if (transpose)
-          ldmatrix_x4_trans(af, a_base + k0 * ldl * 2);
-        else
-          ldmatrix_x4(af, a_base + k0 * 2);
-        ldmatrix_x4_trans(bf, b_base + k0 * ldz * 2);
-        mma_bf16(acc[0], af, bf[0], bf[1]);
-        mma_bf16(acc[1], af, bf[2], bf[3]);
-      }
-      __nv_bfloat16* yr = y + (size_t)row * n;
+    fence_proxy_async();        // wgmma reads what stmatrix wrote
+    consumers_sync();
+    RHT_STAMP(5);
+
+    // Y[p][q] = T(sum_i Lop[p][i] Z[i][q])
+    float acc2[MT][16];
+    const uint32_t ls = smem_u32(Ls);
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+    for (int m = 0; m < MT; ++m)
+      for (int s = 0; s < G.ks2; ++s)
+        wgmma_ss(acc2[m], desc_plain(ls + s * MT * 2048 + m * 2048, 128),
+                 desc_plain(zs + s * SLICE, 128), s > 0);
+    wgmma_commit();
+    // the transpose's vec at this lane's outputs (p, 8 c + 2 t of the
+    // block's slice; rows past a read row a - 1 and are not stored), read
+    // while Y's products run
+    uint32_t ve[MT][NQ / 8][2];
+    if (transpose) {
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int p = mt * 16 + g + 8 * hh;
-          const int q = q0 + ng * 16 + nt * 8 + 2 * t;
-          if (p >= a || q >= b) continue;
-          const size_t at = (size_t)p * b + q;
-          const bool two = q + 1 < b;
-          __nv_bfloat162 v =
-              __floats2bfloat162_rn(acc[nt][2 * hh], acc[nt][2 * hh + 1]);
-          if (transpose)
-            v = __hmul2(v, __floats2bfloat162_rn(
-                               __ldg(vec + at), two ? __ldg(vec + at + 1) : 0.f));
-          if (b_even) {
-            *reinterpret_cast<__nv_bfloat162*>(yr + at) = v;
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < NQ / 8; ++c)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = min(64 * m + 16 * w + g + 8 * h, a - 1);
+            ve[m][c][h] = *reinterpret_cast<const uint32_t*>(
+                Vs + p * VLD + 8 * c + 2 * t);
+          }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) pin(acc2[m][e]);
+    RHT_STAMP(6);
+
+    // y[p][q]: acc2[m][4 c + 2 h + e] is (p, q + e); each store predicated,
+    // not branched around
+    __nv_bfloat16* yr = y + (size_t)row * n;
+    uint32_t yv[MT][NQ / 8][2];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < NQ / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162 v = __floats2bfloat162_rn(acc2[m][4 * c + 2 * h],
+                                                   acc2[m][4 * c + 2 * h + 1]);
+          if (transpose) v = __hmul2(v, bf2(ve[m][c][h]));
+          yv[m][c][h] = bits2(v);
+        }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int c = 0; c < NQ / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = 64 * m + 16 * w + g + 8 * h, q = q0 + 8 * c + 2 * t;
+          const bool in = p < a && q < b;
+          unsigned short* at =
+              reinterpret_cast<unsigned short*>(yr + (size_t)p * b + q);
+          if (even) {
+            if (in) *reinterpret_cast<uint32_t*>(at) = yv[m][c][h];
           } else {
-            yr[at] = v.x;
-            if (two) yr[at + 1] = v.y;
+            if (in) at[0] = (unsigned short)yv[m][c][h];
+            if (in && q + 1 < b) at[1] = (unsigned short)(yv[m][c][h] >> 16);
           }
         }
-    }
-    __syncthreads();                       // Zs is free for the next row
+    RHT_STAMP(7);
   }
 }
 
 __global__ void empty_kernel() {}
 
-template <int NT>
+template <int MT, int NB>
 cudaError_t run_mma(const __nv_bfloat16* x, int B, int a, int b,
-                    const float* vec, const float* L, const float* R,
-                    int transpose, int rpb, __nv_bfloat16* y, cudaStream_t s) {
+                    const __nv_bfloat16* vp, const __nv_bfloat16* lp,
+                    const __nv_bfloat16* rp, int transpose,
+                    __nv_bfloat16* y, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        rht_mma<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+        rht_mma<MT, NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMmaSmem);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const size_t smem = mma_smem(a, b, R != nullptr, NT).bytes;
-  const int rows = (B + rpb - 1) / rpb;
-  if (smem > (size_t)kMaxSmem || rpb < 1 || rows > 65535)
-    return cudaErrorInvalidValue;
-  dim3 grid((b + 8 * NT - 1) / (8 * NT), rows);
-  rht_mma<NT><<<grid, kMT, smem, s>>>(x, vec, L, R, y, B, a, b, rpb,
-                                      transpose);
-  return cudaGetLastError();
+  const Geo G = geo(a, b, transpose);
+  if (G.bytes > kMmaSmem || B > 65535) return cudaErrorInvalidValue;
+  const int flat =
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 && (a * b) % 8 == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G.nq, B);
+  cfg.blockDim = dim3(NTH);
+  cfg.dynamicSmemBytes = G.bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, rht_mma<MT, NB>, x, vp, lp, rp, y, a, b,
+                            transpose, flat);
+}
+
+template <int MT>
+cudaError_t run_mma_nb(int nb, const __nv_bfloat16* x, int B, int a, int b,
+                       const __nv_bfloat16* vp, const __nv_bfloat16* lp,
+                       const __nv_bfloat16* rp, int transpose,
+                       __nv_bfloat16* y, cudaStream_t s) {
+  switch (nb) {
+    case 1: return run_mma<MT, 1>(x, B, a, b, vp, lp, rp, transpose, y, s);
+    case 2: return run_mma<MT, 2>(x, B, a, b, vp, lp, rp, transpose, y, s);
+    case 3: return run_mma<MT, 3>(x, B, a, b, vp, lp, rp, transpose, y, s);
+    case 4: return run_mma<MT, 4>(x, B, a, b, vp, lp, rp, transpose, y, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -624,42 +770,50 @@ cudaError_t run(const T* x, int B, int a, int b, const float* vec,
 
 // Shared-memory bytes one block needs for an (a, b) split (has_right = 0:
 // b == 1, no R) in the bf16 (is_bf16 = 1) or the f32 kernel; the wrapper
-// refuses shapes above the 227 KB a block can have.
+// refuses shapes above what a block can have.
 extern "C" long long quip_rht_smem_bytes(int is_bf16, int a, int b,
-                                         int has_right, int cols) {
-  if (is_bf16) return (long long)mma_smem(a, b, has_right, cols / 8).bytes;
+                                         int has_right, int transpose) {
+  if (is_bf16) return (long long)geo(a, b, transpose).bytes;
   return (long long)(smem_floats(a, has_right ? (b + 3) / 4 * 4 : 0) *
                      sizeof(float));
 }
 
-// x, y (B, a*b) of one dtype: bf16 (is_bf16 = 1) or f32. vec (a*b,), L
-// (a, a), R (b, b) f32; R may be null when b == 1. The bf16 kernel's block
-// owns cols (16 or 64) output columns and takes rows_per_block >= 1 rows of x
-// in turn; the f32 kernel reads neither. Returns the CUDA error code (0 =
-// success).
-extern "C" int quip_rht_apply(const void* x, int is_bf16, int B, int a, int b,
+// The f32 kernel: x, y (B, a*b) f32; vec (a*b,), L (a, a), R (b, b) f32, R
+// null when b == 1. Returns the CUDA error code (0 = success).
+extern "C" int quip_rht_apply(const void* x, int B, int a, int b,
                               const void* vec, const void* L, const void* R,
-                              int transpose, int cols, int rows_per_block,
-                              void* y, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(vec);
-  const float* l = static_cast<const float*>(L);
+                              int transpose, void* y, void* stream) {
   const float* r = static_cast<const float*>(R);
   if (B < 1 || a < 1 || b < 1 || (r == nullptr && b != 1))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    if (cols == 16)
-      return (int)run_mma<2>(xb, B, a, b, v, l, r, transpose, rows_per_block,
-                             yb, s);
-    if (cols == 64)
-      return (int)run_mma<8>(xb, B, a, b, v, l, r, transpose, rows_per_block,
-                             yb, s);
+  return (int)run<float>(static_cast<const float*>(x), B, a, b,
+                         static_cast<const float*>(vec),
+                         static_cast<const float*>(L), r, transpose,
+                         static_cast<float*>(y),
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 kernel: x, y (B, a*b) bf16, x 16-byte aligned; vec, L, R the
+// prepared bf16 operands of kernels/rht.py::prepare (b == 1: R is the 1 x 1
+// identity); 1 <= a <= 128, 1 <= b <= 256.
+extern "C" int quip_rht_apply_bf16(const void* x, int B, int a, int b,
+                                   const void* vec, const void* L,
+                                   const void* R, int transpose, void* y,
+                                   void* stream) {
+  if (B < 1 || a < 1 || b < 1 || a > 128 || b > 256)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)run<float>(static_cast<const float*>(x), B, a, b, v, l, r,
-                         transpose, static_cast<float*>(y), s);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(vec);
+  const __nv_bfloat16* lb = static_cast<const __nv_bfloat16*>(L);
+  const __nv_bfloat16* rb = static_cast<const __nv_bfloat16*>(R);
+  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = geo(a, b, transpose).nb;
+  const cudaError_t e =
+      a > 64 ? run_mma_nb<2>(nb, xb, B, a, b, vb, lb, rb, transpose, yb, s)
+             : run_mma_nb<1>(nb, xb, B, a, b, vb, lb, rb, transpose, yb, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // One launch of a kernel that does nothing: the floor under any kernel's time

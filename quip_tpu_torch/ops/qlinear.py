@@ -36,11 +36,13 @@ or row-parallel (its input is a shard; one all-reduce).
 from __future__ import annotations
 
 import os
+import weakref
 
 import torch
 
 from quip_tpu_torch.core import incoherence as inc
 from quip_tpu_torch.kernels.dequant_matmul import dequant_matmul
+from quip_tpu_torch.kernels.rht import refresh as refresh_rht
 from quip_tpu_torch.kernels.rht import rht_apply_fused
 from quip_tpu_torch.ops.actquant import ActQuant
 from quip_tpu_torch.pack.format import PackedLinear, rot_to_butterflies
@@ -49,6 +51,47 @@ from quip_tpu_torch.parallel import comm
 
 def _fused_rht_enabled() -> bool:
     return os.environ.get("QUIP_FUSED_RHT") == "1"
+
+
+_vins: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _fused_vin(q: PackedLinear, signs: torch.Tensor) -> torch.Tensor:
+    """signs / scaleWH of a layer that stores no ``vin``, made once per
+    layer rather than a call, so that K3 finds its bf16 copies cached
+    (kernels/rht.py::operands keys them by the tensor). A write in place to
+    either since is divided again into the same tensor, which a captured
+    CUDA graph reads through those copies. Not cached while a graph is
+    being captured, and a stale one then raises."""
+    swh = q.scaleWH
+    stamp = (signs.data_ptr(), signs._version, swh.data_ptr(), swh._version)
+    got = _vins.get(q)
+    capturing = signs.is_cuda and torch.cuda.is_current_stream_capturing()
+    if got is not None and got[1].device == signs.device:
+        if got[0] != stamp:
+            if capturing:
+                raise RuntimeError(
+                    "qlinear: signs or scaleWH were written in place since "
+                    "the fused vec was made; call refresh_fused() before "
+                    "capturing")
+            torch.div(signs, swh, out=got[1])
+            got[0] = stamp
+        return got[1]
+    vin = signs / swh
+    if not capturing:
+        _vins[q] = [stamp, vin]
+    return vin
+
+
+def refresh_fused(q: PackedLinear) -> None:
+    """Bring the fused path's derived state up to date with buffers of
+    ``q`` written in place (``PackedLinear`` calls this after
+    ``load_state_dict``): its signs / scaleWH and every cached bf16 copy of
+    K3's operands, each in its own tensor, so CUDA graphs captured before
+    read the new values from their next replay."""
+    if q in _vins and q.scaleWH is not None and q.v_signs is not None:
+        _fused_vin(q, q.v_signs)
+    refresh_rht()
 
 
 def _packed_matmul(q: PackedLinear, x2: torch.Tensor,
@@ -90,9 +133,10 @@ def qlinear_apply(q: PackedLinear, x: torch.Tensor,
         U, V = rot_to_butterflies(q)
         if q.has_vin:
             vec_v = q.vin
+        elif q.scaleWH is None:
+            vec_v = V.signs
         else:
-            vec_v = (V.signs if q.scaleWH is None
-                     else V.signs / q.scaleWH)
+            vec_v = _fused_vin(q, V.signs)
         x2 = rht_apply_fused(x2, vec_v, V.left, V.right)
         t = _packed_matmul(q, x2, gather)
         y = rht_apply_fused(t, U.signs, U.left, U.right, transpose=True)

@@ -205,6 +205,7 @@ class PackedLinear(nn.Module):
         self.out_features = out_features
         self.in_features = in_features
         self.code_bits = code_bits
+        self.register_load_state_dict_post_hook(_refresh_fused)
 
     @property
     def planes(self) -> Tuple[torch.Tensor, ...]:
@@ -261,6 +262,14 @@ class PackedLinear(nn.Module):
         if self.scaleWH is not None:
             W = W / self.scaleWH.to(dtype)[None, :]
         return W
+
+
+def _refresh_fused(module: PackedLinear, incompatible_keys) -> None:
+    """After ``load_state_dict``: the fused path's bf16 copies of the
+    rotation buffers follow the values just copied in
+    (ops/qlinear.py::refresh_fused)."""
+    from quip_tpu_torch.ops.qlinear import refresh_fused
+    refresh_fused(module)
 
 
 def rotation_buffers(U, V, mode: str,

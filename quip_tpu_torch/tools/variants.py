@@ -6,7 +6,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
+import os
 import re
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -32,16 +35,32 @@ def serialised(log: str) -> int:
     return log.count("wgmma.mma_async instructions are serialized")
 
 
-def build(texts: dict, entry: str, argtypes, ptxas: bool = False) -> dict:
+def _cached_path(text: str) -> Path:
+    """Where ``build(..., cached=True)`` keeps the library of ``text``: a
+    hash of it, of the kernels' headers and of nvcc's flags."""
+    h = hashlib.sha256(text.encode() + " ".join(_build._FLAGS).encode())
+    for f in sorted(_build._CSRC.glob("*.cuh")):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return _build._OUT / f"libvariant-{h.hexdigest()[:12]}.so"
+
+
+def build(texts: dict, entry: str, argtypes, ptxas: bool = False,
+          cached: bool = False) -> dict:
     """Compile each source text at once (csrc on the include path, so the
     copies find its headers); name -> the C function ``entry`` of each,
     with ``argtypes`` and an int result (its library as ``.lib``). With
     ``ptxas``, prints each copy's registers, spills and serialised wgmma
-    (ptxas's "serialized" notes: C7513, C7515)."""
+    (ptxas's "serialized" notes: C7513, C7515). With ``cached``, each
+    library is kept in ``kernels/_build`` (``_cached_path``) and a later
+    build of the same text loads it without compiling."""
     fns = {}
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
         for i, (name, text) in enumerate(texts.items()):
+            keep = _cached_path(text) if cached else None
+            if keep is not None and keep.exists():
+                jobs[name] = (keep, None)
+                continue
             cu, so = Path(tmp) / f"v{i}.cu", Path(tmp) / f"v{i}.so"
             cu.write_text(text)
             jobs[name] = (so, subprocess.Popen(
@@ -49,14 +68,22 @@ def build(texts: dict, entry: str, argtypes, ptxas: bool = False) -> dict:
                  "-o", str(so), str(cu)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for name, (so, proc) in jobs.items():
-            log = proc.communicate()[0]
-            assert proc.returncode == 0, (name, log[-2000:])
-            if ptxas:
-                regs = re.findall(r"Used (\d+) registers", log)
-                spill = re.findall(r"(\d+) bytes spill stores", log)
-                print(f"  ptxas {name}: {regs} registers, {spill} bytes "
-                      f"spilled, wgmma serialised x{serialised(log)}",
-                      flush=True)
+            if proc is not None:
+                log = proc.communicate()[0]
+                assert proc.returncode == 0, (name, log[-2000:])
+                if ptxas:
+                    regs = re.findall(r"Used (\d+) registers", log)
+                    spill = re.findall(r"(\d+) bytes spill stores", log)
+                    print(f"  ptxas {name}: {regs} registers, {spill} "
+                          f"bytes spilled, wgmma serialised "
+                          f"x{serialised(log)}", flush=True)
+                if cached:
+                    keep = _cached_path(texts[name])
+                    keep.parent.mkdir(parents=True, exist_ok=True)
+                    part = keep.with_suffix(f".{os.getpid()}.tmp")
+                    shutil.copyfile(so, part)
+                    os.replace(part, keep)
+                    so = keep
             lib = ctypes.CDLL(str(so))
             f = getattr(lib, entry)
             f.argtypes, f.restype = argtypes, ctypes.c_int

@@ -250,13 +250,15 @@ def test_k3_matches_plain(cuda, n, transpose, dtype):
 
 @pytest.mark.parametrize("n,a,b", [(4096, 64, 64), (11008, 128, 86),
                                    (12288, 128, 96), (22016, 128, 172),
-                                   (32000, 128, 250), (64, 64, 1)])
+                                   (32000, 128, 250), (64, 64, 1),
+                                   (16384, 128, 128)])
 @pytest.mark.parametrize("B", [1, 5, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_path_shapes(cuda, n, a, b, B, dtype):
-    """The five Llama-2-7B splits of the serving path and a right-factor-
-    free case, both directions, and forward-then-transpose against x (f32:
-    1e-5; bf16: the two roundings, 4e-2 of max |x|)."""
+    """The five Llama-2-7B splits of the serving path, OPT-6.7B's and
+    BLOOM-7b1's 16384 and a right-factor-free case, both directions, and
+    forward-then-transpose against x (f32: 1e-5; bf16: the two roundings,
+    4e-2 of max |x|)."""
     rots = torch.Generator().manual_seed(n)
     g = torch.Generator(device=cuda).manual_seed(n + B)
     if b == 1:
@@ -280,6 +282,111 @@ def test_k3_path_shapes(cuda, n, a, b, B, dtype):
     back = K3.rht_apply_fused(y, t.signs, t.left, t.right, transpose=True)
     rt = (back.float() - x.float()).abs().max() / x.float().abs().max()
     assert rt.item() <= (4e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 4])
+def test_k3_fused_chain_graph_matches_eager(cuda, B, monkeypatch):
+    """A Llama-2-7B layer's four packed linears through qlinear_apply with
+    QUIP_FUSED_RHT=1 (K3 -> K1-decode -> K3 each, K3 launched with
+    programmatic dependent launch) captured in one CUDA graph: a replay
+    gives the eager chain's outputs bit for bit (both kernels are
+    deterministic), and the first eager call's K3 launches (operands made
+    just now) equal the later ones' (operands cached)."""
+    from quip_tpu_torch.models.build import random_packed
+    from quip_tpu_torch.ops.qlinear import qlinear_apply
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+    words = torch.Generator(device=cuda).manual_seed(18)
+    rots = torch.Generator().manual_seed(18)
+    layers = [random_packed(m, d, 2, words=words, rots=rots, device=cuda)
+              for m, d in ((12288, 4096), (4096, 4096), (22016, 4096),
+                           (4096, 11008))]
+    xs = {d: torch.randn(B, d, device=cuda, generator=words).bfloat16()
+          for d in (4096, 11008)}
+
+    def chain():
+        return [qlinear_apply(q, xs[q.in_features]) for q in layers]
+
+    before = K3.launches
+    first = chain()
+    eager = chain()
+    assert K3.launches - before == 16
+    assert all(torch.equal(u, v) for u, v in zip(first, eager))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        chain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = chain()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, eager))
+
+
+def _captured(fn):
+    """(graph, its outputs): ``fn`` run on a side stream, then captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = fn()
+    return graph, got
+
+
+def test_k3_graph_reads_factors_written_in_place(cuda, monkeypatch):
+    """K3 reads bf16 copies of its factors, made once: a CUDA graph
+    captured before a factor is written in place replays with the new
+    factor. A layer with scaleWH and no vin (4096 x 4096, 'rht') through the
+    fused qlinear_apply, its buffers then overwritten by load_state_dict
+    of another such layer: the replay equals the other layer's eager
+    output bit for bit. K3 alone, its left factor negated in place and
+    rht.refresh() called: the replay is within 2e-2 of max |y| of the plain
+    version on the new factor."""
+    from quip_tpu_torch.models.build import random_packed
+    from quip_tpu_torch.ops.qlinear import qlinear_apply
+    from quip_tpu_torch.pack.format import PackedLinear
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+
+    def layer(seed):
+        words = torch.Generator(device=cuda).manual_seed(seed)
+        rots = torch.Generator().manual_seed(seed)
+        base = random_packed(4096, 4096, 2, words=words, rots=rots,
+                             device=cuda)
+        rot = {s: (getattr(base, f"{s}_signs"), getattr(base, f"{s}_left"),
+                   getattr(base, f"{s}_right")) for s in ("u", "v")}
+        swh = torch.rand(4096, generator=rots).to(cuda) + 0.5
+        return PackedLinear(base.planes, scale_b=base.scale_b, scaleWH=swh,
+                            bits=2, qfn="b", proj_mode="rht",
+                            out_features=4096, in_features=4096, rot=rot)
+
+    q, new = layer(1), layer(2)
+    x = torch.randn(1, 4096, device=cuda).bfloat16()
+    graph, got = _captured(lambda: qlinear_apply(q, x))
+    q.load_state_dict(new.state_dict())
+    graph.replay()
+    want = qlinear_apply(new, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+    t = inc.gen_rht(torch.Generator().manual_seed(5), 11008, device=cuda)
+    xs = torch.randn(3, 11008, device=cuda).bfloat16()
+    left = t.left.clone()
+    before = K3.rht_apply_fused(xs, t.signs, left, t.right)
+    graph, got = _captured(lambda: K3.rht_apply_fused(xs, t.signs, left,
+                                                      t.right))
+    left.neg_()
+    K3.refresh()
+    graph.replay()
+    plain = K3.rht_apply_fused_ref(xs, t.signs, left, t.right).float()
+    torch.cuda.synchronize()
+    top = plain.abs().max()
+    assert (got.float() - plain).abs().max() <= 2e-2 * top
+    assert (got.float() - before.float()).abs().max() > 0.5 * top
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])

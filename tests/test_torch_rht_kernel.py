@@ -7,9 +7,11 @@ numpy inputs, for the factor shapes of tests/test_rht_kernel.py: pow2 x
 pow2 (64 = 8 x 8), pow2 x dense orthogonal (96 = 8 x 12, 352 = 32 x 11) and
 right-factor-free (n = a). Tolerances as there: 2e-5 in f32 (summation
 order), 2e-2 in bf16 (one rounding per product). ``rht_walk_ref``, the
-plain-PyTorch walk of the bf16 tensor-core kernel's tiles (column blocks of
-16 or 64, operands padded to 16, the orientation of each staged factor), is
-held to the same limits against the plain version and the Pallas kernel."""
+plain-PyTorch walk of the bf16 kernel's tiles (blocks of 32 output
+columns, operands as ``prepare`` lays them out and read back through the
+kernel's descriptor addressing), is held to the same limits against the
+plain version and the Pallas kernel, at these shapes and at every split
+of the served models' widths."""
 import dataclasses
 import functools
 
@@ -84,11 +86,10 @@ def test_matches_pallas_kernel_and_apply_rht(n, right, transpose, dtype):
 @pytest.mark.parametrize("B", [1, 5, 32])
 def test_walk_matches_plain_and_pallas(n, right, transpose, B):
     """The bf16 kernel's walk (1376 = 32 x 43 and 500 = 4 x 125: ragged
-    column blocks and row tiles; ``sms=4`` makes 32 rows take 64-column
-    blocks and several rows a block) within 2e-2 of max |y| of the plain
-    version and of quip_tpu's Pallas kernel in interpret mode; the f32 plain
-    version, which the f32 kernel repeats, within 2e-5 of the Pallas kernel
-    in f32."""
+    column blocks, odd b, row tiles of 4 and 32 rows padded to 64) within
+    2e-2 of max |y| of the plain version and of quip_tpu's Pallas kernel in
+    interpret mode; the f32 plain version, which the f32 kernel repeats,
+    within 2e-5 of the Pallas kernel in f32."""
     signs, left, rt = _rht(n, right=right)
     rng = np.random.default_rng(n + B)
     x = rng.standard_normal((B, n)).astype(np.float32)
@@ -103,26 +104,161 @@ def test_walk_matches_plain_and_pallas(n, right, transpose, B):
         top = np.abs(kern).max()
         assert np.abs(plain - kern).max() <= tol * top
         if dtype == "bfloat16":
-            for sms in (132, 4):
-                walk = TK3.rht_walk_ref(xt, _t(vec), _t(left), _t(rt),
-                                        transpose=transpose,
-                                        sms=sms).float().numpy()
-                assert walk.shape == (B, n)
-                assert np.abs(walk - plain).max() <= tol * top
-                assert np.abs(walk - kern).max() <= tol * top
+            walk = TK3.rht_walk_ref(xt, _t(vec), _t(left), _t(rt),
+                                    transpose=transpose).float().numpy()
+            assert walk.shape == (B, n)
+            assert np.abs(walk - plain).max() <= tol * top
+            assert np.abs(walk - kern).max() <= tol * top
+
+
+# every (a, b) split of the served models' widths: Llama-2-7B's 4096,
+# 11008, 12288, 22016 and 32000, OPT-6.7B's and BLOOM-7b1's 16384
+_PATH_SPLITS = {4096: (64, 64), 11008: (128, 86), 12288: (128, 96),
+                16384: (128, 128), 22016: (128, 172), 32000: (128, 250)}
+
+
+@pytest.mark.parametrize("n", list(_PATH_SPLITS) + ["none"])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_walk_path_splits(n, transpose):
+    """The walk at every split of the serving path (and a = 64 with no right
+    factor), both directions, a scaleWH fold, B = 1, 5, 32 and 70 (rows of
+    one 70-row x: rows are independent), within 2e-2 of max |y| of the
+    plain version and of quip_tpu's Pallas kernel in interpret mode."""
+    if n == "none":
+        signs, left, rt = _rht(64, right=False)
+        n = 64
+    else:
+        signs, left, rt = _rht(n)
+        assert (left.shape[0], rt.shape[0]) == _PATH_SPLITS[n]
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((70, n)).astype(np.float32)
+    vec = (signs / (rng.random(n) + 0.5)).astype(np.float32)
+    xt = _t(x).to(torch.bfloat16)
+    kern = np.asarray(JK3.rht_apply_fused(
+        _j(x).astype(jnp.bfloat16), _j(vec), _j(left), _j(rt),
+        transpose=transpose, interpret=True), np.float32)
+    for B in (1, 5, 32, 70):
+        plain = TK3.rht_apply_fused_ref(xt[:B], _t(vec), _t(left), _t(rt),
+                                        transpose=transpose).float().numpy()
+        walk = TK3.rht_walk_ref(xt[:B], _t(vec), _t(left), _t(rt),
+                                transpose=transpose).float().numpy()
+        top = np.abs(kern[:B]).max()
+        assert np.abs(plain - kern[:B]).max() <= 2e-2 * top
+        assert np.abs(walk - plain).max() <= 2e-2 * top
+        assert np.abs(walk - kern[:B]).max() <= 2e-2 * top
 
 
 def test_block_plan_rule():
-    """16 columns a block while few rows leave the card empty, 64 from half
-    a wave of 64-column blocks on, several rows a block only beyond two
-    blocks an SM (132 SMs)."""
-    assert TK3.block_plan(1, 250, 132) == (16, 1)
-    assert TK3.block_plan(8, 250, 132) == (16, 1)
-    assert TK3.block_plan(32, 250, 132) == (64, 1)
-    assert TK3.block_plan(32, 172, 132) == (64, 1)
-    assert TK3.block_plan(32, 64, 132) == (16, 1)
-    assert TK3.block_plan(32, 1, 132) == (16, 1)
-    assert TK3.block_plan(600, 250, 132) == (64, 10)
+    """32 output columns a block, so ceil(b / 32) blocks a row (one cluster,
+    at most 8 for b <= 256), and ceil(a / 64) m-tiles of 64 rows."""
+    assert TK3.block_plan(128, 250) == (8, 2)
+    assert TK3.block_plan(128, 172) == (6, 2)
+    assert TK3.block_plan(128, 96) == (3, 2)
+    assert TK3.block_plan(128, 86) == (3, 2)
+    assert TK3.block_plan(64, 64) == (2, 1)
+    assert TK3.block_plan(64, 1) == (1, 1)
+    assert TK3.block_plan(4, 125) == (4, 1)
+
+
+@pytest.mark.parametrize("n,transpose", [(11008, False), (4096, True),
+                                         (500, True)])
+def test_prepare_layout(n, transpose):
+    """prepare's operands read back through the kernel's addressing are the
+    factors rounded to bf16 in their orientation, zero outside; the vec
+    as x's buffer (forward: the row flat, zero in the tail) or by each
+    block's 32 columns (transpose)."""
+    signs, left, rt = _rht(n)
+    a, b = left.shape[0], rt.shape[0]
+    ops = TK3.prepare(_t(signs), _t(left), _t(rt), transpose=transpose)
+    nq, mt = TK3.block_plan(a, b)
+    ks, ks2 = 4 * -(-b // 64), -(-a // 16)
+    bf = lambda m: torch.from_numpy(np.array(m)).to(  # noqa: E731
+        torch.bfloat16)
+    lop = TK3._core_read(ops.left, 0, 64 * mt, ks2, 1024 * mt)
+    want = torch.zeros(64 * mt, 16 * ks2, dtype=torch.bfloat16)
+    want[:a, :a] = bf(left.T if transpose else left)
+    assert torch.equal(lop, want)
+    ropt = torch.cat([TK3._core_read(ops.right, qs * ks * 512, 32, ks, 512)
+                      for qs in range(nq)])
+    want = torch.zeros(32 * nq, 16 * ks, dtype=torch.bfloat16)
+    want[:b, :b] = bf(rt.T if transpose else rt)
+    assert torch.equal(ropt, want)
+    v = bf(signs).reshape(a, b)
+    if transpose:
+        got = ops.vec.reshape(nq, a, TK3.VLD)
+        assert torch.equal(got[:, :, :32].permute(1, 0, 2).reshape(a, -1)
+                           [:, :b], v)
+        assert not got[:, :, 32:].any()
+    else:
+        assert ops.vec.numel() == TK3.x_len(a, b)
+        assert torch.equal(ops.vec[:a * b].reshape(a, b), v)
+        assert not ops.vec[a * b:].any()
+
+
+def test_operands_cached_by_source():
+    """operands() makes the bf16 copies once per (factors, direction) and
+    returns the same tensors after; another direction has its own. A write
+    in place to a factor prepares them again into those same tensors (a
+    captured CUDA graph reads them there): at the next call, or at
+    refresh() without one."""
+    signs, left, rt = _rht(96)
+    v, L, R = _t(signs), _t(left), _t(rt)
+    ops = TK3.operands(v, L, R, transpose=False)
+    assert TK3.operands(v, L, R, transpose=False) is ops
+    other = TK3.operands(v, L, R, transpose=True)
+    assert other is not ops
+    held = [t.data_ptr() for t in ops + other]
+    L.mul_(-1.0)
+    assert TK3.operands(v, L, R, transpose=False) is ops
+    assert all(torch.equal(u, w) for u, w in
+               zip(ops, TK3.prepare(v, L, R, transpose=False)))
+    assert not torch.equal(other.left, TK3.prepare(
+        v, L, R, transpose=True).left)
+    R.mul_(0.5)
+    TK3.refresh()
+    for got, tr in ((ops, False), (other, True)):
+        assert all(torch.equal(u, w) for u, w in
+                   zip(got, TK3.prepare(v, L, R, transpose=tr)))
+    assert [t.data_ptr() for t in ops + other] == held
+
+
+def _swh_layer(seed, m=96, d=64):
+    """A random 2-bit 'rht' layer that stores scaleWH and no vin."""
+    from quip_tpu_torch.models.build import random_packed
+    from quip_tpu_torch.pack.format import PackedLinear
+    gen = torch.Generator().manual_seed(seed)
+    base = random_packed(m, d, 2, words=gen, rots=gen, device="cpu")
+    rot = {s: (getattr(base, f"{s}_signs"), getattr(base, f"{s}_left"),
+               getattr(base, f"{s}_right")) for s in ("u", "v")}
+    return PackedLinear(base.planes, scale_b=base.scale_b,
+                        scaleWH=torch.rand(d, generator=gen) + 0.5, bits=2,
+                        qfn="b", proj_mode="rht", out_features=m,
+                        in_features=d, rot=rot)
+
+
+def test_fused_copies_follow_load_state_dict():
+    """The fused path's derived state of a layer with scaleWH and no vin
+    (its signs / scaleWH and K3's bf16 operands of both sides) follows a
+    load_state_dict of another layer's buffers, in the tensors it had (a
+    CUDA graph captured before reads those): PackedLinear refreshes them
+    after the load, before any call."""
+    q, new = _swh_layer(1), _swh_layer(2)
+    assert not q.has_vin
+    vin = TQ._fused_vin(q, q.v_signs)
+    U, V = TQ.rot_to_butterflies(q)
+    opv = TK3.operands(vin, V.left, V.right, transpose=False)
+    opu = TK3.operands(U.signs, U.left, U.right, transpose=True)
+    held = [t.data_ptr() for t in (vin,) + opv + opu]
+    q.load_state_dict(new.state_dict())
+    assert torch.equal(vin, new.v_signs / new.scaleWH)
+    for got, want in (
+            (opv, TK3.prepare(new.v_signs / new.scaleWH, new.v_left,
+                              new.v_right, transpose=False)),
+            (opu, TK3.prepare(new.u_signs, new.u_left, new.u_right,
+                              transpose=True))):
+        assert all(torch.equal(u, w) for u, w in zip(got, want))
+    assert [t.data_ptr() for t in (vin,) + opv + opu] == held
+    assert TQ._fused_vin(q, q.v_signs) is vin
 
 
 def test_roundtrip_inverse():
@@ -202,3 +338,76 @@ def test_fused_gate_reads_env_at_call_time(monkeypatch):
     assert TQ._fused_rht_enabled()
     monkeypatch.setenv("QUIP_FUSED_RHT", "0")
     assert not TQ._fused_rht_enabled()
+
+
+def test_qlinear_fused_scalewh_without_vin(packed_layers, monkeypatch):
+    """A layer that stores scaleWH and no vin: the fused branch makes signs
+    / scaleWH once for the layer (so that K3's bf16 copies of it stay
+    cached) and the same tensor serves the next call; the output equals the
+    port's un-fused path and quip_tpu's fused branch (interpret mode)."""
+    jq, _ = packed_layers
+    children, aux = jq.tree_flatten()
+    planes, scale, zero, scale_b, _, key, bias, rot = children
+    swh = np.abs(np.random.default_rng(12).standard_normal(
+        jq.in_features)).astype(np.float32) + 0.5
+    jq2 = type(jq).tree_unflatten(aux, (
+        planes, scale, zero, scale_b, jnp.asarray(swh), key, bias,
+        {k: v for k, v in rot.items() if k != "vin"}))
+    tq2 = packed_from_numpy(jax.tree.map(np.asarray, jq2), device="cpu")
+    assert not tq2.has_vin and tq2.scaleWH is not None
+    x = np.random.default_rng(13).standard_normal(
+        (3, jq.in_features)).astype(np.float32)
+    plain = TQ.qlinear_apply(tq2, torch.from_numpy(x)).numpy()
+    vecs = []
+    real = TQ.rht_apply_fused
+    monkeypatch.setattr(TQ, "rht_apply_fused",
+                        lambda *a, **k: vecs.append(a[1]) or real(*a, **k))
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+    fused = TQ.qlinear_apply(tq2, torch.from_numpy(x)).numpy()
+    TQ.qlinear_apply(tq2, torch.from_numpy(x))
+    assert len(vecs) == 4 and vecs[2] is vecs[0]
+    np.testing.assert_allclose(fused, plain, rtol=1e-4, atol=1e-4)
+    monkeypatch.setenv("QUIP_KERNEL_INTERPRET", "1")
+    monkeypatch.setattr(JK3, "rht_apply_fused", functools.partial(
+        JK3.rht_apply_fused, interpret=True))
+    want = np.asarray(j_qlinear(jq2, jnp.asarray(x)))
+    np.testing.assert_allclose(fused, want, rtol=1e-3, atol=1e-3)
+
+
+def test_bf16_copies_stay_out_of_checkpoints(monkeypatch, tmp_path):
+    """The bf16 operands are derived state kept beside the module: after
+    fused calls (and the operands of both sides made) a layer's state_dict
+    holds the same tensors, a checkpoint of the model holds the same arrays
+    as one written before, and the model read back from it gives, fused,
+    quip_tpu's un-fused output of the same layer."""
+    from quip_tpu_torch.convert import params_from_numpy
+    from quip_tpu_torch.pack import model as TPM
+    from tests.test_torch_model import _llama_via_checkpoint
+    _, jparams, tcfg, tparams = _llama_via_checkpoint()
+    meta = {"model": "llama-tiny", "wbits": 2}
+    TPM.save_checkpoint(str(tmp_path / "before"), tparams, meta)
+    layer = tparams.blocks[0].attn.wqkv
+    keys = dict(layer.state_dict())
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        (2, layer.in_features)).astype(np.float32))
+    TQ.qlinear_apply(layer, x)
+    U, V = TQ.rot_to_butterflies(layer)
+    TK3.operands(layer.vin, V.left, V.right, transpose=False)
+    TK3.operands(U.signs, U.left, U.right, transpose=True)
+    after = layer.state_dict()
+    assert list(after) == list(keys)
+    assert all(after[k].data_ptr() == keys[k].data_ptr()
+               and torch.equal(after[k], keys[k]) for k in keys)
+    TPM.save_checkpoint(str(tmp_path / "after"), tparams, meta)
+    old = np.load(tmp_path / "before" / "arrays.npz")
+    new = np.load(tmp_path / "after" / "arrays.npz")
+    assert sorted(old.files) == sorted(new.files)
+    assert all(np.array_equal(old[k], new[k]) for k in old.files)
+    back = params_from_numpy(TPM.load_checkpoint(str(tmp_path / "after"))[0],
+                             tcfg, device="cpu")
+    got = TQ.qlinear_apply(back.blocks[0].attn.wqkv, x).numpy()
+    jq = jax.tree.map(lambda p: p[0], jparams["blocks"])["attn"]["wqkv"]
+    want = np.asarray(j_qlinear(jq, jnp.asarray(x.numpy()),
+                                use_kernel=False))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
