@@ -6,9 +6,9 @@ Needs one CUDA card (written for an H100, sm_90a) and nvcc. It builds the
 port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
 
   1. the card's name and power limit, and the kernel build (all five nvcc
-     runs started together), with each K1-tile, K1-decode and K2 kernel's
-     registers, shared memory and spills from the ``-Xptxas -v`` log (no
-     wgmma serialised; K1-decode and K2 spill nothing);
+     runs started together), with each K1-tile, K1-decode, K2, K3 and K1'
+     kernel's registers, shared memory and spills from the ``-Xptxas -v``
+     log (no wgmma serialised; K1-decode, K2, K3 and K1' spill nothing);
   2. K1 (dequant_matmul: the decode kernel K1-decode up to B = 8, the
      tile kernel K1-tile above, both on the tensor cores) against its plain
      version at the five 2-bit Llama-2-7B projection shapes (B = 1..4, 7, 8,
@@ -50,8 +50,9 @@ port's kernels from ``quip_tpu_torch/kernels/csrc`` and runs, in order:
      bits 2/3/4, B = 1, 5, 8, 13 and every legal tile_m at two small shapes
      (one ragged), one device kernel per call (profiler), then through the
      microbenchmark's own functions (tools/bench_kernel.py) at its five
-     shapes and every legal tile_m, the best kept, beside K1-decode in the
-     same call; under a watchdog (a barrier that never completes hangs);
+     shapes and every legal tile_m, the best kept, beside K1-decode and
+     torch.matmul in the same call, the mma.sync K1''s earlier sum and the
+     bound; under a watchdog (a barrier that never completes hangs);
   6. a 2-layer full-width packed Llama-2-7B: 600-token prefill + 4
      teacher-forced decode steps on the card vs the plain path on the CPU
      in f32 on the same weights, un-fused with bf16 KV and then with
@@ -311,6 +312,19 @@ def phase_device():
     assert serial == 0, "ptxas serialised K3's wgmma"
     assert RESULTS["ptxas_rht"] and not any(
         k["spill"] for k in RESULTS["ptxas_rht"]), RESULTS["ptxas_rht"]
+    RESULTS["ptxas_slabdot"] = [
+        k for k in _ptxas_kernels(logs["slabdot_matmul"])
+        if k["kernel"].startswith("sd_kernel")]
+    for k in RESULTS["ptxas_slabdot"]:
+        log(f"  ptxas slabdot_matmul {k['kernel']}: {k['registers']} "
+            f"registers, {k['smem']} bytes static smem, {k['spill']} bytes "
+            f"spilled")
+    serial = serialised(logs["slabdot_matmul"])
+    log(f"  ptxas slabdot_matmul: {serial} kernels with wgmma serialised "
+        f"(C7513 / C7515)")
+    assert serial == 0, "ptxas serialised K1's wgmma"
+    assert len(RESULTS["ptxas_slabdot"]) == 4 and not any(
+        k["spill"] for k in RESULTS["ptxas_slabdot"]), RESULTS["ptxas_slabdot"]
     assert "entry" in K3_NOPDL, K3_NOPDL.get("error")
     return name, smi
 
@@ -334,14 +348,15 @@ def _build_k3_nopdl():
 def _ptxas_kernels(text: str) -> list:
     """Each kernel's registers, static shared memory and spilled bytes from
     an ``nvcc -Xptxas -v`` log (kernel names demangled to their templates:
-    ``dm_tile<128>``, ``dm_decode<1, false>``, ``flash_fwd``)."""
+    ``dm_tile<128>``, ``dm_decode<1, false>``, ``sd_kernel<2, 1>``,
+    ``flash_fwd``)."""
     import re
     out, kernel, spill = [], None, 0
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             raw, spill = m.group(1), 0
-            t = re.search(r"\d+((?:dm|rht)_[a-z_]+)I((?:L[ib]\d+E)+)E",
+            t = re.search(r"\d+((?:dm|rht|sd)_[a-z_]+)I((?:L[ib]\d+E)+)E",
                           raw)
             u = re.search(r"(\d+)(dm_\w+?)I(\w+?)EE", raw)
             kernel = (t.group(1) + "<" + ", ".join(
@@ -385,8 +400,9 @@ BEFORE = dict(k1_sum_b600_ms=20.56, k1_sum_b32_ms=1.219, prefill_ms=437.4,
               # B = 1
               k3_mma_sync_ms={1: 0.0482, 2: 0.0471, 8: 0.0494, 32: 0.0644},
               k3_opt_mma_sync_ms=0.0332,
-              # K1' before its redesign: five shapes, B = 1, best tile_m
-              k1p_sum_ms=0.1178,
+              # K1' on CUDA cores, and on mma.sync before its wgmma
+              # redesign: five shapes, B = 1, best tile_m
+              k1p_sum_ms=0.1178, k1p_mma_sync_sum_ms=0.1050,
               # K1-tile on mma.sync before its wgmma redesign (PR 3-14):
               # (model, B) -> ms, sums of the five (four OPT) shapes
               k1t_ms={("Llam", 16): 0.1172, ("Llam", 32): 0.1520,
@@ -1206,11 +1222,14 @@ def phase_k1p(name: str):
         del copies, W
         torch.cuda.empty_cache()
     log(f"K1' sum of the five shapes at B=1, best tile_m each: "
-        f"{sums['ms']:.4f} ms (before this design "
-        f"{BEFORE['k1p_sum_ms']}; smallest tile_m {sums['smallest_tile_ms']:.4f});"
-        f" bound {sums['bound_ms']:.4f} ({sums['bound_ms'] / sums['ms']:.0%}); "
-        f"K1-decode in the same call {sums['k1_ms']:.4f} / again "
-        f"{sums['k1_again_ms']:.4f}; torch.matmul bf16 {sums['library_ms']:.4f}")
+        f"{sums['ms']:.4f} ms (earlier figures, not measured here: "
+        f"mma.sync {BEFORE['k1p_mma_sync_sum_ms']}, CUDA cores "
+        f"{BEFORE['k1p_sum_ms']}); at the smallest legal tile_m "
+        f"{sums['smallest_tile_ms']:.4f}; bound {sums['bound_ms']:.4f} "
+        f"({sums['bound_ms'] / sums['ms']:.0%} of it reached); K1-decode in "
+        f"the same call {sums['k1_ms']:.4f} / again "
+        f"{sums['k1_again_ms']:.4f}; torch.matmul bf16 "
+        f"{sums['library_ms']:.4f}; card {RESULTS.get('card', name)}")
     log(f"K1' vs plain (f32-held bf16 x): max rel err {worst_rel:.2e} <= "
         f"1e-3; vs K1: {worst_k1:.2e} <= 2e-2 ({n_checked} checks: bits "
         f"2/3/4, B = 1/5/8/13, every legal tile_m); device kernels per call "
@@ -1825,8 +1844,8 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
         torch.cuda.synchronize()
         g = eng._graphs
         return dict(warmup_s=time.time() - t, graphs=len(g),
-                    capture_s=g.capture_s, pool_mib=g.pool_bytes / 2 ** 20,
-                    buckets=[16])
+                    capture_s=g.capture_s, capture_parts_s=dict(g.parts_s),
+                    pool_mib=g.pool_bytes / 2 ** 20, buckets=[16])
 
     res = {}
     steps = 40        # decode steps of phase 7's requests
@@ -1859,7 +1878,10 @@ def phase_pump(name: str, smi: str, model, cfg, prompts, base, conf):
     for what, d in res.items():
         log(f"pump, {what}: warmup {d['warmup_s']:.1f} s ({d['graphs']} "
             f"graphs at page buckets {d['buckets']}, {d['capture_s']:.1f} s "
-            f"building them, pool {d['pool_mib']:.1f} MiB); phase 7's 4 "
+            f"building them ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in
+                        d["capture_parts_s"].items())
+            + f"), pool {d['pool_mib']:.1f} MiB); phase 7's 4 "
             f"requests in {d['run_s']:.2f} s, {d['chunks']} chunks, "
             f"greedy tokens equal to Engine.run's; launches K1-decode "
             f"{d['k1_decode']}, K1-tile {d['k1_tile']}, K2 {d['k2']}, K3 "

@@ -135,12 +135,16 @@ def proxy_eval(params, cfg, hessians: Dict[str, np.ndarray], qcfg,
 
 
 def optq_ldlq_equivalence_check(m: int = 256, d: int = 256, bits: int = 4,
-                                seed: int = 0, device="cpu") -> dict:
+                                seed: int = 0, device="cuda") -> dict:
     """Runnable LDLQ ≡ OPTQ check on a synthetic float64 layer
-    (optq_ldlq_equiv.py:9-96); returns the agreement statistics."""
+    (optq_ldlq_equiv.py:9-96); returns the agreement statistics. On the
+    card unless ``device`` says otherwise (raises without one)."""
+    from quip_tpu_torch import resolve_device
     from quip_tpu_torch.core import gptq as gptq_mod
     from quip_tpu_torch.core import grid as grid_mod
     from quip_tpu_torch.core import ldlq
+
+    device = resolve_device(device)
 
     rng = np.random.default_rng(seed)
     W = rng.standard_normal((m, d))

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) device helpers shared by the kernels that run on wgmma
 // and TMA: dequant_matmul_tile.cu (K1-tile), dequant_matmul_decode.cu
-// (K1-decode), flash_attn.cu (K2) and rht.cu (K3), and slabdot_matmul.cu
-// (K1', its mbarriers and TMA copies).
+// (K1-decode), flash_attn.cu (K2), rht.cu (K3) and slabdot_matmul.cu
+// (K1'; it and K1-decode reach them through decode_common.cuh too).
 //   * mbarriers: init, arrive, arrive with expected transaction bytes, a
 //     parity wait;
 //   * TMA: one box of a 2-D or 4-D tensor map, global -> shared, completing

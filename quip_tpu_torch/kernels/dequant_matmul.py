@@ -184,6 +184,19 @@ def _pad_rows(B: int) -> int:
     return 1 if B <= 1 else 2 if B <= 2 else 4 if B <= 4 else 8
 
 
+def core_bytes(bp: int) -> int:
+    """Bytes between neighbouring core matrices of x staged for ``bp`` rows
+    (``core_bytes`` in ``csrc/decode_common.cuh``, K1-decode's and K1′'s):
+    16 bytes a row, and 16 more from 2 rows on."""
+    return 16 if bp == 1 else 16 * bp + 16
+
+
+def x_bytes(ng: int, fb: int, bp: int) -> int:
+    """Bytes of x staged for ``ng`` groups of 8 word rows of ``fb``-bit
+    fields: a core matrix for every field and 8 fan-in columns."""
+    return (16 // fb) * 2 * ng * core_bytes(bp)
+
+
 def _decode_smem(B: int, d: int, bits: int, splits: int) -> int:
     """Dynamic shared memory of a K1-decode block (``smem_bytes`` in the
     source): alignment slack, the ring, the partials of 8 rows by the
@@ -193,10 +206,8 @@ def _decode_smem(B: int, d: int, bits: int, splits: int) -> int:
     columns a field spans), with 128 bytes past it."""
     s = (128 + DECODE_STAGES * 2 * 8 * DECODE_GPS * DECODE_SROW * 4
          + 8 * DECODE_BN * 4 + 128)
-    bp = _pad_rows(B)
-    core = 16 if bp == 1 else 16 * bp + 16
     for fb in dict.fromkeys(fb for fb, _ in PLANE_SPLITS[bits]):
-        s += (16 // fb) * 2 * -(-decode_groups(d, fb) // splits) * core
+        s += x_bytes(-(-decode_groups(d, fb) // splits), fb, _pad_rows(B))
     return s
 
 

@@ -7,18 +7,20 @@ against its contiguous x chunk with f32 accumulation, and the offset
 leaves once per plane as ``-128 · Σx``. It replaces the Pallas kernel of
 ``scripts/bench_kernel.py`` (``slabdot_matmul`` -> ``_slabdot_kernel``) with
 the hand-written CUDA kernel in ``csrc/slabdot_matmul.cu``: one launch a
-call, the codes as tensor-core operands, the plane words fed by TMA bulk
-copies through a ring of shared-memory stages, the fan-in splits of a
-column block added through a thread-block cluster. Its only caller is the
-kernel microbenchmark ``tools/bench_kernel.py``, which sweeps ``tile_m``
-(the width of output one block, or one cluster, owns). Like K1 it is bound
-by the packed planes' bytes; the design note is in the source.
+call, the masked slabs as the register operand of ``wgmma`` and the rows
+of x as its shared-memory operand, the plane words fed by TMA boxes
+through a ring of shared-memory slots, the fan-in splits of a column
+block added through a thread-block cluster, programmatic dependent launch.
+Its only caller is the kernel microbenchmark ``tools/bench_kernel.py``,
+which sweeps ``tile_m`` (the width of output one block, or one cluster,
+owns). Like K1 it is bound by the packed planes' bytes; the design note is
+in the source.
 
 Dispatch goes by device: a CUDA tensor launches the kernel (or raises), a
 CPU tensor takes ``slabdot_matmul_ref``, which repeats the kernel's
 arithmetic (bf16 ``128 + c`` operands, f32 sums, the ``-128 · Σx`` fix-up)
 and is not ``dequant_matmul_ref``. ``slabdot_walk_ref`` walks the kernel's
-grid, ring and fragments in plain PyTorch for the tests.
+grid, ring, fragments and split-order sum in plain PyTorch for the tests.
 """
 from __future__ import annotations
 
@@ -29,59 +31,52 @@ from typing import Sequence, Tuple
 import torch
 
 from quip_tpu_torch.kernels import _build
-from quip_tpu_torch.kernels.dequant_matmul import decode_groups
+from quip_tpu_torch.kernels.dequant_matmul import (_pad_rows, core_bytes,
+                                                   decode_groups, x_bytes)
 from quip_tpu_torch.pack.format import PLANE_SPLITS
 
 launches = 0          # kernel launches, read by callers
 
 _BF16_128 = 0x43004300
 # the kernel's constants (csrc/slabdot_matmul.cu)
-CG = 128              # columns of a column group: 4 consumer warps of 32
-GPS = 4               # groups of 8 word rows a ring stage
-RPS = 8 * GPS         # word rows of a ring stage
-STAGES = 3            # stages in the ring
-SROW = CG + 8         # a stage's row stride in words
+CG = 128              # columns of a column group: one consumer warpgroup
+GPS = 2               # groups of 8 word rows a ring slot
+STAGES = 4            # slots in the ring
+SROW = CG + 8         # a slot's row stride in words
+MAXB = 8              # rows of x a tile (wgmma's N)
 MAX_SPLITS = 8        # blocks of one thread-block cluster (portable size)
 RED_BYTES = 32 * 1024  # partials one barrier pair reduces, at most
 SMEM_MAX = 220 * 1024  # dynamic shared memory the kernel asks for, at most
-BLOCKS_PER_SM = 4     # the splits rule keeps to this many blocks an SM
+ASETS = 2             # accumulator sets a plane, taken batch by batch
+BLOCKS_PER_SM = 2     # blocks an SM holds (``__launch_bounds__``)
 _fn = None
-
-
-def row_words(ng: int, fph: int) -> int:
-    """32-bit words of shared memory the kernel keeps per row of x for
-    ``ng`` groups of 8 word rows: 8 per group and field, padded to 4 mod
-    32 (``row_words`` in the source)."""
-    w = ng * fph * 8
-    return w + (4 - w % 32) % 32
 
 
 def _smem_bytes(B: int, d: int, fbs: Sequence[int], splits: int,
                 chunk_cols: int) -> int:
-    """Dynamic shared memory of one block: 128 bytes to align the ring, the
-    ring, the partials of min(B, 8) rows x ``chunk_cols``, and x's staged
-    rows per plane for the widest split."""
-    rows = min(8, B)
-    s = 128 + 4 * STAGES * RPS * SROW + 4 * rows * chunk_cols
-    for fb in fbs:
-        s += 4 * rows * row_words(-(-decode_groups(d, fb) // splits),
-                                   16 // fb)
+    """Dynamic shared memory of one block (``smem_bytes`` in the source):
+    128 bytes to align the ring, the ring, the partials of min(B, 8) rows x
+    ``chunk_cols``, x staged once a distinct field width for the widest
+    split, and 128 bytes past it."""
+    rows = min(MAXB, B)
+    s = 128 + 4 * STAGES * 8 * GPS * SROW + 4 * rows * chunk_cols + 128
+    for fb in dict.fromkeys(fbs):
+        s += x_bytes(-(-decode_groups(d, fb) // splits), fb, _pad_rows(rows))
     return s
 
 
 def _plan(m: int, tile_m: int, B: int, d: int, fbs: Sequence[int],
           sms: int) -> Tuple[int, int]:
     """(splits, chunk_cols) for a call: the partials of one chunk of column
-    groups fit ``RED_BYTES``; splits are a power of two (clusters of 5 to 7
-    blocks ran slower than 4 and 8 in ``tools/tune_slabdot.py``), the
-    largest that keeps the grid within ``BLOCKS_PER_SM`` blocks an SM (two
-    waves of the two that fit one), at most a cluster's 8 and the groups
-    of 8 word rows of the shortest plane; they double until the block's
-    shared memory fits."""
-    rows = min(8, B)
+    groups fit ``RED_BYTES``; splits are a power of two (in
+    ``tools/tune_slabdot.py``'s plans other cluster sizes won only at 22016
+    x 4096), the largest that keeps the grid within ``BLOCKS_PER_SM``
+    blocks an SM, at most a cluster's 8 and the groups of 8 word rows of the
+    shortest plane; they double until the block's shared memory fits."""
+    rows = min(MAXB, B)
     chunk_cols = CG * max(1, min(tile_m // CG, RED_BYTES // (rows * CG * 4)))
     most = min(MAX_SPLITS, min(decode_groups(d, fb) for fb in fbs))
-    col_blocks = (m // tile_m) * -(-B // 8)
+    col_blocks = (m // tile_m) * -(-B // MAXB)
     want = max(1, min(most, math.ceil(BLOCKS_PER_SM * sms / col_blocks)))
     splits = 1 << (want.bit_length() - 1)
     while _smem_bytes(B, d, fbs, splits, chunk_cols) > SMEM_MAX:
@@ -137,27 +132,55 @@ def slabdot_matmul_ref(x: torch.Tensor, planes: Sequence[torch.Tensor],
     return (s * ((2.0 / maxq) * ycodes - xsum)).to(x.dtype)
 
 
+def _staged(xb: torch.Tensor, d: int, fb: int, rg0: int, ng: int,
+            bp: int) -> torch.Tensor:
+    """The shared memory of x staged for a split's groups [rg0, rg0 + ng)
+    of ``fb``-bit fields, as bf16 elements (``stage_issue`` / ``stage_x``):
+    the core matrix (field k, piece j) of 8 fan-in columns k·2nw + 16·rg0 +
+    8j + (0..7) at byte (k·2ng + j)·core_bytes(bp), row b 16 bytes on,
+    zero past the field's span; 128 bytes of zeros past the end."""
+    nw, fph = d * fb // 32, 16 // fb
+    cm = core_bytes(bp) // 2                     # in bf16 elements
+    buf = torch.zeros(x_bytes(ng, fb, bp) // 2 + 64, dtype=torch.bfloat16)
+    j = torch.arange(2 * ng)
+    e = torch.arange(8)
+    for k in range(fph):
+        off = (16 * rg0 + 8 * j)[:, None] + e                   # (j, e)
+        ok = off < 2 * nw
+        src = torch.where(ok, k * 2 * nw + off, 0)
+        for b in range(xb.shape[0]):
+            at = (k * 2 * ng + j)[:, None] * cm + 8 * b + e
+            buf[at] = torch.where(ok, xb[b, src],
+                                  torch.zeros((), dtype=xb.dtype))
+    return buf
+
+
 def slabdot_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor], scale,
                      *, bits: int, tile_m: int) -> torch.Tensor:
     """For tests only: the kernel's grid walked in plain PyTorch, f32 out.
 
-    Per tile of 8 rows of x and cluster (``tile_m`` columns), each split
-    (block) stages bf16(x) for its groups of 8 word rows per plane (word
-    (b, group, field k, pair u) = columns k·2nw + 16·group + 2u, +1, zero
-    past the field's span) and sums plane 0's staged values. Its stages run
-    in the kernel's order: column group, plane, stage of 16 word rows. The
-    producer's box (16 word rows from the stage's first by SROW = 136
+    Per tile of 8 rows of x (the grid's z) and cluster (``tile_m``
+    columns), each split (block) owns groups [G·split / splits,
+    G·(split + 1) / splits) of 8 word rows of each plane and stages bf16(x)
+    for them (``_staged``: wgmma's K-major core matrices, zero past each
+    field's span), summing plane 0's staged values a row. Its column groups
+    of 128 run in order, in each the heavier plane first, slot by slot: the
+    producer's box (16 word rows from the slot's first by SROW = 136
     columns from the group's first, zero past nw and m) fills ring slot
-    L % STAGES; rows past the split's end belong to groups no warp reads,
-    rows past nw unpack to 128 and meet x staged as zero. Each
-    warp w's A operand for field k is built from the slot's words (row
-    8grp + t + 4hh, column 32w + 4(r % 8) + 2q + r // 8 for m-tile q, row r)
-    masked to 128 + c at k-index 2t + 8hh + h; B from the staged words t,
-    t + 4 of row min(g, Bz - 1). Even fields add to one chain, odd ones to
-    another, and a plane adds pw·(both chains) to the column group's total,
-    which goes to the block's partials. Per chunk of column groups each block's share of
-    the outputs adds the splits' partials in split order, takes 128·Σpw·Σx
-    off (Σx over the splits in order) and applies the qfn-b map."""
+    it % STAGES. For group gi of a slot and field k, A of m-tile mt (64 x
+    16) has at row R = 16w + g + 8h (column 32w + 4g + 2mt + h of the
+    group) and k-index 2j + h' the half-word h' of word (8gi + j, column)
+    shifted down by fb·k, masked and OR-ed with 0x43004300: the bf16 value
+    128 + c. B (16 x 8) is read from the staged bytes through the
+    descriptor: core matrix kk // 8 of the slice (group, field k) at
+    (k·2ng + 2·group)·cm bytes and cm more, row n 16 bytes on (rows n >= B
+    read what follows; their columns of D are never stored). Each plane
+    has accumulators of its own, in ``ASETS`` sets that its batches of two
+    fields take in turn (D_set += A·B in f32); the column group's partial
+    is Σ_p pw_p·Σ_set D_p,set, written to the block's partials. Per chunk of
+    column groups each block's share of the outputs adds the splits'
+    partials in split order, takes 128·Σpw·Σx off (Σx over the splits in
+    order) and applies the qfn-b map."""
     B, d = x.shape
     m = planes[0].shape[-1]
     sb = PLANE_SPLITS[bits]
@@ -170,48 +193,47 @@ def slabdot_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor], scale,
     s0 = torch.as_tensor(scale, dtype=torch.float32)
     xb = x.to(torch.bfloat16)
     words = [p.to(torch.int64) & 0xFFFFFFFF for p in planes]
-    r16 = torch.arange(16)
-    colmap = (32 * torch.arange(4)[:, None, None]
-              + 2 * torch.arange(2)[None, :, None]
-              + (4 * (r16 % 8) + r16 // 8)[None, None, :])    # (warp, q, r)
+    R = torch.arange(64)
+    # (mt, R) -> column of the group
+    colmap = torch.stack([32 * (R // 16) + 4 * (R % 8) + 2 * mt + (R % 16) // 8
+                          for mt in (0, 1)])
     as_bf16 = lambda v: v.to(torch.int16).view(torch.bfloat16)  # noqa: E731
     out = torch.zeros((B, m), dtype=torch.float32)
 
-    def geometry(p, split):
-        fb, pw = sb[p]
-        nw, ng_all = d * fb // 32, decode_groups(d, fb)
-        rg0, rg1 = ng_all * split // splits, ng_all * (split + 1) // splits
-        return dict(fb=fb, pw=pw, nw=nw, fph=16 // fb, rg0=rg0, rg1=rg1,
-                    nst=-(-(rg1 - rg0) // GPS))
+    def parts(split):
+        out = []
+        for fb in fbs:
+            G = decode_groups(d, fb)
+            rg0 = G * split // splits
+            out.append((fb, rg0, G * (split + 1) // splits - rg0))
+        return out
 
-    def stage_x(gm, b0, Bz):
-        ng, fph, nw = gm["rg1"] - gm["rg0"], gm["fph"], gm["nw"]
-        per_row = ng * fph * 8
-        r = torch.arange(per_row)
-        u, k, rgl = r & 7, (r >> 3) % fph, (r >> 3) // fph
-        off = 16 * (gm["rg0"] + rgl) + 2 * u
-        ok = off < 2 * nw
-        src = torch.where(ok, k * 2 * nw + off, 0)
-        xs = torch.zeros((Bz, per_row, 2), dtype=torch.bfloat16)
-        for h in (0, 1):
-            xs[:, :, h] = torch.where(ok, xb[b0:b0 + Bz, src + h],
-                                      torch.zeros((), dtype=xb.dtype))
-        return xs
+    def b_operand(buf, cm, ng, group, k):
+        """(16, 8) bf16 through the descriptor of slice (group, field k)."""
+        start = (k * 2 * ng + 2 * group) * cm
+        kk, n = torch.arange(16)[:, None], torch.arange(8)[None, :]
+        return buf[start + (kk // 8) * cm + 8 * n + kk % 8]
 
-    for z in range(-(-B // 8)):
-        b0 = 8 * z
-        Bz = min(8, B - b0)
+    for z in range(-(-B // MAXB)):
+        b0 = MAXB * z
+        Bz = min(MAXB, B - b0)
+        bp = _pad_rows(Bz)
+        cm = core_bytes(bp) // 2
         for cb in range(m // tile_m):
             col0 = cb * tile_m
             blocks = []
             for split in range(splits):
-                gms = [geometry(p, split) for p in range(len(planes))]
-                xss = [stage_x(gm, b0, Bz) for gm in gms]
-                blocks.append(dict(
-                    gms=gms, xss=xss, L=0,
-                    sums=xss[0].to(torch.float32).sum((1, 2)),
-                    ring=torch.zeros((STAGES, RPS, SROW),
-                                     dtype=torch.int64)))
+                pts = parts(split)
+                bufs = {fb: _staged(xb[b0:b0 + Bz], d, fb, rg0, ng, bp)
+                        for fb, rg0, ng in pts}
+                fb, rg0, ng = pts[0]
+                vals = bufs[fb][:-64].reshape(-1, 8).float()
+                rows_of = (torch.arange(vals.shape[0]) % (cm // 8))
+                sums = torch.stack([vals[rows_of == b].sum()
+                                    for b in range(Bz)])
+                blocks.append(dict(pts=pts, bufs=bufs, sums=sums, it=0,
+                                   ring=torch.zeros((STAGES, 8 * GPS, SROW),
+                                                    dtype=torch.int64)))
             xsum = torch.zeros(Bz)
             for blk in blocks:                      # split order
                 xsum = xsum + blk["sums"]
@@ -220,77 +242,56 @@ def slabdot_walk_ref(x: torch.Tensor, planes: Sequence[torch.Tensor], scale,
                 for blk in blocks:
                     blk["red"] = torch.zeros((Bz, chunk_cols))
                     for cgi in range(cg0, cg1):
-                        tot = torch.zeros((4, 2, 16, 8))
-                        for p, (gm, xs) in enumerate(zip(blk["gms"],
-                                                         blk["xss"])):
-                            # (field parity, warp, q, row, n)
-                            chains = torch.zeros((2, 4, 2, 16, 8))
-                            fph, fb = gm["fph"], gm["fb"]
-                            for st in range(gm["nst"]):
-                                slot = blk["L"] % STAGES
-                                blk["L"] += 1
-                                j0 = 8 * (gm["rg0"] + GPS * st)
-                                cols = col0 + cgi * CG
-                                box = words[p][j0:j0 + RPS, cols:cols + SROW]
+                        cols = col0 + cgi * CG
+                        y = torch.zeros((2, 64, 8))
+                        for p in reversed(range(len(planes))):
+                            fb, rg0, ng = blk["pts"][p]
+                            buf = blk["bufs"][fb]
+                            # (set, m-tile, R, n); batches of 2 fields
+                            # take the sets in turn
+                            D = torch.zeros((ASETS, 2, 64, 8))
+                            mask = ((1 << fb) - 1) * 0x00010001
+                            for r0 in range(0, ng, GPS):
+                                slot = blk["it"] % STAGES
+                                blk["it"] += 1
+                                j0 = 8 * (rg0 + r0)
+                                box = words[p][j0:j0 + 8 * GPS,
+                                               cols:cols + SROW]
                                 blk["ring"][slot] = 0
                                 blk["ring"][slot, :box.shape[0],
                                             :box.shape[1]] = box
-                                ngrp = min(GPS,
-                                           gm["rg1"] - gm["rg0"] - GPS * st)
-                                for grp in range(ngrp):
-                                    rgl = GPS * st + grp
-                                    # W[hh, t]: (warp, q, r) words of row
-                                    # 8grp + t + 4hh
-                                    W = torch.stack([torch.stack([
-                                        blk["ring"][slot, 8 * grp + t + 4 * hh]
-                                        [colmap] for t in range(4)])
-                                        for hh in (0, 1)])
-                                    kk = torch.arange(fph)
-                                    mask = ((1 << fb) - 1) * 0x00010001
-                                    sl = (((W[None] >> (fb * kk).view(
-                                        -1, 1, 1, 1, 1, 1)) & mask)
-                                        | _BF16_128)    # (k, hh, t, w, q, r)
-                                    halves = torch.stack(
-                                        [as_bf16(sl & 0xFFFF),
-                                         as_bf16(sl >> 16)], -1)
-                                    # -> (k, w, q, r, kk = 8hh + 2t + h)
-                                    A = halves.permute(0, 3, 4, 5, 1, 2,
-                                                       6).reshape(
-                                        fph, 4, 2, 16, 16).to(torch.float32)
-                                    word = ((rgl * fph + kk)[:, None, None] * 8
-                                            + torch.arange(4)[None, None, :]
-                                            + 4 * torch.arange(2)[None, :,
-                                                                  None])
-                                    # lanes g >= Bz read row Bz - 1 (their
-                                    # columns of C are never stored)
-                                    rows8 = torch.clamp(torch.arange(8),
-                                                        max=Bz - 1)
-                                    Bm = xs[rows8][:, word].permute(
-                                        1, 2, 3, 4, 0).to(torch.float32)
-                                    Bm = Bm.reshape(fph, 16, 8)
-                                    prods = torch.einsum("kwqrj,kjn->kwqrn",
-                                                         A, Bm)
-                                    for k in range(fph):
-                                        chains[k % 2] += prods[k]
-                            tot += gm["pw"] * (chains[0] + chains[1])
+                                for gi in range(min(GPS, ng - r0)):
+                                    w8 = blk["ring"][slot, 8 * gi:8 * gi + 8,
+                                                     :CG]         # (j, col)
+                                    for k in range(16 // fb):
+                                        reg = ((w8 >> (fb * k)) & mask) \
+                                            | _BF16_128
+                                        A = torch.stack(
+                                            (as_bf16(reg & 0xFFFF),
+                                             as_bf16(reg >> 16)), -1)
+                                        A = A.permute(1, 0, 2).reshape(CG, 16)
+                                        Bm = b_operand(buf, cm, ng, r0 + gi,
+                                                       k).float()
+                                        bi = gi * (8 // fb) + k // 2
+                                        D[bi % ASETS] += A[colmap].float() @ Bm
+                            y += sb[p][1] * D.sum(0)
                         at = (cgi - cg0) * CG + colmap.reshape(-1)
-                        blk["red"][:, at] = tot.reshape(-1, 8)[:, :Bz].t()
+                        blk["red"][:, at] = y.reshape(-1, 8)[:, :Bz].t()
                 # each block's share of the chunk's outputs, in float4s
-                ccols = (cg1 - cg0) * CG
-                q4 = ccols // 4
+                q4 = (cg1 - cg0) * CG // 4
                 done = torch.zeros(Bz * q4, dtype=torch.int32)
                 for split in range(splits):
                     e = torch.arange(Bz * q4 * split // splits,
                                      Bz * q4 * (split + 1) // splits)
                     done[e] += 1
                     b, cc = e // q4, (e % q4) * 4
-                    for j in range(4):
+                    for jj in range(4):
                         v = torch.zeros(len(e))
                         for blk in blocks:              # split order
-                            v = v + blk["red"][b, cc + j]
+                            v = v + blk["red"][b, cc + jj]
                         v = s0 * ((2.0 / maxq) * (v - 128.0 * pwsum * xsum[b])
                                   - xsum[b])
-                        out[b0 + b, col0 + cg0 * CG + cc + j] = v
+                        out[b0 + b, col0 + cg0 * CG + cc + jj] = v
                 assert bool((done == 1).all())
     return out
 

@@ -155,6 +155,20 @@ def _sample(gen: torch.Generator, logits: torch.Tensor, temperature,
     return _sample_on(gen, logits.float().cpu(), t, top_k, tp)
 
 
+def _graph_family(key: tuple) -> tuple:
+    """A chunk graph's key (``Engine._chunk_key``, ``_arena_key``,
+    ``_spec_key``) without its chunk length and page bucket: the keys of
+    one family run the same operations on other shapes, so the eager run
+    of its first key makes the derived state they all read (the fused
+    RHT's operands, the sampling ops) before any of them is captured
+    (serve/graphs.py)."""
+    if key[0] == "arena":                 # ("arena", T, ...)
+        return key[:1] + key[2:]
+    if key[0] == "spec":                  # ("spec", S, K, n_pages, ...)
+        return key[:1] + key[2:3] + key[4:]
+    return key[2:]                        # (T, n_pages, ...)
+
+
 def _decode_chunk_paged(params: Model, tokens: torch.Tensor,
                         caches: PG.PagedKV, cfg: ModelConfig, *, page: int,
                         n_pages: int, gen: torch.Generator,
@@ -357,7 +371,8 @@ class Engine:
         self._front_mask = torch.zeros(B, dtype=torch.bool, device=dev)
         # a CUDA graph cannot hold gloo's collectives: chunks run eagerly
         self._graphs = ChunkGraphs(dev, self.gen_dev, eager=(
-            mesh is not None and mesh.backend == "gloo"))
+            mesh is not None and mesh.backend == "gloo"),
+            family=_graph_family)
         self._unshared: List[Dict[str, Any]] = []
         self._t_shared = time.time()
         self.accept_hist: List[int] = []   # spec: tokens emitted a step

@@ -134,7 +134,7 @@ def _build(texts: dict) -> dict:
 
 
 def ablate(gen, dev, scale):
-    fns = _build(variants(source("dequant_matmul_decode.cu")))
+    fns = _build(variants(source("dequant_matmul_decode.cu", headers=True)))
     sums = {(name, B): 0.0 for name in fns for B in ROWS}
     for sname, (m, d) in SHAPES.items():
         copies = _planes(m, d, gen, dev)
@@ -180,9 +180,7 @@ def _stamped(src: str) -> str:
     ``decode_stamps`` that copies them out (12 per block: clocks at entry,
     wait, staged, walked, end; full-slot and wgmma waits; global timer at
     entry and end)."""
-    s = rep(src, "namespace cg = cooperative_groups;\n",
-            "namespace cg = cooperative_groups;\n"
-            "__device__ unsigned long long g_st[8192][12];\n"
+    s = ("__device__ unsigned long long g_st[8192][12];\n"
             "__device__ __forceinline__ unsigned long long clk() {\n"
             "  unsigned long long t;\n"
             "  asm volatile(\"mov.u64 %0, %%clock64;\" : \"=l\"(t));\n"
@@ -190,7 +188,7 @@ def _stamped(src: str) -> str:
             "__device__ __forceinline__ unsigned long long gtime() {\n"
             "  unsigned long long t;\n"
             "  asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-            "  return t;\n}\n")
+            "  return t;\n}\n") + src
     waits = "unsigned long long& wf, unsigned long long& ww"
     s = rep(s, "    uint32_t cm16, uint32_t fstep, int lane, uint32_t e128) {",
             "    uint32_t cm16, uint32_t fstep, int lane, uint32_t e128, "
@@ -215,10 +213,8 @@ def _stamped(src: str) -> str:
             "    grid_dep_wait();\n    T[1] = clk();  // x and out belong")
     s = rep(s, "    fence_proxy_async();                 // wgmma reads",
             "    T[2] = clk();\n    fence_proxy_async();  // wgmma reads")
-    s = rep(s, "                        lane, e128, wf, ww);\n"
-            "    grid_dep_launch();",
-            "                        lane, e128, wf, ww);\n"
-            "    T[3] = clk();\n    grid_dep_launch();")
+    s = rep(s, "lane, e128, wf, ww);\n    grid_dep_launch();",
+            "lane, e128, wf, ww);\n    T[3] = clk();\n    grid_dep_launch();")
     s = rep(s, "  if (splits > 1) cluster.sync();      // nobody leaves while "
             "it is still read\n}",
             "  if (splits > 1) cluster.sync();\n"
@@ -233,7 +229,7 @@ def _stamped(src: str) -> str:
 
 def stages(gen, dev, scale):
     texts = {name: _stamped(text) for name, text in
-             variants(source("dequant_matmul_decode.cu")).items()
+             variants(source("dequant_matmul_decode.cu", headers=True)).items()
              if name in ("as it is", "copies only")}
     fns = _build(texts)
     buf = torch.zeros(8192 * 12, dtype=torch.int64)

@@ -23,9 +23,29 @@ def rep(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
-def source(name: str) -> str:
-    """The text of ``kernels/csrc/<name>``."""
-    return (_build._CSRC / name).read_text()
+_QUOTED = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"[^\n]*\n', re.M)
+
+
+def source(name: str, headers: bool = False) -> str:
+    """The text of ``kernels/csrc/<name>``; with ``headers``, each header it
+    includes by a quoted name from ``csrc`` written out in its place (once,
+    recursively, ``#pragma once`` dropped), so that an edit can reach the
+    device code a kernel shares with another."""
+    text = (_build._CSRC / name).read_text()
+    if not headers:
+        return text
+    seen = set()
+
+    def expand(mt):
+        path = _build._CSRC / mt.group(1)
+        if not path.is_file():
+            return mt.group(0)
+        if path.name in seen:
+            return ""
+        seen.add(path.name)
+        body = path.read_text().replace("#pragma once\n", "")
+        return _QUOTED.sub(expand, body)
+    return _QUOTED.sub(expand, text)
 
 
 def serialised(log: str) -> int:

@@ -435,6 +435,63 @@ def test_k1p_shapes_and_reproducible(cuda, m, d, B, tile_m):
     assert torch.equal(got, again)
 
 
+def test_k1p_waits_for_the_kernel_that_writes_its_x(cuda):
+    """K1′ goes out under programmatic dependent launch: it may start while
+    the kernel before it runs, but stages x only after griddepcontrol.wait.
+    A chain of K1′ calls, each one's output the next one's x (d = m), the
+    output buffers handed out by the allocator from a block just filled
+    with NaN: each call equals its plain version on the x the call before
+    wrote (a read before that kernel's stores would read NaN)."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    m = d = 2048
+    planes = [tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                  dtype=torch.int32, generator=g,
+                                  device=cuda)
+                    for fb, _ in PLANE_SPLITS[2]) for _ in range(4)]
+    scale = torch.tensor(0.002, device=cuda)
+    x = torch.randn(1, d, generator=g, device=cuda).bfloat16()
+    chain = [x]
+    for p in planes:
+        junk = torch.full((1, m), float("nan"), device=cuda,
+                          dtype=torch.bfloat16)
+        del junk                   # the allocator hands its block out next
+        chain.append(SD.slabdot_matmul(chain[-1], p, scale, bits=2,
+                                       tile_m=512))
+    torch.cuda.synchronize()
+    for xin, y, p in zip(chain, chain[1:], planes):
+        want = SD.slabdot_matmul_ref(xin.float(), p, scale, bits=2)
+        assert torch.isfinite(y).all()
+        assert ((y.float() - want).abs().max()
+                / want.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("bits", [2, 3])
+def test_k1p_graph_replay_matches_eager(cuda, bits):
+    """K1′ captured in a CUDA graph (the microbenchmark times it so), its
+    x then written in place: a replay gives the eager call's output on the
+    new x bit for bit (the splits add in a fixed order), within 1e-2 of the
+    plain version (bf16 out)."""
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    m, d = 1280, 1408
+    planes = tuple(torch.randint(-2 ** 31, 2 ** 31, (d * fb // 32, m),
+                                 dtype=torch.int32, generator=g, device=cuda)
+                   for fb, _ in PLANE_SPLITS[bits])
+    scale = torch.tensor(0.01, device=cuda)
+    x = torch.randn(5, d, generator=g, device=cuda).bfloat16()
+    before = SD.launches
+    graph, got = _captured(lambda: SD.slabdot_matmul(x, planes, scale,
+                                                     bits=bits, tile_m=640))
+    assert SD.launches == before + 2      # the side stream's, the capture's
+    x.copy_(torch.randn(5, d, generator=g, device=cuda))
+    graph.replay()
+    eager = SD.slabdot_matmul(x, planes, scale, bits=bits, tile_m=640)
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+    want = SD.slabdot_matmul_ref(x.float(), planes, scale, bits=bits)
+    assert ((got.float() - want).abs().max()
+            / want.abs().max()).item() <= 1e-2
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     x = torch.randn(2, 64, device=cuda)
     plane = torch.zeros(4, 32, dtype=torch.int32, device=cuda)
@@ -497,6 +554,96 @@ def test_chunk_graph_replay_matches_eager(cuda):
     assert torch.equal(replay, eager)
     for t, a in zip(state, after):
         assert torch.equal(t, a)
+
+
+def test_later_chunk_graph_replays_at_first_use(cuda):
+    """Only the first key of a family (serve/engine.py::_graph_family)
+    runs its chunk eagerly before the capture; a later key of the family
+    (another chunk length) is captured at once and replayed for the
+    caller's chunk: its tokens, hot ring, frontier and cursors equal
+    the same chunk run eagerly from the same state, bit for bit, and its
+    first use counts the launches of one chunk."""
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    cfg = get_config("llama-tiny")
+    model = packed_model(cfg, bits=2, seed=0, dtype=torch.float32,
+                         head_bits=2, device=cuda)
+    eng = _engine(cuda, cfg, model, max_batch=2, max_seq=64, hot=16, page=8)
+    eng.submit([5, 6, 7], max_new_tokens=20)
+    eng.submit(list(range(1, 12)), max_new_tokens=20)
+    eng._admit()
+    eng._frontier_from_host([0, 1])
+    eng._push_cursors(np.zeros(2, np.float32), np.ones(2, np.float32))
+    state = (eng.pkv.hot_k, eng.pkv.hot_v, eng._tok, eng._hot_d)
+    saved = [t.clone() for t in state]
+    first = (2, 2, True, 0, False)
+    eng._graphs.run(eng._chunk_key(*first), eng._chunk_fn(*first))
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    args = (4, 2, True, 0, False)
+    d0 = DM.launches_decode
+    got = eng._graphs.run(eng._chunk_key(*args), eng._chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    assert len(eng._graphs) == 2
+    assert DM.launches_decode - d0 == 4 * (4 * 2 + 1)
+    after = [t.clone() for t in state]
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eager = eng._chunk_fn(*args)().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
+    for t, a in zip(state, after):
+        assert torch.equal(t, a)
+
+
+def test_fused_family_runs_eagerly_before_its_capture(cuda, monkeypatch):
+    """A chunk key of a new family (the fused RHT switched on after an
+    un-fused key was captured) runs its chunk eagerly before its capture,
+    so K3's bf16 operands are cached outside the graph; the next key of
+    that family (another chunk length) prepares none in its capture. Its
+    graph replays the eager chunk's tokens bit for bit. A 1-layer
+    full-width 2-bit Llama-2-7B in bf16."""
+    import dataclasses
+
+    from quip_tpu_torch.models import get_config
+    from quip_tpu_torch.models.build import packed_model
+    from quip_tpu_torch.serve.engine import _graph_family
+    monkeypatch.setenv("QUIP_FUSED_RHT", "0")
+    cfg = dataclasses.replace(get_config("llama-2-7b"), n_layers=1)
+    model = packed_model(cfg, bits=2, seed=3, dtype=torch.bfloat16,
+                         head_bits=2, device=cuda)
+    eng = _engine(cuda, cfg, model, max_batch=2, max_seq=128, hot=16,
+                  page=64, cache_dtype=torch.bfloat16)
+    eng.submit([5, 6, 7], max_new_tokens=20)
+    eng.submit(list(range(1, 12)), max_new_tokens=20)
+    eng._admit()
+    eng._frontier_from_host([0, 1])
+    eng._push_cursors(np.zeros(2, np.float32), np.ones(2, np.float32))
+    state = (eng.pkv.hot_k, eng.pkv.hot_v, eng._tok, eng._hot_d)
+    saved = [t.clone() for t in state]
+    first = (2, 1, True, 0, False)
+    eng._graphs.run(eng._chunk_key(*first), eng._chunk_fn(*first))
+    n0 = len(K3._cache)
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eng._graphs.run(eng._chunk_key(*first), eng._chunk_fn(*first))
+    assert _graph_family(eng._chunk_key(*first)) in eng._graphs._warm
+    n1 = len(K3._cache)
+    assert n1 > n0
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    args = (4, 1, True, 0, False)
+    warm = len(eng._graphs._warm)
+    got = eng._graphs.run(eng._chunk_key(*args), eng._chunk_fn(*args)).clone()
+    torch.cuda.synchronize()
+    assert len(eng._graphs) == 3 and len(eng._graphs._warm) == warm
+    assert len(K3._cache) == n1
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    eager = eng._chunk_fn(*args)().clone()
+    torch.cuda.synchronize()
+    assert torch.equal(got, eager)
 
 
 @pytest.mark.parametrize("fused", [False, True])

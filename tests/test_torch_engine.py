@@ -9,6 +9,7 @@ import torch
 
 from quip_tpu.serve import engine as JE
 from quip_tpu_torch.serve import engine as TE
+from quip_tpu_torch.serve.speculative import make_self_draft
 from tests.test_torch_model import _both
 
 
@@ -67,3 +68,35 @@ def test_engine_defaults_to_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         TE.Engine(tparams, tcfg)
     assert jax.devices()[0].platform == "cpu"
+
+
+def test_graph_family_drops_only_the_shape(monkeypatch):
+    """Chunk graph keys that differ only in their chunk length or page
+    bucket share a family, whose first key alone runs eagerly before its
+    capture (serve/graphs.py); greedy or sampled, top-k, top-p and the
+    fused RHT switch each make another family, for the paged, the arena
+    and the spec keys."""
+    _, _, tcfg, tparams = _both()
+    eng = TE.Engine(tparams, tcfg, max_batch=2, max_seq=64, hot=16, page=8,
+                    paged=True, device="cpu",
+                    draft=make_self_draft(tparams, tcfg, 1), spec_k=2)
+    fam = TE._graph_family
+    monkeypatch.setenv("QUIP_FUSED_RHT", "0")
+    for key in (eng._chunk_key, eng._spec_key):
+        base = fam(key(1, 1, True, 0, False))
+        assert fam(key(4, 3, True, 0, False)) == base
+        assert len({base, fam(key(1, 1, False, 0, False)),
+                    fam(key(1, 1, True, 1, False)),
+                    fam(key(1, 1, True, 0, True))}) == 4
+    base = fam(eng._arena_key(2, True, 0, False))
+    assert fam(eng._arena_key(16, True, 0, False)) == base
+    assert len({base, fam(eng._arena_key(2, False, 0, False)),
+                fam(eng._arena_key(2, True, 5, False)),
+                fam(eng._arena_key(2, True, 0, True))}) == 4
+    unfused = [fam(eng._chunk_key(1, 1, True, 0, False)), base,
+               fam(eng._spec_key(1, 1, True, False, False))]
+    monkeypatch.setenv("QUIP_FUSED_RHT", "1")
+    fused = [fam(eng._chunk_key(1, 1, True, 0, False)),
+             fam(eng._arena_key(2, True, 0, False)),
+             fam(eng._spec_key(1, 1, True, False, False))]
+    assert len(set(unfused + fused)) == 6

@@ -175,7 +175,7 @@ def test_plain_matches_pallas_kernel(pallas_slabdot, bits, B, tile_m):
 @pytest.mark.parametrize("bits,B,m,d,tile_m", [
     (b, B, 640, 1024, t) for b in (2, 3, 4) for B in (1, 3, 8)
     for t in (128, 640)] + [
-    # 11 and 6 groups of word rows over 8 splits: uneven splits, stages of
+    # 11 and 6 groups of word rows over 4 splits: uneven splits, slots of
     # one group, a ragged last group of the 1-bit plane; two tiles of rows
     (3, 13, 384, 1408, 384),
     # 2 nw not a multiple of 8 (x staged pair by pair), one split
@@ -197,12 +197,14 @@ def test_walk_matches_plain_and_pallas(pallas_slabdot, bits, B, m, d, tile_m):
 
 
 def test_plan_rule():
-    """splits: a power of two, within four blocks an SM, at most 8 and the
-    shortest plane's groups, doubled where x's staged rows would not fit;
-    chunks of partials within 32 KB."""
+    """splits: a power of two, within two blocks an SM (the kernel's
+    register budget), at most 8 and the shortest plane's groups, doubled
+    where x's staged rows would not fit; chunks of partials within 32 KB;
+    a block's shared memory: the ring, the partials, x once a distinct
+    field width (8-bit's two 4-bit planes share it) and 128 + 128 bytes."""
     assert SD._plan(4096, 512, 1, 4096, [2], 132) == (8, 512)
-    assert SD._plan(22016, 512, 1, 4096, [2], 132) == (8, 512)
-    assert SD._plan(32000, 640, 1, 4096, [2], 132) == (8, 640)
+    assert SD._plan(22016, 512, 1, 4096, [2], 132) == (4, 512)
+    assert SD._plan(32000, 640, 1, 4096, [2], 132) == (4, 640)
     assert SD._plan(32000, 128, 1, 4096, [2], 132) == (2, 128)
     assert SD._plan(32000, 32000, 8, 4096, [2], 132) == (8, 1024)
     assert SD._plan(640, 640, 13, 1024, [2, 1], 132) == (4, 640)
@@ -212,3 +214,30 @@ def test_plan_rule():
     assert splits > 1 and chunk == 1024
     assert SD._smem_bytes(8, 11008, [2, 1], splits, chunk) <= SD.SMEM_MAX
     assert SD._smem_bytes(8, 11008, [2, 1], splits // 2, chunk) > SD.SMEM_MAX
+    ring = 4 * SD.STAGES * 8 * SD.GPS * SD.SROW
+    assert SD._smem_bytes(1, 4096, [2], 8, 512) == (
+        128 + ring + 4 * 512 + 128 + 8 * 2 * 4 * 16)
+    assert SD._smem_bytes(5, 4096, [4, 4], 8, 512) == (
+        128 + ring + 4 * 5 * 512 + 128 + 4 * 2 * 8 * (16 * 8 + 16))
+
+
+@pytest.mark.parametrize("tool,name", [
+    ("tune_slabdot", "slabdot_matmul.cu"),
+    ("tune_decode", "dequant_matmul_decode.cu")])
+def test_tuning_copies_apply(tool, name):
+    """The tuning tools' copies of K1′ and K1-decode are text edits of each
+    source with the device code the two share (``csrc/decode_common.cuh``,
+    ``csrc/hopper.cuh``) written out in place: every edit finds its text
+    (``variants.rep`` asserts it) and changes the source; K1-decode's
+    stamped copies too."""
+    import importlib
+    from quip_tpu_torch.tools import variants as V
+    mod = importlib.import_module(f"quip_tpu_torch.tools.{tool}")
+    src = V.source(name, headers=True)
+    assert '#include "' not in src and "#pragma once" not in src
+    assert src.count("consume_plane(") >= 1 and "sd_kernel" in V.source(
+        "slabdot_matmul.cu", headers=True)
+    vs = mod.variants(src)
+    assert vs["as it is"] == src and len(set(vs.values())) == len(vs)
+    if tool == "tune_decode":
+        assert all("decode_stamps" in mod._stamped(v) for v in vs.values())

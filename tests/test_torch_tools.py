@@ -94,11 +94,22 @@ def test_proxy_eval_matches():
 
 def test_equivalence_check_matches():
     want = JAn.optq_ldlq_equivalence_check(32, 48, 3, 1)
-    got = TAn.optq_ldlq_equivalence_check(32, 48, 3, 1)
+    got = TAn.optq_ldlq_equivalence_check(32, 48, 3, 1, device="cpu")
     assert sorted(got) == sorted(want)
     for k in want:
         assert abs(got[k] - want[k]) <= 1e-9 * max(1.0, abs(want[k])), k
     assert got["frac_agree_1e6"] > 0.99
+
+
+def test_equivalence_check_defaults_to_the_card():
+    """An entry point: its device defaults to "cuda" and, with no card,
+    the default raises instead of running on the CPU."""
+    import inspect
+    fn = TAn.optq_ldlq_equivalence_check
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(32, 48, 3, 1)
 
 
 def _run(main, argv):
